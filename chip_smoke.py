@@ -13,8 +13,9 @@ Phases (each failure exits non-zero; nothing is swallowed):
 2. kernels vs plain versions — calls each kernel's wrapper on the card at
    the llama3-e8t2 shapes the serving path gives it and holds the result
    against its plain PyTorch version (``kernels/ref.py``):
-   bf16 outputs within 2e-2 x max|plain|, the flash lse within 1e-3; prints
-   kernel, plain and library times (CUDA events) beside the bound;
+   bf16 outputs within 2e-2 x max|plain|, the flash lse within 1e-3, the
+   paged-attention kernels' idle row exactly 0; prints kernel, plain and
+   library times (CUDA events) beside the bound;
 3. serve — llama3-e8t2 at full width, 4 layers (the only cut), sorted
    dispatcher, kernels on, random weights from ``--seed`` drawn on the card:
    ``ServingEngine`` (ring cache, max_batch 4) answers 8 requests of 16-300
@@ -28,9 +29,22 @@ Phases (each failure exits non-zero; nothing is swallowed):
    torch.profiler window shows where the device time goes, and on a small
    input (the smoke config cut to one layer) the kernels' first-token
    logits must agree with their plain versions' within 2e-2 x max|logits|;
-4. the serving CLI, in process (smoke config, kernels on).
+4. the serving CLI, in process (smoke config, kernels on): ring cache, then
+   paged with the prefix cache and int8 KV pages;
+5. paged serve — the same model and cut through ``cache_mode="paged"``
+   (page size 16, prefill chunk 32, max_batch 4, prefix cache on) on 8
+   requests of 16-300 prompt tokens sharing a 64-token stem, 32 new tokens
+   each, once with bf16 KV pages and once with int8. Launch counts are
+   reset just before and read just after each run; the grouped GEMM and
+   that run's paged-attention kernel must have launched, and the prefix
+   cache must have hit. Every kernel call of a short paged serve is held
+   against its plain version; greedy tokens are compared with the ring
+   engine on the same requests (reported); a profiler window gives the
+   device's busy share; and on the one-layer smoke config the paged path's
+   first-token and decode-step logits through the kernels must agree with
+   their plain versions' within 2e-2 x max|logits|, for bf16 and int8 KV.
 
-The last two lines are the card's ``nvidia-smi`` name and power limit and
+``--phases 1,2`` stops after the build and the kernel checks. The last two lines are the card's ``nvidia-smi`` name and power limit and
 the result JSON; the line before them lists the kernels. Imports nothing of
 JAX or of the JAX package.
 """
@@ -47,7 +61,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
-GG_TOL, FA_TOL, LSE_TOL, LOGIT_TOL = 2e-2, 2e-2, 1e-3, 2e-2
+GG_TOL, FA_TOL, LSE_TOL, LOGIT_TOL, PA_TOL = 2e-2, 2e-2, 1e-3, 2e-2, 2e-2
 
 
 def card_line() -> str:
@@ -214,25 +228,127 @@ def check_flash(gen, S: int, window=None, B=1, H=32, KV=8, d=128):
 
 
 # ---------------------------------------------------------------------------
+# phase 2: paged attention
+# ---------------------------------------------------------------------------
+
+
+def paged_case(gen, lens=(332, 300, 17, 0), H=32, KV=8, d=128, ps=16, maxP=22, hole_row=1):
+    """Random bf16 pools, a shuffled page per logical page of each row, the
+    idle row (length 0) with no pages, and one -1 page in the middle of row
+    ``hole_row``'s table."""
+    import torch
+
+    dev = torch.device("cuda")
+    B = len(lens)
+    num_pages = B * maxP + 1
+    q = torch.randn((B, H, d), generator=gen, device=dev).bfloat16()
+    k = torch.randn((num_pages, ps, KV, d), generator=gen, device=dev).bfloat16()
+    v = torch.randn((num_pages, ps, KV, d), generator=gen, device=dev).bfloat16()
+    perm = torch.randperm(num_pages - 1, generator=gen, device=dev).tolist()
+    bt = torch.full((B, maxP), -1, dtype=torch.int32)
+    used = 0
+    for b, n in enumerate(lens):
+        need = -(-n // ps)
+        bt[b, :need] = torch.tensor(perm[used:used + need], dtype=torch.int32)
+        used += need
+    bt[hole_row, (-(-lens[hole_row] // ps)) // 2] = -1
+    return q, k, v, bt.to(dev), torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
+def live_keys(bt, lens, ps: int, window=None) -> int:
+    """Keys the kernel must read: positions p of each row with an assigned
+    page, p < length and, with a window, p >= length - window."""
+    n = 0
+    for row, L in zip(bt.tolist(), lens.tolist()):
+        lo = max(L - window, 0) if window else 0
+        n += sum(1 for p in range(lo, L) if row[p // ps] >= 0)
+    return n
+
+
+def check_paged(gen, q8: bool, window=None):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.quant import dequantize_kv, quantize_kv
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.ref import paged_attention_q8_ref, paged_attention_ref
+
+    q, k, v, bt, sl = paged_case(gen)
+    B, H, d = q.shape
+    ps, KV = k.shape[1], k.shape[2]
+    scale = d ** -0.5
+    name = "paged_attention_q8" if q8 else "paged_attention"
+    if q8:
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        fn = lambda: pa.paged_attention_q8_cuda(q, kq, vq, ks, vs, bt, sl, window, scale)
+        plain = lambda: paged_attention_q8_ref(q, kq, vq, ks, vs, bt, sl, window, scale)
+        kg_src, vg_src = dequantize_kv(kq, ks, torch.bfloat16), dequantize_kv(vq, vs, torch.bfloat16)
+        elem = 1 + 4 / d  # int8 payload plus the fp32 scale per (token, head)
+    else:
+        fn = lambda: pa.paged_attention_cuda(q, k, v, bt, sl, window, scale)
+        plain = lambda: paged_attention_ref(q, k, v, bt, sl, window, scale)
+        kg_src, vg_src = k, v
+        elem = 2
+    out, ref = fn(), plain()
+    torch.cuda.synchronize()
+    err, rel = rel_err(out, ref)
+    idle = [b for b, n in enumerate(sl.tolist()) if n == 0]
+    idle_max = float(out[idle].float().abs().max()) if idle else 0.0
+    ok = rel <= PA_TOL and idle_max == 0.0 and bool(torch.isfinite(out.float()).all())
+    keys = live_keys(bt, sl, ps, window)
+    # k and v of each live key (with its scales), q and out, the table and lengths
+    nbytes = 2 * keys * KV * d * elem + 2 * q.numel() * 2 + 4 * (bt.numel() + sl.numel())
+    b_ms, b_by = bound(nbytes, 4 * H * d * keys)
+    # the library yardstick: SDPA over KV already gathered to (B, KV, L, d)
+    # (the gather is not timed; no single library call reads a page table)
+    btc = bt.long().clamp_min(0)
+    kg = kg_src[btc].reshape(B, -1, KV, d).transpose(1, 2).contiguous()
+    vg = vg_src[btc].reshape(B, -1, KV, d).transpose(1, 2).contiguous()
+    pos = torch.arange(kg.shape[2], device=q.device)
+    mask = (pos[None] < sl[:, None]) & (bt >= 0)[:, pos // ps]
+    if window:
+        mask &= pos[None] > sl[:, None] - 1 - window
+    mask = mask[:, None, None, :]
+    qt = q[:, :, None, :]
+    lib = lambda: F.scaled_dot_product_attention(qt, kg, vg, attn_mask=mask, enable_gqa=True)
+    row = dict(name=name, max_abs_err=err, rel_err=rel, idle_row_max=idle_max, ok=ok,
+               ms=time_ms(fn, reps=50, warmup=5), plain_ms=time_ms(plain, reps=5, warmup=1),
+               bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, reps=50, warmup=5),
+               shape=f"B={B} H={H} KV={KV} d={d} ps={ps} maxP={bt.shape[1]} seq_lens={sl.tolist()} "
+                     f"window={window} live keys={keys}")
+    print(f"  {name} [window={window}] err {err:.4g} (rel {rel:.3g}, tol {PA_TOL}) idle row max|out| "
+          f"{idle_max} kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms sdpa on gathered KV "
+          f"{row['library_ms']:.4f} ms bound {b_ms:.5f} ms ({b_by}, {nbytes / 1e6:.3f} MB)")
+    if not ok:
+        raise SystemExit(f"{name} [window={window}] disagrees with its plain version")
+    return row
+
+
+# ---------------------------------------------------------------------------
 # phase 3: serve
 # ---------------------------------------------------------------------------
 
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the model's two kernel call sites (``ops.grouped_gemm``,
-    ``ops.flash_attention``) to the kernels' plain versions for the block:
-    the same path and arithmetic as the kernel run, without the kernels."""
+    """Route the model's kernel call sites (``ops.grouped_gemm``,
+    ``ops.flash_attention``, ``ops.paged_attention``,
+    ``ops.paged_attention_q8``) to the kernels' plain versions for the
+    block: the same path and arithmetic as the kernel run, without the
+    kernels."""
     from repro_torch.kernels import ops, ref
 
-    saved = ops.grouped_gemm, ops.flash_attention
+    names = ("grouped_gemm", "flash_attention", "paged_attention", "paged_attention_q8")
+    saved = {n: getattr(ops, n) for n in names}
     ops.grouped_gemm = ref.grouped_gemm_ref
     ops.flash_attention = lambda q, k, v, causal=True, window=None, scale=None: ref.flash_attention_ref(
         q, k, v, causal, window, scale)
+    ops.paged_attention = ref.paged_attention_ref
+    ops.paged_attention_q8 = ref.paged_attention_q8_ref
     try:
         yield
     finally:
-        ops.grouped_gemm, ops.flash_attention = saved
+        for n, f in saved.items():
+            setattr(ops, n, f)
 
 
 @contextlib.contextmanager
@@ -242,7 +358,7 @@ def checked_kernels(report: list):
     max|plain|) to ``report``; the kernel's output is what the model uses."""
     from repro_torch.kernels import ops, ref
 
-    gg, fa = ops.grouped_gemm, ops.flash_attention
+    gg, fa, pa, pa8 = ops.grouped_gemm, ops.flash_attention, ops.paged_attention, ops.paged_attention_q8
 
     def grouped(xs, w_gate, w_up, w_down, group_sizes, row_block=128):
         y = gg(xs, w_gate, w_up, w_down, group_sizes, row_block)
@@ -255,11 +371,39 @@ def checked_kernels(report: list):
         report.append(("flash_fwd", tuple(q.shape), rel_err(y, ref.flash_attention_ref(q, k, v, causal, window, scale))[1]))
         return y
 
+    def paged(q, k_pool, v_pool, bt, sl, window=None, scale=None):
+        y = pa(q, k_pool, v_pool, bt, sl, window, scale)
+        r = ref.paged_attention_ref(q, k_pool, v_pool, bt, sl, window, scale)
+        report.append(("paged_attention", (tuple(q.shape), tuple(bt.shape)), rel_err(y, r)[1]))
+        return y
+
+    def paged_q8(q, k_pool, v_pool, k_scale, v_scale, bt, sl, window=None, scale=None):
+        y = pa8(q, k_pool, v_pool, k_scale, v_scale, bt, sl, window, scale)
+        r = ref.paged_attention_q8_ref(q, k_pool, v_pool, k_scale, v_scale, bt, sl, window, scale)
+        report.append(("paged_attention_q8", (tuple(q.shape), tuple(bt.shape)), rel_err(y, r)[1]))
+        return y
+
     ops.grouped_gemm, ops.flash_attention = grouped, flash
+    ops.paged_attention, ops.paged_attention_q8 = paged, paged_q8
     try:
         yield
     finally:
-        ops.grouped_gemm, ops.flash_attention = gg, fa
+        ops.grouped_gemm, ops.flash_attention, ops.paged_attention, ops.paged_attention_q8 = gg, fa, pa, pa8
+
+
+def report_checked(report: list, names) -> None:
+    """Print the worst per-call disagreement of each kernel in ``report``;
+    fail if a kernel was never called or disagrees."""
+    for name in names:
+        calls = [r for r in report if r[0] == name]
+        if not calls:
+            raise SystemExit(f"{name} was never called in the checked serve run")
+        w = max(r[2] for r in calls)
+        print(f"  in the serving path: {len(calls)} {name} calls vs their plain versions on the same "
+              f"inputs, worst max|diff|/max|plain| {w:.4g} (tol {GG_TOL}); shapes "
+              f"{sorted({r[1] for r in calls})}")
+        if w > GG_TOL:
+            raise SystemExit(f"{name} disagrees with its plain version inside the serving path")
 
 
 def serve(seed: int, layers: int = 4, requests: int = 8, max_new: int = 32, max_batch: int = 4):
@@ -311,7 +455,8 @@ def serve(seed: int, layers: int = 4, requests: int = 8, max_new: int = 32, max_
     print(f"  kernel launches during the serve run: {launches}")
     if not all(len(v) == max_new for v in out_k.values()):
         raise SystemExit("a request did not receive all its tokens")
-    if not all(n > 0 for n in launches.values()):
+    ring_kernels = ("grouped_gate_up", "grouped_down", "flash_fwd")
+    if not all(launches[n] > 0 for n in ring_kernels):
         raise SystemExit(f"a kernel of the serving path was never launched: {launches}")
 
     # every kernel call of a prefill (at the 340 and 32 buckets) and of the
@@ -319,14 +464,7 @@ def serve(seed: int, layers: int = 4, requests: int = 8, max_new: int = 32, max_
     report: list = []
     with checked_kernels(report):
         run(True, [0, 5], 3)
-    for name in ("grouped_gemm", "flash_fwd"):
-        calls = [r for r in report if r[0] == name]
-        w = max(r[2] for r in calls)
-        print(f"  in the serving path: {len(calls)} {name} calls vs their plain versions on the same "
-              f"inputs, worst max|diff|/max|plain| {w:.4g} (tol {GG_TOL}); shapes "
-              f"{sorted({r[1] for r in calls})}")
-        if w > GG_TOL:
-            raise SystemExit(f"{name} disagrees with its plain version inside the serving path")
+    report_checked(report, ("grouped_gemm", "flash_fwd"))
 
     # end to end at full width: the kernels' path, the same path on the
     # kernels' plain versions, and the use_kernel=False path. With random
@@ -410,9 +548,169 @@ def small_input_check(seed: int) -> None:
         raise SystemExit("kernel path logits disagree with the plain versions on the small input")
 
 
-def profile_window(run) -> None:
+# ---------------------------------------------------------------------------
+# phase 5: paged serve
+# ---------------------------------------------------------------------------
+
+
+def serve_paged(seed: int, layers: int = 4, requests: int = 8, max_new: int = 32, max_batch: int = 4,
+                stem_len: int = 64):
+    """llama3-e8t2 at full width (``layers`` deep) through the paged engine:
+    page size 16, prefill chunk 32, prefix cache on, once with bf16 KV pages
+    and once with int8. The prompts (16-300 tokens) share a 64-token stem,
+    so requests admitted after the first wave hit the prefix trie."""
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config, with_dispatcher
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import model_decl
+    from repro_torch.params import init_from_decls
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.kv_cache import ring_kv_bytes
+
+    cfg = with_dispatcher(get_config("llama3-e8t2").replace(num_layers=layers), "sorted")
+    params = init_from_decls(model_decl(cfg), seed, "cuda")
+    rng = np.random.default_rng(seed + 1)
+    lens = rng.integers(16, 301, size=requests)
+    lens[0] = 300
+    stem = rng.integers(0, cfg.vocab_size, stem_len)
+    prompts = [np.concatenate([stem, rng.integers(0, cfg.vocab_size, max(int(L) - stem_len, 0))])[:L]
+               .astype(np.int32) for L in lens]
+    max_seq = int(lens.max()) + max_new + 8
+    print(f"  {cfg.name}, {layers} layers at full width, prompt lengths {lens.tolist()} sharing a "
+          f"{stem_len}-token stem, max_seq {max_seq}, page size 16, prefill chunk 32, max_batch {max_batch}")
+
+    def run(use_kernel: bool, which=None, new=max_new, quant="none", mode="paged"):
+        kw = (dict(cache_mode="paged", page_size=16, prefill_chunk=32, prefix_cache=True, quant_kv=quant)
+              if mode == "paged" else {})
+        eng = ServingEngine(cfg, params, max_batch=max_batch, max_seq=max_seq, use_kernel=use_kernel,
+                            device="cuda", **kw)
+        reqs = [Request(rid=i, prompt=prompts[i], max_new_tokens=new)
+                for i in (which if which is not None else range(len(prompts)))]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = eng.run(reqs)
+        torch.cuda.synchronize()
+        return eng, out, time.perf_counter() - t
+
+    run(True, [len(prompts) - 1], 2, mode="ring")  # warm-up: library load, cuBLAS handles
+    _, out_ring, _ = run(True, mode="ring")
+    ring_bytes = ring_kv_bytes(cfg, max_batch, max_seq)
+    results, launches_by_mode = {}, {}
+    for quant in ("none", "int8"):
+        pa_name = "paged_attention_q8" if quant == "int8" else "paged_attention"
+        tag = f"paged {'int8' if quant == 'int8' else 'bf16'} KV"
+        run(True, [len(prompts) - 1], 2, quant=quant)  # warm-up
+        ops.reset_launch_counts()
+        eng, out, wall = run(True, quant=quant)
+        launches = ops.launch_counts()
+        ntok = sum(len(v) for v in out.values())
+        pre, dec, plan = eng.timings["prefill_chunk_s"], eng.timings["decode_s"], eng.timings["plan_s"]
+        kv = eng.kv_stats()
+        px = kv["prefix"]
+        preempt = sum(r.preemptions for r in eng.sched.requests.values())
+        same = sum(a == b for r in out for a, b in zip(out[r], out_ring[r]))
+        print(f"  [{tag}] served {len(out)} requests, {ntok} tokens in {wall:.3f} s ({ntok / wall:.2f} tok/s); "
+              f"prefill chunk mean {1e3 * sum(pre) / len(pre):.3f} ms over {len(pre)}; decode step mean "
+              f"{1e3 * sum(dec) / len(dec):.3f} ms over {len(dec)} steps; scheduler plan mean "
+              f"{1e3 * sum(plan) / len(plan):.4f} ms (host) over {len(plan)} steps")
+        print(f"  [{tag}] peak KV {kv['kv_bytes_peak']} bytes ({kv['peak_used_pages']}/{kv['num_pages']} pages) "
+              f"vs the ring cache's {ring_bytes} bytes; prefix cache {px['hits']}/{px['lookups']} hits, "
+              f"{px['hit_tokens']} prompt tokens from cache, {px['cow_clones']} COW clones; "
+              f"preemptions {preempt}")
+        print(f"  [{tag}] kernel launches during the serve run: {launches}")
+        print(f"  [{tag}] greedy tokens vs the ring engine on the same requests: {same}/{ntok} positions "
+              f"equal (reported, not gated: bf16 rounding differs between the two paths)")
+        if not all(len(v) == max_new for v in out.values()):
+            raise SystemExit(f"[{tag}] a request did not receive all its tokens")
+        needed = ("grouped_gate_up", "grouped_down", pa_name)
+        if not all(launches[n] > 0 for n in needed):
+            raise SystemExit(f"[{tag}] a kernel of the paged path was never launched: {launches}")
+        if px["hits"] < 1:
+            raise SystemExit(f"[{tag}] the prefix cache never hit")
+        report: list = []
+        with checked_kernels(report):
+            run(True, [0, 5], 3, quant=quant)
+        report_checked(report, ("grouped_gemm", pa_name))
+        busy = profile_window(lambda *a: run(*a, quant=quant))
+        launches_by_mode[quant] = launches
+        results["bf16" if quant == "none" else "int8"] = dict(
+            tokens_per_s=ntok / wall, prefill_chunk_ms=1e3 * sum(pre) / len(pre),
+            decode_step_ms=1e3 * sum(dec) / len(dec), plan_ms=1e3 * sum(plan) / len(plan),
+            kv_bytes_peak=kv["kv_bytes_peak"],
+            ring_kv_bytes=ring_bytes, prefix_hits=px["hits"], prefix_lookups=px["lookups"],
+            preemptions=preempt, equal_to_ring=f"{same}/{ntok}", device_busy_share=busy)
+    del params
+    torch.cuda.empty_cache()
+    paged_small_input_check(seed)
+    return launches_by_mode, results
+
+
+def paged_logits(cfg, params, prompt, next_tok=None, ps: int = 16, chunk: int = 32):
+    """First-token logits of one prompt prefilled in chunks through
+    ``paged_forward``, then the logits of one decode step on ``next_tok``
+    (default: the first token's argmax); kernels wherever ``ops`` routes."""
+    import torch
+    from repro_torch.models.model import decode_step_paged, paged_forward
+    from repro_torch.serving.kv_cache import init_paged_pool
+
+    dev = torch.device("cuda")
+    L = len(prompt)
+    n_pages = -(-(L + 1) // ps)
+    pool = init_paged_pool(cfg, n_pages, ps, device=dev)
+    bt = torch.arange(n_pages, dtype=torch.int32, device=dev)[None]
+    one = lambda x: torch.tensor([x], dtype=torch.int32, device=dev)
+    for start in range(0, L, chunk):
+        n = min(chunk, L - start)
+        toks = torch.zeros((1, chunk), dtype=torch.long, device=dev)
+        toks[0, :n] = torch.as_tensor(prompt[start:start + n], device=dev)
+        first, _ = paged_forward(cfg, params, pool, toks, one(start), bt, one(n), use_kernel=True)
+    tok = int(first[0, :cfg.vocab_size].argmax()) if next_tok is None else next_tok
+    dec, _ = decode_step_paged(cfg, params, pool, one(tok), one(L), bt, one(1), use_kernel=True)
+    for lg in (first, dec):
+        if lg.shape != (1, cfg.padded_vocab) or not bool(torch.isfinite(lg).all()):
+            raise SystemExit(f"paged logits malformed: {tuple(lg.shape)}")
+    return first, dec, tok
+
+
+def paged_small_input_check(seed: int) -> None:
+    """The small-input gate of the paged path: the smoke config of
+    llama3-e8t2 cut to one layer, bf16 and int8 KV pages. The first-token
+    logits and the next decode step's logits through the kernels (grouped
+    GEMM, paged attention) must agree with the same path on the kernels'
+    plain versions within LOGIT_TOL x max|logits|."""
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config, smoke_config, with_dispatcher
+    from repro_torch.models.model import model_decl
+    from repro_torch.params import init_from_decls
+
+    cfg = with_dispatcher(smoke_config(get_config("llama3-e8t2")).replace(num_layers=1), "sorted")
+    params = init_from_decls(model_decl(cfg), seed, "cuda")
+    rng = np.random.default_rng(seed)
+    lens = (12, 40, 100)
+    prompts = [rng.integers(0, cfg.vocab_size, L).astype(np.int32) for L in lens]
+    with torch.inference_mode():
+        for quant in ("none", "int8"):
+            qcfg = cfg.replace(quant_kv=quant)
+            worst_first = worst_dec = 0.0
+            for p in prompts:
+                fk, dk, tok = paged_logits(qcfg, params, p)
+                with plain_kernels():
+                    fp, dp, _ = paged_logits(qcfg, params, p, next_tok=tok)
+                worst_first = max(worst_first, rel_err(fk, fp)[1])
+                worst_dec = max(worst_dec, rel_err(dk, dp)[1])
+            print(f"  small input (smoke config, 1 layer, paged, {quant} KV, prompts {list(lens)}): kernels vs "
+                  f"their plain versions, first-token logits {worst_first:.4g}, decode-step logits "
+                  f"{worst_dec:.4g} of max|logits| (tol {LOGIT_TOL})")
+            if max(worst_first, worst_dec) > LOGIT_TOL:
+                raise SystemExit(f"paged kernel path logits ({quant} KV) disagree with the plain versions")
+
+
+def profile_window(run) -> float:
     """torch.profiler over a short serve (prompts 0 and 5, 8 new tokens):
-    device time by kernel and the device's busy share of the wall time."""
+    device time by kernel and the device's busy share of the wall time,
+    which it returns."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -424,12 +722,13 @@ def profile_window(run) -> None:
           f"{dev_us / 1e3:.3f} ms ({100 * dev_us / 1e6 / wall:.1f}% of wall)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d} calls  {e.key[:90]}")
+    return dev_us / 1e6 / wall
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="1,2,3,4", help="comma list of phases to run")
+    ap.add_argument("--phases", default="1,2,3,4,5", help="comma list of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -474,6 +773,9 @@ def main(argv=None) -> int:
         check_flash(gen, 340)
         kernels["flash_fwd"] = check_flash(gen, 512)
         check_flash(gen, 512, window=128)
+        for q8 in (False, True):
+            kernels["paged_attention_q8" if q8 else "paged_attention"] = check_paged(gen, q8)
+            check_paged(gen, q8, window=128)
         torch.cuda.empty_cache()
 
     launches, stats = {}, {}
@@ -481,19 +783,32 @@ def main(argv=None) -> int:
         print("[3] serve llama3-e8t2 (ring cache, sorted dispatcher, kernels on)")
         launches, stats = serve(args.seed)
     if 4 in phases:
-        print("[4] python -m repro_torch.launch.serve --arch llama3-e8t2 --smoke --requests 2 "
-              "--max-new 4 --dispatcher sorted --use-kernel")
         from repro_torch.launch.serve import main as serve_main
 
-        out = serve_main(["--arch", "llama3-e8t2", "--smoke", "--requests", "2", "--max-new", "4",
-                          "--dispatcher", "sorted", "--use-kernel"])
-        if sorted(out) != [0, 1] or not all(len(v) == 4 for v in out.values()):
-            raise SystemExit(f"serving CLI returned {out}")
+        for extra in ([], ["--cache-mode", "paged", "--prefix-cache", "--quant-kv", "int8", "--requests", "6",
+                           "--prompt-len", "40"]):
+            argv = ["--arch", "llama3-e8t2", "--smoke", "--requests", "2", "--max-new", "4",
+                    "--dispatcher", "sorted", "--use-kernel", *extra]
+            print(f"[4] python -m repro_torch.launch.serve {' '.join(argv)}")
+            out = serve_main(argv)
+            n = 6 if extra else 2
+            if sorted(out) != list(range(n)) or not all(len(v) == 4 for v in out.values()):
+                raise SystemExit(f"serving CLI returned {out}")
+    paged_launches = {}
+    if 5 in phases:
+        print("[5] serve llama3-e8t2 (paged KV, prefix cache, sorted dispatcher, kernels on)")
+        paged_launches, stats["paged"] = serve_paged(args.seed)
+        launches = {**launches, "paged_attention": paged_launches["none"]["paged_attention"],
+                    "paged_attention_q8": paged_launches["int8"]["paged_attention_q8"]}
 
     sources = {
         "grouped_gate_up": ("src/repro_torch/kernels/csrc/grouped_gemm.cu", "src/repro/kernels/expert_gemm.py:335"),
         "grouped_down": ("src/repro_torch/kernels/csrc/grouped_gemm.cu", "src/repro/kernels/expert_gemm.py:355"),
         "flash_fwd": ("src/repro_torch/kernels/csrc/flash_fwd.cu", "src/repro/kernels/flash_attention.py:222"),
+        "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+                            "src/repro/kernels/paged_attention.py:126"),
+        "paged_attention_q8": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+                               "src/repro/kernels/paged_attention.py:265"),
     }
     rows = []
     for name, (src, replaces) in sources.items():
@@ -504,6 +819,9 @@ def main(argv=None) -> int:
             "ms": k.get("ms"), "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
             "bound_by": k.get("bound_by"), "library_ms": k.get("library_ms"), "shape": k.get("shape"),
         })
+    print(json.dumps({"launches_by_path": {"ring": {k: v for k, v in launches.items()
+                                                    if k in ("grouped_gate_up", "grouped_down", "flash_fwd")},
+                                           **{f"paged_{q}": v for q, v in paged_launches.items()}}}))
     print(json.dumps({"serve": stats}))
     print(json.dumps({"kernels": rows}))
     print(card_line())

@@ -81,9 +81,11 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
 
     dtype: str = "bfloat16"
-    quant_weights: str = "none"
-    quant_kv: str = "none"
+    quant_weights: str = "none"  # none | int8 (int8 expert weights: not ported yet)
+    quant_kv: str = "none"  # none | int8 (int8 KV pages with per-token scale sidecars)
     vocab_divisor: int = 2048
+
+    QUANT_MODES = ("none", "int8")
 
     def __post_init__(self):
         if self.family not in ("dense", "moe") or self.use_mla:
@@ -91,8 +93,13 @@ class ModelConfig:
                 f"family={self.family!r} use_mla={self.use_mla} is not ported "
                 f"yet ({_LATER})"
             )
-        if self.quant_weights != "none" or self.quant_kv != "none":
-            raise NotImplementedError("int8 serving is ROADMAP queue 1, 'int8'")
+        for name in ("quant_weights", "quant_kv"):
+            if getattr(self, name) not in self.QUANT_MODES:
+                raise ValueError(
+                    f"{name} must be one of {self.QUANT_MODES}, got {getattr(self, name)!r}"
+                )
+        if self.quant_weights != "none":
+            raise NotImplementedError("int8 expert weights are ROADMAP queue 1, 'int8'")
 
     @property
     def head_dim_(self) -> int:

@@ -1,5 +1,5 @@
 """Public wrappers for the port's kernels (port of ``repro.kernels.ops``
-for the ring-serving slice). A CUDA tensor launches the hand-written
+for the ring- and paged-serving slices). A CUDA tensor launches the hand-written
 kernel and raises if it cannot; a CPU tensor takes the plain version. No
 autotuner: the CUDA kernels have fixed tiles.
 """
@@ -12,6 +12,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import expert_gemm as _eg
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import paged_attention as _pa
 
 
 def grouped_gemm(xs, w_gate, w_up, w_down, group_sizes, row_block: int = _eg.ROW_TILE) -> torch.Tensor:
@@ -44,12 +45,30 @@ def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
     return _fa.flash_fwd(q, k, v, causal, window, scale)[0]
 
 
+def paged_attention(q, k_pool, v_pool, block_table, seq_lens,
+                    window: Optional[int] = None, scale: Optional[float] = None) -> torch.Tensor:
+    """Single-token decode against the block-table KV pool: q (B,H,d),
+    pools (num_pages, page_size, KV, d), block_table (B, max_pages) int32
+    (-1 = unassigned), seq_lens (B,). The kernel resolves the pages
+    itself; no gathered copy."""
+    return _pa.paged_attention(q, k_pool, v_pool, block_table, seq_lens, window, scale)
+
+
+def paged_attention_q8(q, k_pool, v_pool, k_scale, v_scale, block_table, seq_lens,
+                       window: Optional[int] = None, scale: Optional[float] = None) -> torch.Tensor:
+    """int8-KV decode: int8 pools with per-token / KV-head fp32 scale
+    sidecars shaped (num_pages, page_size, KV, 1), dequantised in the
+    kernel's tile."""
+    return _pa.paged_attention_q8(q, k_pool, v_pool, k_scale, v_scale, block_table, seq_lens,
+                                  window, scale)
+
+
 def launch_counts() -> Dict[str, int]:
     """CUDA launches of each kernel since the last reset."""
-    return {**_eg.LAUNCHES, **_fa.LAUNCHES}
+    return {**_eg.LAUNCHES, **_fa.LAUNCHES, **_pa.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    for d in (_eg.LAUNCHES, _fa.LAUNCHES):
+    for d in (_eg.LAUNCHES, _fa.LAUNCHES, _pa.LAUNCHES):
         for k in d:
             d[k] = 0

@@ -95,3 +95,59 @@ def flash_attention_ref(
     if return_lse:
         return out, torch.logsumexp(s, -1).reshape(B * H, Sq)
     return out
+
+
+def paged_attention_ref(
+    q: torch.Tensor,  # (B, H, d) one query token per sequence
+    k_pool: torch.Tensor,  # (num_pages, page_size, KV, d) shared page pool
+    v_pool: torch.Tensor,  # (num_pages, page_size, KV, d)
+    block_table: torch.Tensor,  # (B, max_pages) page ids, -1 = unassigned
+    seq_lens: torch.Tensor,  # (B,) tokens valid per sequence (incl. current)
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Gather oracle of the paged-attention decode kernel. Logical KV slot
+    ``j`` of sequence ``b`` lives at ``pool[block_table[b, j // ps], j %
+    ps]``; slots at or past ``seq_lens[b]``, under an unassigned page or
+    (with a window) at or below ``seq_lens[b] - 1 - window`` are masked. A
+    row with no live slot (an idle batch slot) gives zeros. Returns (B, H,
+    d) in the pool's dtype; the probabilities are rounded to it before
+    P·V."""
+    B, H, d = q.shape
+    ps, KV = k_pool.shape[1], k_pool.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else d ** -0.5
+    bt = block_table.long().clamp_min(0)
+    kg = k_pool[bt].reshape(B, -1, KV, d)  # (B, maxP*ps, KV, d)
+    vg = v_pool[bt].reshape(B, -1, KV, d)
+    kpos = torch.arange(kg.shape[1], device=q.device)
+    sl = seq_lens.long()[:, None]
+    valid = (kpos[None] < sl) & (block_table >= 0)[:, kpos // ps]
+    if window is not None:
+        valid = valid & (kpos[None] > sl - 1 - window)
+    qg = q.reshape(B, KV, G, d)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(), kg.float()) * scale
+    s = torch.where(valid[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, -1)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(vg.dtype).float(), vg.float())
+    out = torch.where(valid.any(-1)[:, None, None, None], out, 0.0)
+    return out.reshape(B, H, d).to(v_pool.dtype)
+
+
+def paged_attention_q8_ref(
+    q: torch.Tensor,  # (B, H, d)
+    k_pool: torch.Tensor,  # (num_pages, page_size, KV, d) int8
+    v_pool: torch.Tensor,  # (num_pages, page_size, KV, d) int8
+    k_scale: torch.Tensor,  # (num_pages, page_size, KV, 1) per-token scales
+    v_scale: torch.Tensor,  # (num_pages, page_size, KV, 1)
+    block_table: torch.Tensor,
+    seq_lens: torch.Tensor,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """int8-KV oracle: dequantise the pools to fp32, run
+    :func:`paged_attention_ref` wholly in fp32, cast to q's dtype."""
+    kd = k_pool.float() * k_scale.float()
+    vd = v_pool.float() * v_scale.float()
+    out = paged_attention_ref(q.float(), kd, vd, block_table, seq_lens, window, scale)
+    return out.to(q.dtype)

@@ -1,8 +1,11 @@
-"""Serving launcher: batched greedy decoding with the ring-cache
-ServingEngine, on the card unless ``--device cpu``.
+"""Serving launcher: batched greedy decoding with the ServingEngine (ring
+cache or page pool), on the card unless ``--device cpu``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-e8t2 \\
       --smoke --requests 2 --max-new 4 --dispatcher sorted --use-kernel
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-e8t2 \\
+      --smoke --dispatcher sorted --use-kernel --cache-mode paged \\
+      --prefix-cache --quant-kv int8 --device cpu
 """
 from __future__ import annotations
 
@@ -33,13 +36,40 @@ def main(argv=None):
                     help="MoE token dispatcher (only 'sorted' is ported so far)")
     ap.add_argument("--use-kernel", action="store_true",
                     help="run the hand-written CUDA kernels (grouped expert "
-                         "GEMM, flash-attention prefill)")
+                         "GEMM, flash-attention prefill, paged-attention decode)")
+    ap.add_argument("--cache-mode", default="ring", choices=["ring", "paged"],
+                    help="KV cache backend: dense ring buffer or block-table page pool")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page (paged mode)")
+    ap.add_argument("--num-pages", type=int, default=None,
+                    help="page-pool size (default: ring-capacity parity)")
+    ap.add_argument("--prefill-chunk", type=int, default=32,
+                    help="prompt tokens per chunked-prefill step")
+    ap.add_argument("--deadline-steps", type=int, default=0,
+                    help="evict requests older than this many engine steps "
+                         "(0 = no deadlines; paged mode only)")
     ap.add_argument("--max-queue", type=int, default=0,
                     help="shed submits past this queue depth with a typed "
                          "ShedError (0 = unbounded)")
+    ap.add_argument("--shed-watermark", type=int, default=0,
+                    help="shed submits when free KV pages minus backlog dip "
+                         "below this reserve (0 = off; paged mode only)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix prefix cache over the page pool: requests "
+                         "sharing a prompt stem reuse its KV pages (paged "
+                         "mode only; the demo prompts share a stem so the "
+                         "cache actually hits)")
+    ap.add_argument("--quant-kv", default="none", choices=["none", "int8"],
+                    help="int8 KV pages with a per-token scale sidecar "
+                         "(requires --cache-mode paged)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
     args = ap.parse_args(argv)
+    if args.prefix_cache and args.cache_mode != "paged":
+        ap.error("--prefix-cache requires --cache-mode paged")
+    if args.quant_kv != "none" and args.cache_mode != "paged":
+        ap.error("--quant-kv requires --cache-mode paged (the scale sidecar "
+                 "lives in the page pool)")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -50,11 +80,21 @@ def main(argv=None):
         cfg, params, max_batch=args.max_batch,
         max_seq=args.prompt_len + args.max_new + 8,
         dispatcher=args.dispatcher, use_kernel=args.use_kernel,
-        max_queue=args.max_queue or None, device=device,
+        cache_mode=args.cache_mode, page_size=args.page_size, num_pages=args.num_pages,
+        prefill_chunk=args.prefill_chunk, deadline_steps=args.deadline_steps or None,
+        max_queue=args.max_queue or None, shed_watermark=args.shed_watermark or None,
+        prefix_cache=args.prefix_cache, quant_kv=args.quant_kv, device=device,
     )
     rng = np.random.default_rng(args.seed)
+
+    def _prompt():
+        return rng.integers(0, cfg.vocab_size, args.prompt_len).astype(np.int32)
+
+    stem = _prompt()[: args.prompt_len // 2]  # shared head for --prefix-cache
     reqs = [
-        Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, args.prompt_len).astype(np.int32),
+        Request(rid=i,
+                prompt=(np.concatenate([stem, _prompt()[len(stem):]])
+                        if args.prefix_cache else _prompt()),
                 max_new_tokens=args.max_new)
         for i in range(args.requests)
     ]
@@ -78,12 +118,28 @@ def main(argv=None):
     total_tokens = sum(len(v) for v in outputs.values())
     print(f"served {len(accepted)} requests ({shed} shed), {total_tokens} "
           f"tokens in {dt:.2f}s ({total_tokens/dt:.1f} tok/s, "
-          f"batch={args.max_batch}, cache=ring, device={device})")
+          f"batch={args.max_batch}, cache={args.cache_mode}, device={device})")
+    if args.quant_kv != "none":
+        print(f"  quant: weights=none, kv={args.quant_kv} "
+              f"(int8 payloads, fp32 accumulate, scales in sidecars)")
     h = engine.health()
+    expired = [r.rid for r in accepted if r.status == "deadline"]
+    if expired:
+        print(f"  deadline-evicted requests: {expired}")
     print(f"  health: shed {h['shed_count']}, deadline evictions "
           f"{h['deadline_evictions']}, queued {h['queued_requests']}, "
           f"resident {h['resident_requests']}")
-    print(f"  kv peak {engine.kv_stats()['kv_bytes_peak']/1e6:.2f} MB")
+    kv = engine.kv_stats()
+    print(f"  kv peak {kv['kv_bytes_peak']/1e6:.2f} MB"
+          + (f", page util {kv['page_utilization']:.2f}, "
+             f"peak pages {kv['peak_used_pages']}/{kv['num_pages']}"
+             if args.cache_mode == "paged" else ""))
+    if args.prefix_cache:
+        p = kv["prefix"]
+        print(f"  prefix cache: {p['hits']}/{p['lookups']} hits, "
+              f"{p['hit_tokens']} prompt tokens served from cache, "
+              f"{p['cow_clones']} COW clones, "
+              f"{p['resident_pages']} pages resident")
     for rid, out in sorted(outputs.items())[:4]:
         print(f"  req {rid}: {out[:12]}{'...' if len(out) > 12 else ''}")
     return outputs

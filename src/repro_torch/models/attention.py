@@ -1,6 +1,6 @@
-"""GQA attention: training/prefill without a cache and single-token decode
-against the ring-buffer KV cache (port of the GQA part of
-``repro.models.attention``).
+"""GQA attention: training/prefill without a cache, single-token decode
+against the ring-buffer KV cache, and decode / chunked prefill against the
+shared KV page pool (port of the GQA part of ``repro.models.attention``).
 
 ``attention_core`` has the JAX package's three routes:
 
@@ -11,7 +11,7 @@ against the ring-buffer KV cache (port of the GQA part of
 * blockwise — online softmax over ``_KV_BLOCK`` key blocks (forward only
   here) for long sequences.
 
-Not in this slice: the paged-cache branch, MLA and cross-attention.
+Not ported yet: MLA and cross-attention.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core.quant import dequantize_kv, quantize_kv
 from repro_torch.models.layers import rope_apply
 from repro_torch.params import ParamDecl
 
@@ -132,9 +133,11 @@ def gqa_apply(
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """x: (B,S,D). Without ``cache``: full-sequence attention (``return_kv``
     hands back this layer's k/v for the prefill cache). With ``cache`` and
-    a ring ``cache_view`` (``slot``/``slot_pos``, S == 1): decode. The ring
-    write updates ``cache["k"]``/``cache["v"]`` in place (JAX returns new
-    arrays; the port saves the copy). Returns (out, cache layer or None)."""
+    a ring ``cache_view`` (``slot``/``slot_pos``, S == 1): decode. With a
+    paged ``cache_view`` (``page_table``...): decode or a prefill chunk
+    against the layer's slice of the page pool. Cache writes update the
+    cache tensors in place (JAX returns new arrays; the port saves the
+    copy). Returns (out, cache layer or None)."""
     B, S, D = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
@@ -151,12 +154,12 @@ def gqa_apply(
             use_kernel=use_kernel,
         )
         new_cache = {"k": k, "v": v} if return_kv else None
+    elif cache_view is not None and "page_table" in cache_view:
+        out = _paged_attention(cfg, cache, cache_view, q, k, v, positions, use_kernel)
+        new_cache = cache
     else:
         if cache_view is None or "slot" not in cache_view or S != 1:
-            raise NotImplementedError(
-                "only the ring-cache decode view is ported (paged cache: "
-                "ROADMAP queue 1, 'paged serving')"
-            )
+            raise ValueError("a ring-cache decode needs cache_view slot/slot_pos and S == 1")
         rows = torch.arange(B, device=x.device)
         slot = cache_view["slot"]
         cache["k"][rows, slot] = k[:, 0]
@@ -167,3 +170,55 @@ def gqa_apply(
         )
         new_cache = cache
     return torch.einsum("bshk,hkd->bsd", out, params["wo"]), new_cache
+
+
+def _paged_attention(cfg, cache, cache_view, q, k, v, positions, use_kernel: bool) -> torch.Tensor:
+    """Paged decode / chunked prefill against this layer's pool slice
+    ``cache`` (``k``/``v`` (num_pages, ps, KV, hd), and for int8 pages the
+    ``k_scale``/``v_scale`` sidecars (num_pages, ps, KV, 1)). ``cache_view``:
+    ``page_table`` (B, maxP); ``write_page``/``write_offset`` (B, S), the
+    scatter targets (padded and idle positions go to the trash page);
+    ``k_pos`` (B, maxP*ps), -1 for masked slots; ``seq_lens`` (B,).
+
+    The new k/v are scattered into the pool first (in place; int8 pages
+    are quantised on the scatter, their scales written at the same place),
+    then ``use_kernel`` and S == 1 take the paged-attention kernel; any
+    other call gathers the pages and runs ``attention_core`` without
+    ``use_kernel``, as the JAX branch does. A row's table may hold shared
+    prefix pages, but the write targets only pages past its prefilled
+    boundary: the scheduler clones a shared page before any chunk can
+    write into it."""
+    from repro_torch.kernels import ops
+
+    B, S = q.shape[:2]
+    wp = cache_view["write_page"].long()
+    wo = cache_view["write_offset"].long()
+    quant = "k_scale" in cache
+    if quant:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        cache["k"][wp, wo] = kq
+        cache["v"][wp, wo] = vq
+        cache["k_scale"][wp, wo] = ks
+        cache["v_scale"][wp, wo] = vs
+    else:
+        cache["k"][wp, wo] = k.to(cache["k"].dtype)
+        cache["v"][wp, wo] = v.to(cache["v"].dtype)
+    if use_kernel and S == 1:
+        args = (cache_view["page_table"], cache_view["seq_lens"])
+        if quant:
+            out = ops.paged_attention_q8(q[:, 0], cache["k"], cache["v"], cache["k_scale"],
+                                         cache["v_scale"], *args, window=cfg.sliding_window)
+        else:
+            out = ops.paged_attention(q[:, 0], cache["k"], cache["v"], *args,
+                                      window=cfg.sliding_window)
+        return out[:, None]
+    KVh, hd = cache["k"].shape[2], cache["k"].shape[3]
+    bt = cache_view["page_table"].long().clamp_min(0)
+    if quant:
+        kg = dequantize_kv(cache["k"][bt], cache["k_scale"][bt], q.dtype)
+        vg = dequantize_kv(cache["v"][bt], cache["v_scale"][bt], q.dtype)
+    else:
+        kg, vg = cache["k"][bt], cache["v"][bt]
+    return attention_core(q, kg.reshape(B, -1, KVh, hd), vg.reshape(B, -1, KVh, hd), positions,
+                          cache_view["k_pos"], cfg.sliding_window)

@@ -5,6 +5,9 @@ dense/moe GQA families):
 * ``prefill_forward`` — one full-sequence forward that also emits a
   decode-ready ring cache (length-bucketed via ``valid_len``).
 * ``decode_step``     — one new token against the ring KV cache.
+* ``paged_forward``   — a prefill chunk or a decode step against the shared
+  KV page pool (``paged_stack_decl``); ``decode_step_paged`` is its S == 1
+  case.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import torch
 
 from repro_torch.models.layers import embed_apply, embed_decl, norm_apply, norm_decl, unembed_apply
 from repro_torch.models.transformer import build_slots, periods_for, stack_apply, stack_cache_decl, stack_decl
-from repro_torch.params import ParamDecl, torch_dtype, tree_map
+from repro_torch.params import ParamDecl, torch_dtype, tree_leaves, tree_map
 
 
 def model_decl(cfg) -> Dict[str, Any]:
@@ -124,3 +127,120 @@ def prefill_forward(
     if valid_len is not None:
         slot_pos = torch.where(slot_pos >= total[:, None], -1, slot_pos)
     return logits, {"pos": total, "slot_pos": slot_pos, "stack": stack_cache}
+
+
+# ---------------------------------------------------------------------------
+# Paged-KV decode / chunked prefill (serving/kv_cache.py drives these)
+# ---------------------------------------------------------------------------
+
+
+def paged_stack_decl(cfg, num_pages: int, page_size: int) -> Dict[str, Any]:
+    """KV page-pool declarations: per layer slot, ``(P, num_pages,
+    page_size, KV, hd)`` k/v pools shared by every sequence. The LAST page
+    (``num_pages - 1``) is the trash page: padded positions write there and
+    it never appears in a block table, so a pool of N usable pages declares
+    N + 1 (``serving.kv_cache.PagePool`` owns the layout).
+
+    ``cfg.quant_kv == "int8"`` makes the k/v payload int8 and adds fp32
+    per-token, per-KV-head scale sidecars ``k_scale``/``v_scale`` shaped
+    ``(P, num_pages, page_size, KV, 1)`` to the same subtree, so every pool
+    operation (copy-on-write, defrag) moves the scales with their pages."""
+    slots = build_slots(cfg)
+    periods = periods_for(cfg, slots)
+    kv, hd = cfg.num_kv_heads, cfg.head_dim_
+    quant = cfg.quant_kv == "int8"
+    dt = torch.int8 if quant else torch_dtype(cfg.dtype)
+    axes = ("layers", None, None, None, None)
+
+    def pool():
+        attn = {n: ParamDecl((periods, num_pages, page_size, kv, hd), axes, "zeros", dt)
+                for n in ("k", "v")}
+        if quant:
+            for n in ("k_scale", "v_scale"):
+                attn[n] = ParamDecl((periods, num_pages, page_size, kv, 1), axes, "zeros", torch.float32)
+        return {"attn": attn}
+
+    return {"stack": {f"slot{i}": pool() for i in range(len(slots))}}
+
+
+def paged_forward(
+    cfg,
+    params,
+    pool: Dict[str, Any],
+    tokens: torch.Tensor,  # (B, S) chunk of token ids (right-padded)
+    pos_start: torch.Tensor,  # (B,) absolute position of tokens[:, 0]
+    page_table: torch.Tensor,  # (B, max_pages) int32 page ids, -1 = unassigned
+    valid_len: torch.Tensor,  # (B,) real tokens in this chunk (0 = idle slot)
+    use_kernel: bool = False,
+    trash_page: Optional[torch.Tensor] = None,  # (B,) per-row trash page id
+    return_all_logits: bool = False,
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One forward over the page-table cache view: S > 1 is a prefill chunk
+    (attends to the pages written before and to the chunk itself,
+    causally), S == 1 a decode step. Logical KV slot ``j`` of sequence
+    ``b`` lives at ``pool[page_table[b, j // ps], j % ps]``; pages never
+    wrap. Writes of padded and idle positions go to the trash page (the
+    last page, or ``trash_page`` per row). The pool leaves are updated in
+    place. Returns (fp32 logits (B, padded_vocab) at each row's last valid
+    position — (B, S, padded_vocab) at every position with
+    ``return_all_logits``, as the speculative verify step needs — and the
+    pool)."""
+    B, S = tokens.shape
+    dev = tokens.device
+    leaf = tree_leaves(pool["stack"])[0]  # (P, num_pages, ps, KV, hd)
+    num_pages, ps = leaf.shape[1], leaf.shape[2]
+    maxP = page_table.shape[1]
+    page_table = page_table.to(torch.int32)
+    if trash_page is None:
+        trash = torch.full((B, 1), num_pages - 1, dtype=torch.int32, device=dev)
+    else:
+        trash = trash_page.to(torch.int32)[:, None]
+
+    ar = torch.arange(S, dtype=torch.int32, device=dev)
+    positions = pos_start.to(torch.int32)[:, None] + ar[None, :]
+    pvalid = ar[None, :] < valid_len.to(torch.int32)[:, None]
+    # padded positions may run past the table; their write goes to the trash
+    wp = torch.gather(page_table, 1, (positions // ps).long().clamp(0, maxP - 1))
+    wp = torch.where(pvalid & (wp >= 0), wp, trash)
+    wo = positions % ps
+    seq_lens = pos_start.to(torch.int32) + valid_len.to(torch.int32)
+    kpos = torch.arange(maxP * ps, dtype=torch.int32, device=dev)
+    k_pos = torch.where(
+        (kpos[None, :] < seq_lens[:, None]) & (page_table[:, kpos.long() // ps] >= 0),
+        kpos[None, :], -1,
+    )
+    cache_view = {
+        "page_table": page_table, "k_pos": k_pos,
+        "write_page": wp, "write_offset": wo, "seq_lens": seq_lens,
+    }
+    x = embed_apply(params["embed"], tokens, torch_dtype(cfg.dtype))
+    x, new_stack, _ = stack_apply(
+        cfg, build_slots(cfg), params["stack"], x, positions,
+        cache=pool["stack"], cache_view=cache_view, use_kernel=use_kernel,
+    )
+    x = norm_apply(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
+    if return_all_logits:
+        return unembed_apply(params["embed"], x), {"stack": new_stack}
+    last = torch.clamp_min(valid_len.long() - 1, 0)
+    xl = x[torch.arange(B, device=dev), last][:, None]
+    return unembed_apply(params["embed"], xl)[:, 0], {"stack": new_stack}
+
+
+def decode_step_paged(
+    cfg,
+    params,
+    pool: Dict[str, Any],
+    tokens: torch.Tensor,  # (B,) next input token ids
+    pos: torch.Tensor,  # (B,) absolute position to write
+    page_table: torch.Tensor,  # (B, max_pages)
+    active: torch.Tensor,  # (B,) 1 for live slots, 0 for idle
+    use_kernel: bool = False,
+    trash_page: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Single-token paged decode: :func:`paged_forward` with a length-1
+    chunk. Idle slots write to the trash page and give logits the engine
+    ignores."""
+    return paged_forward(
+        cfg, params, pool, tokens[:, None], pos, page_table, active.to(torch.int32),
+        use_kernel=use_kernel, trash_page=trash_page,
+    )

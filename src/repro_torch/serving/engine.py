@@ -1,15 +1,27 @@
-"""Batched serving engine with the dense ring-buffer KV cache (port of
-``repro.serving.engine`` in ``cache_mode="ring"``): continuous batching
-over ``max_batch`` slots, one single-request prefill per admitted request
-(padded to a power-of-two length bucket) spliced into the batch cache, and
-one batched ``decode_step`` per engine step. Greedy decode.
+"""Batched serving engine with two KV cache backends (port of
+``repro.serving.engine``):
 
-Not in this slice: ``cache_mode="paged"``, the EP x DP mesh mode, int8
-serving, fused dispatch and the prefix cache; asking for them raises.
+* ``cache_mode="ring"`` — the dense ring-buffer cache: continuous batching
+  over ``max_batch`` slots, one single-request prefill per admitted request
+  (padded to a power-of-two length bucket) spliced into the batch cache,
+  one batched ``decode_step`` per engine step.
+* ``cache_mode="paged"`` — the block-table page pool
+  (``serving/kv_cache.py``), the chunked-prefill scheduler with free-page
+  admission, preemption by recompute, deadlines and load shedding
+  (``serving/scheduler.py``), the radix prefix cache (``prefix_cache``),
+  int8 KV pages (``quant_kv="int8"``), and decode through the page table
+  (``models.model.decode_step_paged``; the paged-attention kernel with
+  ``use_kernel``).
+
+Greedy decode over both backends gives the same tokens. Not ported yet,
+and raising ``NotImplementedError``: the EP x DP mesh mode, int8 expert
+weights, fused dispatch, sampling (``greedy=False``), and the
+``serving.step`` fault site with its step watchdog (``step_timeout_s``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Dict, List, Optional, Union
 
@@ -17,10 +29,21 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig, with_dispatcher
-from repro_torch.models.model import cache_decl, decode_step, prefill_forward
-from repro_torch.models.transformer import build_slots, periods_for
-from repro_torch.params import init_from_decls, resolve_device, torch_dtype, tree_map
+from repro_torch.models.model import cache_decl, decode_step, decode_step_paged, paged_forward, prefill_forward
+from repro_torch.params import init_from_decls, resolve_device, tree_map
 from repro_torch.resilience import ShedError
+from repro_torch.serving.kv_cache import (
+    PagePool,
+    copy_pages,
+    init_paged_pool,
+    kv_bytes_live,
+    kv_bytes_resident,
+    kv_bytes_resident_per_shard,
+    kv_page_bytes,
+    permute_pool,
+    ring_kv_bytes,
+)
+from repro_torch.serving.scheduler import ChunkedScheduler, SchedulerConfig
 
 
 @dataclasses.dataclass
@@ -31,7 +54,8 @@ class Request:
     eos_id: Optional[int] = None
     output: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
-    status: str = "ok"
+    deadline_steps: Optional[int] = None  # per-request deadline override
+    status: str = "ok"  # "ok" | "deadline" (evicted past its deadline)
 
 
 class ServingEngine:
@@ -45,8 +69,14 @@ class ServingEngine:
         dispatcher: Optional[str] = None,
         use_kernel: bool = False,
         cache_mode: str = "ring",
+        page_size: int = 16,
+        num_pages: Optional[int] = None,
+        prefill_chunk: int = 32,
         mesh=None,
+        deadline_steps: Optional[int] = None,
         max_queue: Optional[int] = None,
+        shed_watermark: Optional[int] = None,
+        step_timeout_s: Optional[float] = None,
         prefix_cache: bool = False,
         quant_weights: str = "none",
         quant_kv: str = "none",
@@ -54,32 +84,50 @@ class ServingEngine:
         device: Union[str, torch.device] = "cuda",
     ):
         unported = {
-            "cache_mode='paged'": cache_mode == "paged",
-            "mesh": mesh is not None,
-            "prefix_cache": prefix_cache,
-            "quant_weights": quant_weights != "none",
-            "quant_kv": quant_kv != "none",
-            "fused_dispatch": fused_dispatch,
-            "greedy=False": not greedy,
+            "mesh (ROADMAP queue 1, 'multi-GPU')": mesh is not None,
+            "quant_weights (ROADMAP queue 1, 'int8')": quant_weights != "none",
+            "fused_dispatch (ROADMAP queue 1, 'fused dispatch')": fused_dispatch,
+            "greedy=False (sampling)": not greedy,
+            "step_timeout_s (fault sites and step watchdog, ROADMAP queue 1)": step_timeout_s is not None,
         }
         asked = [k for k, v in unported.items() if v]
         if asked:
-            raise NotImplementedError(
-                f"{', '.join(asked)} not ported yet (see ROADMAP queue 1); "
-                "this slice serves cache_mode='ring' only"
-            )
-        if cache_mode != "ring":
+            raise NotImplementedError(f"{', '.join(asked)} not ported yet")
+        if cache_mode not in ("ring", "paged"):
             raise ValueError(f"unknown cache_mode {cache_mode!r}")
+        if prefix_cache and cache_mode != "paged":
+            raise ValueError("prefix_cache requires cache_mode='paged'")
+        if prefix_cache and cfg.sliding_window is not None:
+            raise ValueError(
+                "prefix_cache is incompatible with sliding_window: shared "
+                "prefix pages must be immutable, a window releases them"
+            )
+        if cache_mode == "ring" and (deadline_steps is not None or shed_watermark is not None):
+            raise ValueError(
+                "deadline_steps/shed_watermark need the paged scheduler "
+                "(the ring cache has no step clock or page accounting); "
+                "max_queue load-shedding works in both modes"
+            )
+        if quant_kv != "none":
+            cfg = cfg.replace(quant_kv=quant_kv)
+        if cfg.quant_kv == "int8" and cache_mode != "paged":
+            raise ValueError("quant_kv requires cache_mode='paged' (the scale sidecar lives in the page pool)")
         self.device = resolve_device(device)
         cfg = with_dispatcher(cfg, dispatcher)
         self.cfg = cfg
         self.params = tree_map(lambda t: t.to(self.device), params)
         self.max_batch, self.max_seq = max_batch, max_seq
+        self.prefix_caching = prefix_cache
+        self.deadline_steps = deadline_steps
         self.max_queue = max_queue
-        self.shed_count = 0
+        self.shed_watermark = shed_watermark
+        self.shed_count = 0  # ring-mode max_queue sheds (paged: the scheduler's)
         self.use_kernel = use_kernel
         self.cache_mode = cache_mode
         self.cache_len = max_seq if cfg.sliding_window is None else min(max_seq, cfg.sliding_window)
+        if cache_mode == "paged":
+            self._init_paged(page_size, num_pages, prefill_chunk)
+            return
         self.cache = init_from_decls(cache_decl(cfg, max_batch, max_seq), 0, self.device)
         self.cache["slot_pos"].fill_(-1)
         self.slots: List[Optional[Request]] = [None] * max_batch
@@ -89,10 +137,53 @@ class ServingEngine:
         # in a device->host read of the sampled token, so they are complete
         self.timings: Dict[str, List[float]] = {"prefill_s": [], "decode_s": []}
 
+    # -- paged backend setup ------------------------------------------------
+    def _init_paged(self, page_size, num_pages, prefill_chunk):
+        maxP = math.ceil(self.max_seq / page_size)
+        if num_pages is None:
+            # capacity parity with the ring cache; only allocated pages count
+            # as resident
+            num_pages = self.max_batch * maxP
+        self.page_size, self.num_pages = page_size, num_pages
+        self.prefill_chunk = prefill_chunk
+        self.pool_dev = init_paged_pool(self.cfg, num_pages, page_size, device=self.device)
+        self.page_pool = PagePool(num_pages, page_size)
+        if self.prefix_caching:
+            self.page_pool.enable_prefix_cache()
+        self.sched = ChunkedScheduler(
+            SchedulerConfig(
+                max_batch=self.max_batch, page_size=page_size,
+                prefill_chunk=prefill_chunk, max_pages_per_seq=maxP,
+                window=self.cfg.sliding_window,
+                deadline_steps=self.deadline_steps, max_queue=self.max_queue,
+                shed_watermark=self.shed_watermark,
+            ),
+            self.page_pool,
+        )
+        self._rid2req: Dict[int, Request] = {}
+        self._next_np = np.zeros((self.max_batch,), np.int64)
+        self.peak_used_pages = 0
+        self.peak_live_pages = 0  # used minus reclaimable (refcount-0) cache
+        self._trash = torch.full((self.max_batch,), self.page_pool.trash_page(0),
+                                 dtype=torch.int32, device=self.device)
+        # host wall seconds of each scheduler plan (host only), each prefill
+        # chunk and each batched decode; a chunk and a decode end in a
+        # device->host read of their argmax, so their times are complete
+        self.timings = {"plan_s": [], "prefill_chunk_s": [], "decode_s": []}
+
     # -- request management -------------------------------------------------
     def submit(self, req: Request) -> None:
         """Enqueue ``req``; raises :class:`ShedError` (request NOT enqueued)
-        when the queue is at ``max_queue``."""
+        when admission control rejects it: queue depth past ``max_queue``
+        or (paged) page headroom below ``shed_watermark``."""
+        if self.cache_mode == "paged":
+            self.sched.submit(
+                req.rid, len(req.prompt), req.max_new_tokens,
+                deadline_steps=req.deadline_steps,
+                tokens=np.asarray(req.prompt, np.int32) if self.prefix_caching else None,
+            )  # may shed; then the rid is never registered
+            self._rid2req[req.rid] = req
+            return
         if self.max_queue is not None and len(self.queue) >= self.max_queue:
             self.shed_count += 1
             raise ShedError(
@@ -143,9 +234,8 @@ class ServingEngine:
 
     # -- main loop ----------------------------------------------------------
     def step(self) -> int:
-        """One engine step: admit queued requests into free slots, then one
-        batched decode. Returns the number of active requests."""
-        return self._step_ring()
+        """One engine step. Returns the number of active requests."""
+        return self._step_paged() if self.cache_mode == "paged" else self._step_ring()
 
     @torch.inference_mode()
     def _step_ring(self) -> int:
@@ -175,8 +265,105 @@ class ServingEngine:
         req.done = req.done or done
         return done
 
+    # -- paged backend ------------------------------------------------------
+    @torch.inference_mode()
+    def _step_paged(self) -> int:
+        t0 = time.perf_counter()
+        plan = self.sched.plan()
+        self.timings["plan_s"].append(time.perf_counter() - t0)
+        for rid in plan.expired:
+            req = self._rid2req[rid]
+            req.done = True
+            req.status = "deadline"
+        if plan.cow_copies:
+            # prefix-cache COW clones, copied before any chunk of this step
+            # writes into the clone
+            copy_pages(self.pool_dev, plan.cow_copies)
+        # sample the peak right after planning (allocation): on_token below
+        # may free a finished request's pages within the same step
+        self._sample_peaks()
+        n_active = len(self.sched.running)
+        if plan.prefills or plan.decode_slots:
+            # every block table this step needs, uploaded once; a table
+            # changed by a finishing prefill below belongs to a row that does
+            # not decode this step
+            bt = torch.from_numpy(self.sched.tables.astype(np.int32)).to(self.device)
+            self._run_prefills(plan, bt)
+            if plan.decode_slots:
+                self._run_decode(plan, bt)
+                self._sample_peaks()
+        return n_active
+
+    def _sample_peaks(self) -> None:
+        self.peak_used_pages = max(self.peak_used_pages, self.page_pool.used_pages)
+        self.peak_live_pages = max(
+            self.peak_live_pages, self.page_pool.used_pages - self.page_pool.evictable_pages
+        )
+
+    def _run_prefills(self, plan, bt: torch.Tensor) -> None:
+        for c in plan.prefills:
+            t0 = time.perf_counter()
+            req = self._rid2req[c.rid]
+            # after preemption the generated tokens are prompt suffix
+            full = np.concatenate([np.asarray(req.prompt, np.int64), np.asarray(req.output, np.int64)])
+            toks = np.zeros((1, self.prefill_chunk), np.int64)
+            toks[0, : c.length] = full[c.start : c.start + c.length]
+            dev = self.device
+            logits, _ = paged_forward(
+                self.cfg, self.params, self.pool_dev,
+                torch.from_numpy(toks).to(dev),
+                torch.tensor([c.start], dtype=torch.int32, device=dev),
+                bt[c.slot : c.slot + 1],
+                torch.tensor([c.length], dtype=torch.int32, device=dev),
+                use_kernel=self.use_kernel, trash_page=self._trash[c.slot : c.slot + 1],
+            )
+            tok = int(torch.argmax(logits[0, : self.cfg.vocab_size]))
+            self.timings["prefill_chunk_s"].append(time.perf_counter() - t0)
+            if self.prefix_caching:
+                # the chunk's pages now hold real KV: promote the full
+                # original-prompt pages covered so far into the trie
+                self.sched.note_prefilled(c.rid, c.start + c.length)
+            if c.final:
+                self._next_np[c.slot] = tok
+                self.sched.on_token(c.slot, self._emit(req, tok))
+
+    def _run_decode(self, plan, bt: torch.Tensor) -> None:
+        """One decode token for every ready slot."""
+        t0 = time.perf_counter()
+        active = np.zeros((self.max_batch,), np.int32)
+        pos = np.zeros((self.max_batch,), np.int32)
+        for slot in plan.decode_slots:
+            active[slot] = 1
+            pos[slot] = self.sched.running[slot].decode_pos  # cache position written
+        dev = self.device
+        logits, _ = decode_step_paged(
+            self.cfg, self.params, self.pool_dev, torch.from_numpy(self._next_np).to(dev),
+            torch.from_numpy(pos).to(dev), bt, torch.from_numpy(active).to(dev),
+            use_kernel=self.use_kernel, trash_page=self._trash,
+        )
+        toks = torch.argmax(logits[:, : self.cfg.vocab_size], -1).tolist()
+        self.timings["decode_s"].append(time.perf_counter() - t0)
+        for slot in plan.decode_slots:
+            req = self._rid2req[self.sched.running[slot].rid]
+            self._next_np[slot] = toks[slot]
+            self.sched.on_token(slot, self._emit(req, toks[slot]))
+
+    def defrag(self) -> bool:
+        """Compact the page pool (paged mode): permutes the device pool and
+        rewrites every block table. Returns True if anything moved."""
+        if self.cache_mode != "paged":
+            raise ValueError("defrag needs cache_mode='paged'")
+        mapping = self.page_pool.defrag()
+        if not mapping:
+            return False
+        self.sched.apply_defrag(mapping)
+        permute_pool(self.pool_dev, mapping)
+        return True
+
     @property
     def has_work(self) -> bool:
+        if self.cache_mode == "paged":
+            return self.sched.has_work
         return any(s is not None for s in self.slots) or bool(self.queue)
 
     def run(self, requests: List[Request], max_steps: int = 10_000) -> Dict[int, List[int]]:
@@ -189,6 +376,21 @@ class ServingEngine:
         return {r.rid: r.output for r in requests}
 
     def health(self) -> Dict[str, object]:
+        """Residency, backlog, shed/evict counters and the age of the oldest
+        live request."""
+        if self.cache_mode == "paged":
+            return {
+                "mode": "paged",
+                "resident_requests": len(self.sched.running),
+                "queued_requests": len(self.sched.queue),
+                "resident_pages": self.page_pool.used_pages,
+                "free_pages": self.page_pool.free_pages_in(0),
+                "num_pages": self.num_pages,
+                "shed_count": self.sched.shed_count,
+                "deadline_evictions": self.sched.deadline_evictions,
+                "oldest_request_age_steps": self.sched.oldest_request_age(),
+                "engine_steps": self.sched.step_count,
+            }
         return {
             "mode": "ring",
             "resident_requests": sum(1 for s in self.slots if s is not None),
@@ -197,12 +399,34 @@ class ServingEngine:
             "deadline_evictions": 0,
         }
 
-    def kv_stats(self) -> Dict[str, float]:
-        """Resident KV bytes of the ring cache: it holds ``max_batch x
-        cache_len`` entries whatever the occupancy."""
-        slots = build_slots(self.cfg)
-        per_entry = self.cfg.num_kv_heads * self.cfg.head_dim_ * torch_dtype(self.cfg.dtype).itemsize
-        ring = 2 * periods_for(self.cfg, slots) * len(slots) * self.max_batch * self.cache_len * per_entry
+    def kv_stats(self) -> Dict[str, object]:
+        """Resident-KV accounting. Paged: only allocated pages count; the
+        ring cache holds ``max_batch x cache_len`` entries whatever the
+        occupancy."""
+        if self.cache_mode == "paged":
+            page_bytes = kv_page_bytes(self.cfg, self.page_size)
+            stats: Dict[str, object] = {
+                "kv_bytes_resident": kv_bytes_resident(self.cfg, self.page_pool),
+                "kv_bytes_live": kv_bytes_live(self.cfg, self.page_pool),
+                "kv_bytes_resident_per_shard": kv_bytes_resident_per_shard(self.cfg, self.page_pool),
+                "kv_bytes_peak": self.peak_used_pages * page_bytes,
+                "kv_bytes_live_peak": self.peak_live_pages * page_bytes,
+                "page_utilization": self.page_pool.utilization(),
+                "peak_used_pages": self.peak_used_pages,
+                "peak_live_pages": self.peak_live_pages,
+                "num_pages": self.num_pages,
+                "peak_resident_requests": self.sched.peak_resident_requests,
+                "dp_shards": 1,
+                "ep_size": 1,
+            }
+            if self.page_pool.prefix is not None:
+                stats["prefix"] = dict(
+                    self.page_pool.prefix.stats(),
+                    hit_tokens=self.sched.prefix_hit_tokens,
+                    cow_clones=self.page_pool.cow_clones,
+                )
+            return stats
+        ring = ring_kv_bytes(self.cfg, self.max_batch, self.cache_len)
         return {
             "kv_bytes_resident": ring,
             "kv_bytes_peak": ring,
