@@ -7,7 +7,7 @@ NVIDIA H100.
 Phases (each failure exits non-zero; nothing is swallowed):
 
 1. card and build — prints the card's name and power limit, builds every
-   CUDA kernel of the serving path from ``src/repro_torch/kernels/csrc``
+   CUDA kernel of the serving and training paths from ``src/repro_torch/kernels/csrc``
    with nvcc for sm_90a (one nvcc per source, in parallel) and prints the
    build seconds and each kernel's registers / shared memory / spills;
 2. kernels vs plain versions — calls each kernel's wrapper on the card at
@@ -42,11 +42,34 @@ Phases (each failure exits non-zero; nothing is swallowed):
    engine on the same requests (reported); a profiler window gives the
    device's busy share; and on the one-layer smoke config the paged path's
    first-token and decode-step logits through the kernels must agree with
-   their plain versions' within 2e-2 x max|logits|, for bf16 and int8 KV.
+   their plain versions' within 2e-2 x max|logits|, for bf16 and int8 KV;
+6. train — (a) the five backward kernels (grouped #5-#7 at 2048 tokens x
+   top-2 with skewed groups and an empty expert; flash #17-#18 at B 1, H 32,
+   KV 8, d 128, S 2048 causal and S 1024 window 256) against their plain
+   versions (2e-2 x max|plain|; padding rows and empty experts exactly 0),
+   with kernel, plain and library times beside the bound; (b) a dense
+   llama3-8b cut to 2 layers, drawn from ``--seed`` on the card, is
+   upcycled to llama3-e8t2 (8 experts, top-2, dropless sorted dispatch):
+   with both parameter trees cast to fp32, the MoE's logits on the first
+   batch must equal the dense parent's within 1e-4 x max|logits| (plain
+   path), and its first CE through the kernels in bf16 must equal the
+   parent's within 1e-3 nats; (c) the port's ``Trainer`` takes 8 steps of
+   1 x 2048 tokens with kernels on and remat: losses, steady ms/step,
+   tok/s, model TFLOP/s, MFU, peak memory and launches per step are
+   printed; the loss must fall, each kernel must launch the expected
+   number of times per step (a count is of wrapper calls: one call of
+   ``grouped_bwd_wgrad`` runs two grids, dWg/dWu and then dWd), and a
+   profiled step gives the device's busy share; (d) every kernel call of one
+   more step, forward and backward, is held against its plain version,
+   every parameter must get a finite nonzero gradient, and on the one-layer
+   smoke config the gradients through the kernels must agree with autograd
+   through the plain forward within 2e-2 x max|grad|.
 
-``--phases 1,2`` stops after the build and the kernel checks. The last two lines are the card's ``nvidia-smi`` name and power limit and
-the result JSON; the line before them lists the kernels. Imports nothing of
-JAX or of the JAX package.
+``--phases 1,2`` stops after the build and the kernel checks; ``--phases
+1,6`` is the quick look at training. The last two lines are the card's
+``nvidia-smi`` name and power limit and the result JSON; the lines before
+them list the launches by path, the serve and train figures and the
+kernels. Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
@@ -92,8 +115,9 @@ def bound(nbytes: float, flops: float):
 
 
 def rel_err(out, ref) -> tuple:
-    err = float((out.float() - ref.float()).abs().max())
-    return err, err / max(float(ref.float().abs().max()), 1e-30)
+    out, ref = out.detach().float(), ref.detach().float()
+    err = float((out - ref).abs().max())
+    return err, err / max(float(ref.abs().max()), 1e-30)
 
 
 # ---------------------------------------------------------------------------
@@ -324,6 +348,236 @@ def check_paged(gen, q8: bool, window=None):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: backward kernels
+# ---------------------------------------------------------------------------
+
+
+def library_sum_ms(calls):
+    """Summed time of PyTorch library calls that together compute what a
+    kernel computes (``torch._grouped_mm`` products), or None where one of
+    them does not run here; the yardstick only, never used by the port."""
+    import torch
+
+    if not hasattr(torch, "_grouped_mm"):
+        return None
+    total = 0.0
+    for fn in calls:
+        try:
+            fn()
+        except (RuntimeError, TypeError, NotImplementedError, ValueError) as e:
+            print(f"  torch._grouped_mm not usable for this product here: {str(e)[:160]}")
+            return None
+        total += time_ms(fn, reps=5, warmup=1)
+    return total
+
+
+GMM_SUM = "sum of torch._grouped_mm calls"
+
+
+def grouped_bwd_case(gen, group_sizes, D=4096, F=14336):
+    """Random sorted-buffer inputs of the grouped backward: valid rows
+    ~N(0,1), padding rows of xs and dy poisoned with 7.5 (the kernels must
+    mask them), weights ~N(0, 1/fan_in)."""
+    import torch
+    from repro_torch.core.dispatch import aligned_rows
+    from repro_torch.kernels import expert_gemm as eg
+
+    dev = torch.device("cuda")
+    E = len(group_sizes)
+    gs = torch.tensor(group_sizes, dtype=torch.int32, device=dev)
+    N = sum(group_sizes)
+    N_pad = aligned_rows(N, E, eg.ROW_TILE)
+    xs = torch.full((N_pad, D), 7.5, dtype=torch.bfloat16, device=dev)
+    dy = torch.full((N_pad, D), 7.5, dtype=torch.bfloat16, device=dev)
+    valid = torch.zeros(N_pad, dtype=torch.bool, device=dev)
+    start = 0
+    for g in group_sizes:
+        xs[start:start + g] = torch.randn((g, D), generator=gen, device=dev).bfloat16()
+        dy[start:start + g] = torch.randn((g, D), generator=gen, device=dev).bfloat16()
+        valid[start:start + g] = True
+        start += -(-g // eg.ROW_TILE) * eg.ROW_TILE
+    w = [(torch.randn(shape, generator=gen, device=dev) * shape[1] ** -0.5).bfloat16()
+         for shape in ((E, D, F), (E, D, F), (E, F, D))]
+    return xs, dy, w, gs, valid, N, N_pad
+
+
+def valid_rows(gs, n_pad: int):
+    """(N_pad,) mask of the rows that hold an assignment in the aligned
+    sorted buffer."""
+    import torch
+    from repro_torch.kernels import expert_gemm as eg
+
+    valid = torch.zeros(n_pad, dtype=torch.bool, device=gs.device)
+    for s, g in zip(*(t.tolist() for t in eg.expert_rows(gs))):
+        valid[s:s + g] = True
+    return valid
+
+
+def grouped_bwd_checked(xs, dy, wg, wu, wd, gs):
+    """The three grouped backward kernels in the order the backward runs
+    them, each held against its plain version fed the same inputs (the
+    kernel pass before it's outputs). Returns ((dx, dWg, dWu, dWd) from the
+    kernels, {kernel: [(max|diff|, max|diff|/max|plain|) per output]}, whether padding
+    rows and empty experts came out exactly zero)."""
+    from repro_torch.kernels import expert_gemm as eg
+    from repro_torch.kernels import ref
+
+    valid = valid_rows(gs, xs.shape[0])
+    tg, tr = eg.group_tiling(gs, xs.shape[0] // eg.ROW_TILE)
+    h, dg, du = eg.bwd_dh_cuda(xs, dy, wg, wu, wd, tg, tr)
+    plain = ref.grouped_bwd_dh_ref(xs, dy, wg, wu, wd, gs, eg.ROW_TILE)
+    errs = {"grouped_bwd_dh": [rel_err(o[valid], r[valid]) for o, r in zip((h, dg, du), plain)]}
+    zeros = all(bool((o[~valid] == 0).all()) for o in (h, dg, du))
+    del plain
+    dx = eg.bwd_dx_cuda(dg, du, wg, wu, tg, tr)
+    dx_r = ref.grouped_bwd_dx_ref(dg, du, wg, wu, gs, eg.ROW_TILE)
+    errs["grouped_bwd_dx"] = [rel_err(dx[valid], dx_r[valid])]
+    zeros &= bool((dx[~valid] == 0).all())
+    del dx_r
+    dws = eg.bwd_wgrad_cuda(xs, dy, h, dg, du, gs)
+    errs["grouped_bwd_wgrad"], empty_zero = wgrad_errors(dws, xs, dy, h, dg, du, gs)
+    return (dx, *dws), errs, zeros and empty_zero
+
+
+def check_grouped_bwd(gen, group_sizes, label: str, D=4096, F=14336):
+    """Kernels #5-#7 against their plain versions (grouped_bwd_checked),
+    then kernel, plain and library times and the bound of each."""
+    import torch
+    from repro_torch.kernels import expert_gemm as eg
+    from repro_torch.kernels import ref
+
+    xs, dy, (wg, wu, wd), gs, valid, N, N_pad = grouped_bwd_case(gen, group_sizes, D, F)
+    E = len(group_sizes)
+    touched = sum(1 for g in group_sizes if g)
+    tg, tr = eg.group_tiling(gs, N_pad // eg.ROW_TILE)
+    _, errs, zeros = grouped_bwd_checked(xs, dy, wg, wu, wd, gs)
+    h, dg, du = ref.grouped_bwd_dh_ref(xs, dy, wg, wu, wd, gs, eg.ROW_TILE)
+    torch.cuda.empty_cache()
+    shape = f"{label}: N={N} N_pad={N_pad} D={D} F={F} E={E} groups={list(group_sizes)}"
+    xv, dyv, hv, dgv, duv = (t[valid] for t in (xs, dy, h, dg, du))
+    offs = torch.cumsum(gs, 0).to(torch.int32)
+    gmm = lambda a, b: (lambda: torch._grouped_mm(a, b, offs=offs))
+    t = lambda w: w.transpose(-2, -1)
+    cases = (
+        ("grouped_bwd_dh", lambda: eg.bwd_dh_cuda(xs, dy, wg, wu, wd, tg, tr),
+         lambda: ref.grouped_bwd_dh_ref(xs, dy, wg, wu, wd, gs, eg.ROW_TILE),
+         2 * N * D * 2 + touched * 3 * D * F * 2 + 3 * N_pad * F * 2, 3 * 2 * N * D * F,
+         [gmm(xv, wg), gmm(xv, wu), gmm(dyv, t(wd))]),
+        ("grouped_bwd_dx", lambda: eg.bwd_dx_cuda(dg, du, wg, wu, tg, tr),
+         lambda: ref.grouped_bwd_dx_ref(dg, du, wg, wu, gs, eg.ROW_TILE),
+         2 * N * F * 2 + touched * 2 * D * F * 2 + N_pad * D * 2, 2 * 2 * N * D * F,
+         [gmm(dgv, t(wg)), gmm(duv, t(wu))]),
+        ("grouped_bwd_wgrad", lambda: eg.bwd_wgrad_cuda(xs, dy, h, dg, du, gs),
+         lambda: ref.grouped_bwd_wgrad_ref(xs, dy, h, dg, du, gs, eg.ROW_TILE),
+         2 * N * D * 2 + 3 * N * F * 2 + 3 * E * D * F * 2, 3 * 2 * N * D * F,
+         [gmm(t(xv), dgv), gmm(t(xv), duv), gmm(t(hv), dyv)]),
+    )
+    return [_bwd_row(name, errs[name], zeros, shape, fn, plain, nbytes, flops, library_sum_ms(lib), GMM_SUM,
+                     GG_TOL)
+            for name, fn, plain, nbytes, flops, lib in cases]
+
+
+def wgrad_errors(dws, xs, dy, h, dg, du, gs):
+    """Worst max|diff|/max|plain| of (dWg, dWu, dWd) against the plain
+    version, one expert at a time (the full fp32 plain result would not fit
+    beside a training step), and whether empty experts got exact zeros."""
+    from repro_torch.kernels import expert_gemm as eg
+    from repro_torch.kernels.ref import grouped_bwd_wgrad_expert_ref
+
+    starts, counts = (t.tolist() for t in eg.expert_rows(gs))
+    diff, scale, empty_zero = [0.0] * 3, [0.0] * 3, True
+    for e, (s, g) in enumerate(zip(starts, counts)):
+        if g == 0:
+            empty_zero &= all(bool((d[e] == 0).all()) for d in dws)
+            continue
+        for i, r in enumerate(grouped_bwd_wgrad_expert_ref(xs, dy, h, dg, du, s, g)):
+            diff[i] = max(diff[i], float((dws[i][e].float() - r).abs().max()))
+            scale[i] = max(scale[i], float(r.abs().max()))
+    return [(d, d / max(m, 1e-30)) for d, m in zip(diff, scale)], empty_zero
+
+
+def _bwd_row(name, errs, side_ok, shape, fn, plain, nbytes, flops, lib_ms, lib_name, tol):
+    import torch
+
+    err = max(e[0] for e in errs)
+    rel = max(e[1] for e in errs)
+    ok = rel <= tol and side_ok and all(e[0] == e[0] for e in errs)  # e == e: not NaN
+    b_ms, b_by = bound(nbytes, flops)
+    row = dict(name=name, max_abs_err=err, rel_err=rel, ok=ok, masked_ok=side_ok,
+               ms=time_ms(fn, reps=5, warmup=1), plain_ms=time_ms(plain, reps=2, warmup=1),
+               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, library=lib_name,
+               shape=shape)
+    torch.cuda.empty_cache()
+    print(f"  {name} [{shape}] err {err:.4g} (rel {rel:.3g}, tol {tol}) masked rows / empty experts ok {side_ok} "
+          f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms library ({lib_name}) {lib_ms} ms "
+          f"bound {b_ms:.4f} ms ({b_by})")
+    if not ok:
+        raise SystemExit(f"{name} [{shape}] disagrees with its plain version")
+    return row
+
+
+def live_pairs(Sq: int, Sk: int, window=None) -> int:
+    """(query, key) pairs that causality and the window leave live."""
+    import torch
+
+    qp = torch.arange(Sq)[:, None] + (Sk - Sq)
+    kp = torch.arange(Sk)[None, :]
+    m = kp <= qp
+    if window is not None:
+        m &= kp > qp - window
+    return int(m.sum())
+
+
+def check_flash_bwd(gen, S: int, window=None, B=1, H=32, KV=8, d=128):
+    """Kernels #17 and #18 against their plain versions on the same inputs
+    (the forward kernel's out and lse, a random dout)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    scale = d ** -0.5
+    q = torch.randn((B, S, H, d), generator=gen, device=dev).bfloat16()
+    k = torch.randn((B, S, KV, d), generator=gen, device=dev).bfloat16()
+    v = torch.randn((B, S, KV, d), generator=gen, device=dev).bfloat16()
+    dout = torch.randn((B, S, H, d), generator=gen, device=dev).bfloat16()
+    out, lse = fa.flash_fwd_cuda(q, k, v, True, window, scale)
+    delta = ref.flash_bwd_delta(out, dout)
+    args = (q, k, v, dout, lse, delta, True, window, scale)
+    dq = fa.flash_bwd_dq_cuda(*args)
+    dk, dv = fa.flash_bwd_dkv_cuda(*args)
+    dq_r = ref.flash_bwd_dq_ref(*args)
+    dk_r, dv_r = ref.flash_bwd_dkv_ref(*args)
+    torch.cuda.synchronize()
+    pairs = B * H * live_pairs(S, S, window)
+    shape = f"B={B} S={S} H={H} KV={KV} d={d} causal window={window}"
+    # SDPA's backward alone (dq, dk, dv together), timed on a retained graph
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    if window is None:
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    else:
+        pos = torch.arange(S, device=dev)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    do_t = dout.transpose(1, 2)
+    lib_ms = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), do_t, retain_graph=True))
+    in_bytes = (q.numel() + k.numel() + v.numel() + dout.numel()) * 2 + (lse.numel() + delta.numel()) * 4
+    rows = []
+    for name, outs, refs, out_bytes, flops, fn, plain in (
+        ("flash_bwd_dq", (dq,), (dq_r,), dq.numel() * 2, 6 * d * pairs,
+         lambda: fa.flash_bwd_dq_cuda(*args), lambda: ref.flash_bwd_dq_ref(*args)),
+        ("flash_bwd_dkv", (dk, dv), (dk_r, dv_r), (dk.numel() + dv.numel()) * 2, 8 * d * pairs,
+         lambda: fa.flash_bwd_dkv_cuda(*args), lambda: ref.flash_bwd_dkv_ref(*args)),
+    ):
+        errs = [rel_err(a, b) for a, b in zip(outs, refs)]
+        finite = all(bool(torch.isfinite(a.float()).all()) for a in outs)
+        rows.append(_bwd_row(name, errs, finite, shape, fn, plain, in_bytes + out_bytes, flops, lib_ms,
+                             "SDPA backward, dq dk dv together", FA_TOL))
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 3: serve
 # ---------------------------------------------------------------------------
 
@@ -353,22 +607,33 @@ def plain_kernels():
 
 @contextlib.contextmanager
 def checked_kernels(report: list):
-    """Inside the block every kernel call of the model also runs its plain
-    version on the same inputs and appends (kernel, input shape, max|diff| /
-    max|plain|) to ``report``; the kernel's output is what the model uses."""
+    """Inside the block every kernel call of the model, forward and backward,
+    also runs its plain version on the same inputs and appends (kernel,
+    input shape, max|diff| / max|plain|) to ``report``; the kernel's output
+    is what the model uses. The backward passes are wrapped where the
+    autograd Functions look them up (``expert_gemm.grouped_gemm_bwd``,
+    ``flash_attention.flash_bwd``), and each of their kernels is held
+    against its plain version fed that kernel's own inputs."""
+    import torch
+    from repro_torch.kernels import expert_gemm as eg
+    from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ops, ref
 
     gg, fa, pa, pa8 = ops.grouped_gemm, ops.flash_attention, ops.paged_attention, ops.paged_attention_q8
+    gbwd, fbwd = eg.grouped_gemm_bwd, fa_mod.flash_bwd
 
     def grouped(xs, w_gate, w_up, w_down, group_sizes, row_block=128):
         y = gg(xs, w_gate, w_up, w_down, group_sizes, row_block)
-        r = ref.grouped_gemm_ref(xs, w_gate, w_up, w_down, group_sizes, row_block)
+        with torch.no_grad():
+            r = ref.grouped_gemm_ref(xs, w_gate, w_up, w_down, group_sizes, row_block)
         report.append(("grouped_gemm", tuple(xs.shape), rel_err(y, r)[1]))
         return y
 
     def flash(q, k, v, causal=True, window=None, scale=None):
         y = fa(q, k, v, causal, window, scale)
-        report.append(("flash_fwd", tuple(q.shape), rel_err(y, ref.flash_attention_ref(q, k, v, causal, window, scale))[1]))
+        with torch.no_grad():
+            r = ref.flash_attention_ref(q, k, v, causal, window, scale)
+        report.append(("flash_fwd", tuple(q.shape), rel_err(y, r)[1]))
         return y
 
     def paged(q, k_pool, v_pool, bt, sl, window=None, scale=None):
@@ -383,27 +648,45 @@ def checked_kernels(report: list):
         report.append(("paged_attention_q8", (tuple(q.shape), tuple(bt.shape)), rel_err(y, r)[1]))
         return y
 
+    def grouped_backward(xs, dy, w_gate, w_up, w_down, group_sizes, row_block=128):
+        out, errs, zeros = grouped_bwd_checked(xs, dy, w_gate, w_up, w_down, group_sizes)
+        for name, e in errs.items():
+            report.append((name, tuple(xs.shape), max(x[1] for x in e) if zeros else float("inf")))
+        return out
+
+    def flash_backward(q, k, v, out, lse, dout, causal, window, scale):
+        delta = ref.flash_bwd_delta(out, dout)
+        args = (q, k, v, dout, lse, delta, causal, window, scale)
+        dq = fa_mod.flash_bwd_dq_cuda(*args)
+        report.append(("flash_bwd_dq", tuple(q.shape), rel_err(dq, ref.flash_bwd_dq_ref(*args))[1]))
+        dk, dv = fa_mod.flash_bwd_dkv_cuda(*args)
+        report.append(("flash_bwd_dkv", tuple(q.shape),
+                       max(rel_err(a, b)[1] for a, b in zip((dk, dv), ref.flash_bwd_dkv_ref(*args)))))
+        return dq, dk, dv
+
     ops.grouped_gemm, ops.flash_attention = grouped, flash
     ops.paged_attention, ops.paged_attention_q8 = paged, paged_q8
+    eg.grouped_gemm_bwd, fa_mod.flash_bwd = grouped_backward, flash_backward
     try:
         yield
     finally:
         ops.grouped_gemm, ops.flash_attention, ops.paged_attention, ops.paged_attention_q8 = gg, fa, pa, pa8
+        eg.grouped_gemm_bwd, fa_mod.flash_bwd = gbwd, fbwd
 
 
-def report_checked(report: list, names) -> None:
+def report_checked(report: list, names, path: str = "serving") -> None:
     """Print the worst per-call disagreement of each kernel in ``report``;
     fail if a kernel was never called or disagrees."""
     for name in names:
         calls = [r for r in report if r[0] == name]
         if not calls:
-            raise SystemExit(f"{name} was never called in the checked serve run")
+            raise SystemExit(f"{name} was never called in the checked {path} run")
         w = max(r[2] for r in calls)
-        print(f"  in the serving path: {len(calls)} {name} calls vs their plain versions on the same "
+        print(f"  in the {path} path: {len(calls)} {name} calls vs their plain versions on the same "
               f"inputs, worst max|diff|/max|plain| {w:.4g} (tol {GG_TOL}); shapes "
               f"{sorted({r[1] for r in calls})}")
-        if w > GG_TOL:
-            raise SystemExit(f"{name} disagrees with its plain version inside the serving path")
+        if not w <= GG_TOL:
+            raise SystemExit(f"{name} disagrees with its plain version inside the {path} path")
 
 
 def serve(seed: int, layers: int = 4, requests: int = 8, max_new: int = 32, max_batch: int = 4):
@@ -707,28 +990,245 @@ def paged_small_input_check(seed: int) -> None:
                 raise SystemExit(f"paged kernel path logits ({quant} KV) disagree with the plain versions")
 
 
-def profile_window(run) -> float:
-    """torch.profiler over a short serve (prompts 0 and 5, 8 new tokens):
-    device time by kernel and the device's busy share of the wall time,
-    which it returns."""
+# ---------------------------------------------------------------------------
+# phase 6: train
+# ---------------------------------------------------------------------------
+
+UPCYCLE_CE_TOL = 1e-3  # nats: MoE vs dense CE on one batch at the upcycled start
+# of max|logits|: the upcycled params vs the dense parent's, both cast to
+# fp32, logits through the plain path on the first batch (a smoke-size CPU
+# run gives 1.2e-6 clean and 0.26 with one expert's w_down redrawn; in bf16
+# the random-weight model's rounding alone reaches a few % of max|logits|)
+UPCYCLE_LOGIT_TOL = 1e-4
+GRAD_TOL = 2e-2  # of max|grad| per parameter, kernels vs autograd of the plain forward
+PEAK_BF16_TFLOPS = BF16_FLOP_PER_S / 1e12
+
+
+def named_leaves(tree, prefix: str = ""):
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in named_leaves(v, f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
+def moe_train_config(layers: int, smoke: bool = False):
+    """llama3-e8t2 (or its smoke config) cut to ``layers``, trained as the
+    JAX launcher's ``--upcycle 8 --top-k 2 --cf -1 --dispatcher sorted``:
+    dropless, so no capacity factor."""
+    import dataclasses
+    from repro_torch.config import get_config, smoke_config
+
+    cfg = get_config("llama3-e8t2")
+    cfg = smoke_config(cfg) if smoke else cfg
+    return cfg.replace(num_layers=layers, moe=dataclasses.replace(cfg.moe, capacity_factor=None, dispatcher="sorted"))
+
+
+def train(seed: int, layers: int = 2, steps: int = 8, seq: int = 2048):
+    """Phase 6 (b)-(d): upcycle a dense llama3-8b drawn from the seed, check
+    the warm start, train ``steps`` steps of 1 x ``seq`` tokens with kernels
+    on, profile one more step, hold every kernel call of one more step
+    against its plain version and check every parameter's gradient."""
+    import gc
+
+    import torch
+    from repro_torch.config import TrainConfig, get_config
+    from repro_torch.core.upcycle import upcycle_params
+    from repro_torch.data.pipeline import make_train_iter
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import forward, loss_fn, model_decl
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.params import init_from_decls, tree_map
+    from repro_torch.train.callbacks import LoggingCallback
+    from repro_torch.train.state import TrainState
+    from repro_torch.train.trainer import Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  memory allocated at the start of the phase: {torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    dense_cfg = get_config("llama3-8b").replace(num_layers=layers)
+    cfg = moe_train_config(layers)
+    total, active = cfg.param_counts()
+    print(f"  config {cfg.name}: d_model {cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, d_ff {cfg.d_ff}, "
+          f"experts {cfg.moe.num_experts} top-{cfg.moe.top_k} (dropless, sorted), vocab {cfg.vocab_size}; cut: "
+          f"num_layers 32 -> {layers}; {total / 1e9:.3f} B params, {active / 1e9:.3f} B active; remat "
+          f"{cfg.remat}; batch 1 x {seq} tokens")
+    tcfg = TrainConfig(global_batch=1, seq_len=seq, lr=3e-4, lr_min=3e-6, warmup_steps=1,
+                       total_steps=steps + 2, seed=seed, log_every=1)
+    data = lambda: make_train_iter(cfg.vocab_size, seq, 1, tcfg.blend_ratio, seed)
+    dev = torch.device("cuda")
+    first = {k: torch.from_numpy(v).to(dev) for k, v in next(data()).items()}
+
+    # (b) the upcycled start: dense parent vs MoE on the first batch
+    t0 = time.perf_counter()
+    dense = init_from_decls(model_decl(dense_cfg), seed, dev)
+    f32 = lambda tree: tree_map(lambda t: t.float(), tree)
+    with torch.no_grad():
+        _, dm = loss_fn(dense_cfg, dense, first, use_kernel=True)
+        params = upcycle_params(dense_cfg, cfg, dense, seed)
+        dense_logits, _ = forward(dense_cfg.replace(dtype="float32"), f32(dense), first)
+        moe_logits, _ = forward(cfg.replace(dtype="float32"), f32(params), first)
+    _, logit_err = rel_err(moe_logits, dense_logits)
+    del dense, dense_logits, moe_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  upcycled start: MoE vs dense parent logits, params cast to fp32, plain path, first batch: "
+          f"{logit_err:.4g} of max|logits| (tol {UPCYCLE_LOGIT_TOL})")
+    if not logit_err <= UPCYCLE_LOGIT_TOL:
+        raise SystemExit("the upcycled MoE's logits are not the dense parent's")
+    state = TrainState(0, params, adamw_init(params), torch.Generator(device=dev))
+    torch.cuda.synchronize()
+    print(f"  dense llama3-8b ({layers} layers) drawn from seed {seed} and upcycled in {time.perf_counter() - t0:.2f} s; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated with the optimizer state")
+
+    # (c) the training run
+    trainer = Trainer(cfg, tcfg, state=state, data_iter=data(), use_kernel=True)
+    log = LoggingCallback(log=lambda m: print("  " + m), log_every=1)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    trainer.run(steps, callbacks=[log])
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.history
+    steady_ms = hist[-1]["ms_per_step_steady"]
+    tflops = hist[-1]["model_tflops_per_sec"]
+    per_step = {k: v / steps for k, v in launches.items() if v}
+    print(f"  losses {[round(r['loss'], 4) for r in hist]}")
+    print(f"  steady {steady_ms:.3f} ms/step (steps 2-{steps}), {seq / steady_ms * 1e3:.1f} tok/s, model "
+          f"{tflops:.2f} TFLOP/s (3x convention), MFU {100 * tflops / PEAK_BF16_TFLOPS:.2f}% of "
+          f"{PEAK_BF16_TFLOPS:.0f} TFLOP/s; first step {1e3 * log.durations[0]:.1f} ms")
+    print(f"  peak memory allocated {peak} bytes ({peak / 1e9:.2f} GB) of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB")
+    print(f"  kernel launches per step: {per_step}")
+    ce1, dce = hist[0]["ce"], float(dm["ce"])
+    print(f"  upcycled start: step-1 CE {ce1:.5f} (loss {hist[0]['loss']:.5f} with aux) vs the dense parent's "
+          f"CE {dce:.5f} on the same batch: |diff| {abs(ce1 - dce):.3g} (tol {UPCYCLE_CE_TOL})")
+    if not abs(ce1 - dce) <= UPCYCLE_CE_TOL:
+        raise SystemExit("the upcycled MoE's first loss is not the dense parent's")
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise SystemExit(f"the loss did not fall over {steps} steps")
+    expect = {"grouped_gate_up": 2 * layers, "grouped_down": 2 * layers, "flash_fwd": 2 * layers,
+              **{k: layers for k in ("grouped_bwd_dh", "grouped_bwd_dx", "grouped_bwd_wgrad",
+                                     "flash_bwd_dq", "flash_bwd_dkv")}}
+    if any(launches.get(k, 0) != n * steps for k, n in expect.items()):
+        raise SystemExit(f"launches per step {per_step}, expected {expect}")
+    if not peak < torch.cuda.get_device_properties(0).total_memory:
+        raise SystemExit("peak memory above the card's capacity")
+
+    busy = profile_train_step(trainer)
+
+    # (d) every kernel call of one step against its plain version; every
+    # parameter's gradient
+    report: list = []
+    named = named_leaves(trainer.params)
+    batch = trainer._to_device(next(trainer.data_iter))
+    with checked_kernels(report):
+        loss, _ = loss_fn(cfg, trainer.params, batch, trainer.state.gen, use_kernel=True)
+        grads = torch.autograd.grad(loss, [t for _, t in named], allow_unused=True)
+    torch.cuda.synchronize()
+    report_checked(report, ("grouped_gemm", "flash_fwd", "grouped_bwd_dh", "grouped_bwd_dx", "grouped_bwd_wgrad",
+                            "flash_bwd_dq", "flash_bwd_dkv"), "training")
+    bad = [n for (n, _), g in zip(named, grads)
+           if g is None or not bool(torch.isfinite(g).all()) or not float(g.abs().max()) > 0]
+    print(f"  gradients: {len(named) - len(bad)}/{len(named)} parameters with a finite, nonzero gradient")
+    if bad:
+        raise SystemExit(f"parameters without a gradient: {bad}")
+    del grads, loss, trainer, state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    grad_err = small_grad_check(seed)
+    return launches, dict(
+        losses=[r["loss"] for r in hist], ces=[r["ce"] for r in hist], ms_per_step=steady_ms,
+        tokens_per_s=seq / steady_ms * 1e3, model_tflops_per_s=tflops, mfu=tflops / PEAK_BF16_TFLOPS,
+        peak_bytes=peak, launches_per_step=per_step, device_busy_share=busy, step1_ce=ce1, dense_ce=dce,
+        upcycle_logit_rel_err=logit_err,
+        small_grad_rel_err=grad_err)
+
+
+def profile_train_step(trainer) -> float:
+    """torch.profiler over one training step: device time by kernel and the
+    device's busy share of the step's wall time, which it returns."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        trainer.run(1, callbacks=[])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    return device_busy(prof, wall, "one training step")
+
+
+def small_grad_check(seed: int) -> float:
+    """End-to-end gradients on a small input: the smoke config of
+    llama3-e8t2 cut to one layer (d_model 256, head_dim 64, 4 experts),
+    batch 2 x 128. Every parameter's gradient through the kernels (forward
+    and backward) must agree with autograd through the plain forward
+    (``plain_kernels``) within GRAD_TOL x max|grad|."""
+    import torch
+    from repro_torch.data.pipeline import make_train_iter
+    from repro_torch.models.model import loss_fn, model_decl
+    from repro_torch.params import init_from_decls
+
+    cfg = moe_train_config(1, smoke=True)
+    params = init_from_decls(model_decl(cfg), seed, "cuda")
+    named = named_leaves(params)
+    for _, t in named:
+        t.requires_grad_(True)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(make_train_iter(cfg.vocab_size, 128, 2, seed=seed)).items()}
+    grads = {}
+    for mode in ("kernels", "plain"):
+        with plain_kernels() if mode == "plain" else contextlib.nullcontext():
+            loss, _ = loss_fn(cfg, params, batch, use_kernel=True)
+            grads[mode] = torch.autograd.grad(loss, [t for _, t in named])
+    errs = {n: rel_err(a, b)[1] for (n, _), a, b in zip(named, grads["kernels"], grads["plain"])}
+    worst = max(errs, key=errs.get)
+    print(f"  small input (smoke config, 1 layer, batch 2 x 128): gradients through the kernels vs autograd "
+          f"through the plain forward, worst {errs[worst]:.4g} of max|grad| ({worst}; tol {GRAD_TOL}); "
+          + ", ".join(f"{n} {e:.3g}" for n, e in errs.items()))
+    if not errs[worst] <= GRAD_TOL:
+        raise SystemExit("gradients through the kernels disagree with the plain forward's")
+    return errs[worst]
+
+
+def device_busy(prof, wall: float, label: str) -> float:
+    """Device busy share of ``wall`` seconds from a torch.profiler trace:
+    the union of the CUDA kernels' own intervals (an operator's device time
+    would count its kernels a second time), with the kernels that took the
+    most time by name."""
+    from torch.autograd import DeviceType
+
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    by_name: dict = {}
+    for e in kernels:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    print(f"  profile ({label}): wall {1e3 * wall:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
+          f"({100 * busy_us / 1e6 / wall:.1f}% of wall) in {len(kernels)} kernels")
+    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
+        print(f"    {t / 1e3:9.3f} ms  {n:5d} calls  {name[:100]}")
+    return busy_us / 1e6 / wall
+
+
+def profile_window(run) -> float:
+    """torch.profiler over a short serve (prompts 0 and 5, 8 new tokens):
+    device time by kernel and the device's busy share of the wall time,
+    which it returns."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, _, wall = run(True, [0, 5], 8)
-    events = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
-    dev_us = sum(e.self_device_time_total for e in events)
-    print(f"  profile (2 requests, 8 new tokens): wall {1e3 * wall:.3f} ms, device busy "
-          f"{dev_us / 1e3:.3f} ms ({100 * dev_us / 1e6 / wall:.1f}% of wall)")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d} calls  {e.key[:90]}")
-    return dev_us / 1e6 / wall
+    return device_busy(prof, wall, "2 requests, 8 new tokens")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="1,2,3,4,5", help="comma list of phases to run")
+    ap.add_argument("--phases", default="1,2,3,4,5,6", help="comma list of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -801,10 +1301,32 @@ def main(argv=None) -> int:
         launches = {**launches, "paged_attention": paged_launches["none"]["paged_attention"],
                     "paged_attention_q8": paged_launches["int8"]["paged_attention_q8"]}
 
+    train_launches, train_stats = {}, {}
+    if 6 in phases:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(args.seed + 6)
+        print("[6] train llama3-e8t2 (upcycled, 2 layers, kernels on): backward kernels vs plain versions")
+        # 2048 tokens x top-2, skewed, an empty expert, sizes not multiples of 128
+        for row in check_grouped_bwd(gen, (1100, 0, 517, 803, 64, 700, 431, 481), "train"):
+            kernels[row["name"]] = row
+        rows6 = check_flash_bwd(gen, 2048)
+        check_flash_bwd(gen, 1024, window=256)
+        for row in rows6:
+            kernels[row["name"]] = row
+        torch.cuda.empty_cache()
+        print("[6] train llama3-e8t2 (upcycled from a dense llama3-8b drawn from the seed)")
+        train_launches, train_stats = train(args.seed)
+
     sources = {
         "grouped_gate_up": ("src/repro_torch/kernels/csrc/grouped_gemm.cu", "src/repro/kernels/expert_gemm.py:335"),
         "grouped_down": ("src/repro_torch/kernels/csrc/grouped_gemm.cu", "src/repro/kernels/expert_gemm.py:355"),
         "flash_fwd": ("src/repro_torch/kernels/csrc/flash_fwd.cu", "src/repro/kernels/flash_attention.py:222"),
+        "grouped_bwd_dh": ("src/repro_torch/kernels/csrc/grouped_gemm_bwd.cu", "src/repro/kernels/expert_gemm.py:489"),
+        "grouped_bwd_dx": ("src/repro_torch/kernels/csrc/grouped_gemm_bwd.cu", "src/repro/kernels/expert_gemm.py:521"),
+        "grouped_bwd_wgrad": ("src/repro_torch/kernels/csrc/grouped_gemm_bwd.cu",
+                              "src/repro/kernels/expert_gemm.py:540"),
+        "flash_bwd_dq": ("src/repro_torch/kernels/csrc/flash_bwd.cu", "src/repro/kernels/flash_attention.py:286"),
+        "flash_bwd_dkv": ("src/repro_torch/kernels/csrc/flash_bwd.cu", "src/repro/kernels/flash_attention.py:306"),
         "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                             "src/repro/kernels/paged_attention.py:126"),
         "paged_attention_q8": ("src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -815,14 +1337,18 @@ def main(argv=None) -> int:
         k = kernels.get(name, {})
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches.get(name), "max_abs_err": k.get("max_abs_err"),
+            "launches": next((d[name] for d in (launches, train_launches) if d.get(name)), 0),
+            "max_abs_err": k.get("max_abs_err"),
             "ms": k.get("ms"), "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
-            "bound_by": k.get("bound_by"), "library_ms": k.get("library_ms"), "shape": k.get("shape"),
+            "bound_by": k.get("bound_by"), "library_ms": k.get("library_ms"), "library": k.get("library"),
+            "shape": k.get("shape"),
         })
     print(json.dumps({"launches_by_path": {"ring": {k: v for k, v in launches.items()
                                                     if k in ("grouped_gate_up", "grouped_down", "flash_fwd")},
-                                           **{f"paged_{q}": v for q, v in paged_launches.items()}}}))
+                                           **{f"paged_{q}": v for q, v in paged_launches.items()},
+                                           "train": {k: v for k, v in train_launches.items() if v}}}))
     print(json.dumps({"serve": stats}))
+    print(json.dumps({"train": train_stats}))
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

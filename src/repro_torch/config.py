@@ -1,7 +1,7 @@
 """Model configuration for the port: its own copy of ``repro.config``'s
-``MoEConfig``/``ModelConfig`` (same field names and defaults, so a test can
-build both packages' configs from one dict), ``smoke_config``,
-``with_dispatcher`` and ``get_config``.
+``MoEConfig``/``ModelConfig``/``TrainConfig`` (same field names and
+defaults, so a test can build both packages' configs from one dict),
+``smoke_config``, ``with_dispatcher`` and ``get_config``.
 
 Only the families this port runs are accepted: ``dense`` and ``moe`` with
 GQA attention. The others (MLA, SSM, hybrid, encdec, vlm) raise
@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 # ROADMAP queue 1 item that ports each family or feature not yet in the port
 _LATER = "ROADMAP queue 1, 'other families'"
@@ -84,6 +84,11 @@ class ModelConfig:
     quant_weights: str = "none"  # none | int8 (int8 expert weights: not ported yet)
     quant_kv: str = "none"  # none | int8 (int8 KV pages with per-token scale sidecars)
     vocab_divisor: int = 2048
+    # remat policy of the training stack: 'none' | 'full' | 'dots' (the JAX
+    # package's 'full' and 'dots' both checkpoint the whole period body)
+    remat: str = "full"
+    # gradient-accumulation microbatches per step (fp32 accumulation)
+    train_microbatches: int = 1
 
     QUANT_MODES = ("none", "int8")
 
@@ -112,6 +117,63 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def param_counts(self) -> Tuple[int, int]:
+        """(total, active) parameters excluding vocab padding, as
+        ``repro.config.ModelConfig.param_counts`` counts them for the
+        dense and moe families."""
+        D, V, L, hd = self.d_model, self.vocab_size, self.num_layers, self.head_dim_
+        total = active = V * D * (1 if self.tie_embeddings else 2) + D  # + final norm
+        attn = D * self.num_heads * hd + 2 * D * self.num_kv_heads * hd + self.num_heads * hd * D
+        if self.qkv_bias:
+            attn += (self.num_heads + 2 * self.num_kv_heads) * hd
+        ffn = lambda dff: 3 * D * dff  # SwiGLU: gate, up, down
+        for i in range(L):
+            total += 2 * D + attn
+            active += 2 * D + attn
+            m = self.moe
+            if m is not None and i % m.moe_layer_freq == m.moe_layer_freq - 1:
+                dff, router = m.experts_ff(self.d_ff), D * m.num_experts
+                total += m.num_experts * ffn(dff) + router
+                active += m.top_k * ffn(dff) + router
+                if m.dense_residual:
+                    total += ffn(self.d_ff)
+                    active += ffn(self.d_ff)
+            elif self.d_ff:
+                total += ffn(self.d_ff)
+                active += ffn(self.d_ff)
+        return total, active
+
+    def flops_per_token(self, seq_len: int = 1) -> int:
+        """Approximate forward FLOPs per token: 2 x active matmul params +
+        causal attention scores (MFU accounting)."""
+        _, active = self.param_counts()
+        return 2 * active + 4 * self.num_layers * self.num_heads * self.head_dim_ * (seq_len // 2)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training run hyperparameters (paper §4.2 defaults, scaled); see
+    ``repro.config.TrainConfig``. ``zero1`` waits for the multi-GPU item;
+    ``ckpt_every``/``ckpt_dir`` for checkpointing (ROADMAP queue 1 item 7)."""
+
+    global_batch: int = 32
+    seq_len: int = 512
+    lr: float = 3e-5
+    lr_min: float = 3e-7
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    adam_b1: float = 0.9
+    adam_b2: float = 0.95
+    adam_eps: float = 1e-8
+    grad_clip: float = 1.0
+    seed: int = 1234
+    zero1: bool = True
+    blend_ratio: float = 0.7
+    log_every: int = 10
+    ckpt_every: int = 0
+    ckpt_dir: str = "/tmp/repro_ckpt"
 
 
 ARCH_IDS = ("llama3-8b", "llama3-e8t2")

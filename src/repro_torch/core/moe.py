@@ -2,7 +2,7 @@
 ``repro.core.moe``)."""
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -28,11 +28,13 @@ def moe_decl(cfg, moe) -> Dict[str, Any]:
     return decls
 
 
-def moe_apply(cfg, moe, params, x: torch.Tensor, use_kernel: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: (B, S, D) -> (B, S, D) and the router's aux losses."""
+def moe_apply(cfg, moe, params, x: torch.Tensor, use_kernel: bool = False,
+              gen: Optional[torch.Generator] = None, train: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B, S, D) -> (B, S, D) and the router's aux losses. ``gen`` and
+    ``train`` go to the router (the JAX ``rng, train``)."""
     B, S, D = x.shape
     xf = x.reshape(B * S, D)
-    gates, idx, aux = route(moe, params["router"], xf)
+    gates, idx, aux = route(moe, params["router"], xf, gen, train)
     out = get_dispatcher(cfg, moe).apply(params["experts"], xf, gates, idx, use_kernel)
     out = out.reshape(B, S, D).to(x.dtype)
     if moe.dense_residual:

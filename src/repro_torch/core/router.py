@@ -9,7 +9,7 @@ stable descending sort keeps equal values in index order.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -27,11 +27,14 @@ def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def route(moe, params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+def route(moe, params, x: torch.Tensor, gen: Optional[torch.Generator] = None,
+          train: bool = False) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (..., D). Returns (gates (..., k) fp32, expert_idx (..., k) int32,
     aux) with the Switch load-balance loss and the router z-loss (both
     scaled by their coefficients), the router entropy and the largest
-    dispatch fraction."""
+    dispatch fraction. ``gen`` and ``train`` take the place of the JAX
+    ``rng, train``: only noisy gating reads them, and it is not ported yet
+    (``router_decl`` raises for it)."""
     logits = x.float() @ params["w_g"]
     probs_full = torch.softmax(logits, -1)
     if moe.router_type == "mixtral":

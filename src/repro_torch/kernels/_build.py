@@ -24,7 +24,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("grouped_gemm", "flash_fwd", "paged_attention")
+SOURCES = ("grouped_gemm", "grouped_gemm_bwd", "flash_fwd", "flash_bwd", "paged_attention")
 
 # loaded libraries, by source name (ctypes handles stay valid for the process)
 _LIBS: Dict[str, ctypes.CDLL] = {}

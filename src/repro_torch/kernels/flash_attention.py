@@ -7,8 +7,16 @@ Sq``). One CUDA kernel (``csrc/flash_fwd.cu``) keeps the online-softmax
 statistics m, l and the accumulator in fp32, reads KV head ``h // (H/KV)``
 in place (no GQA copy), skips key tiles that causality or the window mask
 entirely, masks the ragged edge of the last tiles, and emits the output
-(bf16) and the logsumexp ``(B*H, Sq)`` fp32 that the backward slice will
-need. On a CPU tensor the wrapper runs ``kernels.ref.flash_attention_ref``.
+(bf16) and the logsumexp ``(B*H, Sq)`` fp32 that the backward needs. On a
+CPU tensor the wrapper runs ``kernels.ref.flash_attention_ref``.
+
+The backward (``_fa_bwd``: ``_fa_bwd_dq_kernel``, ``_fa_bwd_dkv_kernel``)
+is two CUDA kernels (``csrc/flash_bwd.cu``) that recompute the
+probabilities from the lse: ``flash_bwd_dq`` and ``flash_bwd_dkv`` (the
+latter sums over the G query heads of each KV head itself). ``delta =
+rowsum(dO * O)`` is computed here in fp32, as the JAX package does it in
+XLA. :class:`FlashAttention` ties them together for autograd on both
+devices and saves (q, k, v, out, lse), as ``_fa_fwd`` does.
 """
 from __future__ import annotations
 
@@ -18,23 +26,29 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import flash_attention_ref, flash_bwd_delta, flash_bwd_dkv_ref, flash_bwd_dq_ref
 
 HEAD_DIMS = (64, 128)  # head dims the CUDA kernel is instantiated for
 
-LAUNCHES = {"flash_fwd": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {
     # q, k, v, out, lse, B, Sq, Sk, H, KV, d, scale, causal, window, stream
     "flash_fwd": [_P] * 5 + [_I] * 6 + [ctypes.c_float, _I, _I, _P],
 }
+_BWD_SIGS = {
+    # q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, KV, d, scale, causal, window, stream
+    "flash_bwd_dq": [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _I, _P],
+    # q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, KV, d, scale, causal, window, stream
+    "flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _I, _P],
+}
 
 
-def flash_fwd_cuda(q, k, v, causal: bool, window: Optional[int], scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def _check(q, k, v, window, *more):
     B, Sq, H, d = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("q", q), ("k", k), ("v", v), *more):
         if t.device != q.device or t.dtype != torch.bfloat16 or not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be a contiguous bf16 tensor on {q.device}")
     if k.shape != (B, Sk, KV, d) or v.shape != (B, Sk, KV, d) or H % KV:
@@ -43,6 +57,12 @@ def flash_fwd_cuda(q, k, v, causal: bool, window: Optional[int], scale: float) -
         raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention: window must be positive, got {window}")
+
+
+def flash_fwd_cuda(q, k, v, causal: bool, window: Optional[int], scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    B, Sq, H, d = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    _check(q, k, v, window)
     lib = _build.load("flash_fwd", _SIGS)
     out = torch.empty_like(q)
     lse = torch.empty((B * H, Sq), dtype=torch.float32, device=q.device)
@@ -65,3 +85,79 @@ def flash_fwd(q, k, v, causal: bool = True, window: Optional[int] = None,
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return flash_attention_ref(q, k, v, causal, window, scale, return_lse=True)
+
+
+def _bwd_args(q, k, v, dout, lse, delta, causal, window, scale):
+    B, Sq, H, d = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    _check(q, k, v, window, ("dout", dout))
+    if dout.shape != q.shape:
+        raise ValueError(f"flash_attention backward: dout {tuple(dout.shape)} for q {tuple(q.shape)}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (B * H, Sq) or t.dtype != torch.float32 or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"flash_attention backward: {name} must be contiguous fp32 (B*H, Sq) on {q.device}")
+    return (B, Sq, Sk, H, KV, d, float(scale), int(causal), int(window or 0),
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal: bool, window: Optional[int], scale: float) -> torch.Tensor:
+    """Launch ``flash_bwd_dq`` -> dq (B, Sq, H, d) bf16."""
+    args = _bwd_args(q, k, v, dout, lse, delta, causal, window, scale)
+    dq = torch.empty_like(q)
+    lib = _build.load("flash_bwd", _BWD_SIGS)
+    _build.check(lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                                  delta.data_ptr(), dq.data_ptr(), *args), "flash_bwd_dq")
+    LAUNCHES["flash_bwd_dq"] += 1
+    return dq
+
+
+def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal: bool, window: Optional[int],
+                       scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``flash_bwd_dkv`` -> (dk, dv) (B, Sk, KV, d) bf16."""
+    args = _bwd_args(q, k, v, dout, lse, delta, causal, window, scale)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = _build.load("flash_bwd", _BWD_SIGS)
+    _build.check(lib.flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                                   delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *args), "flash_bwd_dkv")
+    LAUNCHES["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+def flash_bwd(q, k, v, out, lse, dout, causal: bool, window: Optional[int], scale: float):
+    """(dq, dk, dv) for the output cotangent ``dout``: the backward kernels
+    on a CUDA tensor (or raises), their plain versions on a CPU tensor."""
+    delta = flash_bwd_delta(out, dout)
+    if q.is_cuda:
+        dq = flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, window, scale)
+        return (dq, *flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal, window, scale))
+    if q.device.type != "cpu":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    dq = flash_bwd_dq_ref(q, k, v, dout, lse, delta, causal, window, scale)
+    return (dq, *flash_bwd_dkv_ref(q, k, v, dout, lse, delta, causal, window, scale))
+
+
+class FlashAttention(torch.autograd.Function):
+    """Autograd node of flash attention (the JAX ``_fa_p`` ``custom_vjp``):
+    saves (q, k, v, out, lse); ``flash_bwd`` is looked up at call time so a
+    caller may wrap it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out, lse = flash_fwd(q, k, v, causal, window, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        grads = flash_bwd(q, k, v, out, lse, dout.contiguous(), ctx.causal, ctx.window, ctx.scale)
+        return (*grads, None, None, None)
+
+
+def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """(B, Sq, H, d) attention output, differentiable through
+    :class:`FlashAttention` on both devices."""
+    scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
+    return FlashAttention.apply(q, k, v, causal, window, scale)

@@ -1,6 +1,10 @@
 """Public wrappers for the port's kernels (port of ``repro.kernels.ops``
-for the ring- and paged-serving slices). A CUDA tensor launches the hand-written
-kernel and raises if it cannot; a CPU tensor takes the plain version. No
+for the serving and training slices). A CUDA tensor launches the
+hand-written kernel and raises if it cannot; a CPU tensor takes the plain
+version. ``grouped_gemm`` and ``flash_attention`` are differentiable on
+both devices (``expert_gemm.GroupedGemm``, ``flash_attention.FlashAttention``:
+hand-written backward kernels on the card, their plain versions on the
+CPU), so a training step runs forward and backward on the kernel path. No
 autotuner: the CUDA kernels have fixed tiles.
 """
 from __future__ import annotations
@@ -42,7 +46,7 @@ def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q (B,Sq,H,d), k/v (B,Sk,KV,d) -> (B,Sq,H,d); right-aligned
     positions, causal and/or sliding window."""
-    return _fa.flash_fwd(q, k, v, causal, window, scale)[0]
+    return _fa.flash_attention(q, k, v, causal, window, scale)
 
 
 def paged_attention(q, k_pool, v_pool, block_table, seq_lens,

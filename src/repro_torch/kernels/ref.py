@@ -63,6 +63,72 @@ def grouped_gemm_ref(
     return grouped_down_ref(h, w_down, group_sizes, row_block)
 
 
+def grouped_bwd_dh_ref(xs, dy, w_gate, w_up, w_down, group_sizes, row_block: int = 1):
+    """Plain version of the grouped backward's first pass (the TPU
+    ``_grouped_bwd_dh_kernel``): recompute ``g = x @ Wg[e]`` and ``u = x @
+    Wu[e]``, ``dh = dy @ Wd[e]^T``, all in fp32, then the SwiGLU backward ->
+    (h, dg, du) in x's dtype; rows past ``group_sizes[e]`` are zero."""
+    outs = [torch.zeros((xs.shape[0], w_gate.shape[-1]), dtype=xs.dtype, device=xs.device)
+            for _ in range(3)]
+    for e, s, g in _regions(group_sizes, row_block):
+        x = xs[s:s + g].float()
+        gv, uv = x @ w_gate[e].float(), x @ w_up[e].float()
+        dh = dy[s:s + g].float() @ w_down[e].float().T
+        sig = torch.sigmoid(gv)
+        silu = gv * sig
+        dsilu = sig * (1.0 + gv * (1.0 - sig))
+        for out, val in zip(outs, (silu * uv, dh * uv * dsilu, dh * silu)):
+            out[s:s + g] = val.to(xs.dtype)
+    return tuple(outs)
+
+
+def grouped_bwd_dx_ref(dg, du, w_gate, w_up, group_sizes, row_block: int = 1):
+    """Plain version of the second pass (``_grouped_bwd_dx_kernel``): ``dx =
+    dg @ Wg[e]^T + du @ Wu[e]^T`` in fp32, cast to dg's dtype; other rows
+    zero."""
+    dx = torch.zeros((dg.shape[0], w_gate.shape[1]), dtype=dg.dtype, device=dg.device)
+    for e, s, g in _regions(group_sizes, row_block):
+        acc = dg[s:s + g].float() @ w_gate[e].float().T + du[s:s + g].float() @ w_up[e].float().T
+        dx[s:s + g] = acc.to(dg.dtype)
+    return dx
+
+
+def grouped_bwd_wgrad_expert_ref(xs, dy, h, dg, du, start: int, rows: int):
+    """One expert's (dWg, dWu, dWd) in fp32 over its ``rows`` rows from
+    ``start`` (zeros when it has none)."""
+    D, F = xs.shape[1], h.shape[1]
+    if rows == 0:
+        z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=xs.device)
+        return z(D, F), z(D, F), z(F, D)
+    x = xs[start:start + rows].float()
+    return (x.T @ dg[start:start + rows].float(), x.T @ du[start:start + rows].float(),
+            h[start:start + rows].float().T @ dy[start:start + rows].float())
+
+
+def grouped_bwd_wgrad_ref(xs, dy, h, dg, du, group_sizes, row_block: int = 1, dtype=None):
+    """Plain version of the third pass (``_grouped_bwd_wgrad_kernel``): per
+    expert ``dWg = x^T dg``, ``dWu = x^T du``, ``dWd = h^T dy`` summed in fp32
+    over the expert's valid rows, then cast once to ``dtype`` (the weights'
+    dtype; default x's). An expert with no rows gets zeros."""
+    dtype = dtype or xs.dtype
+    E, D, F = group_sizes.shape[0], xs.shape[1], h.shape[1]
+    dwg = torch.zeros((E, D, F), dtype=dtype, device=xs.device)
+    dwu = torch.zeros((E, D, F), dtype=dtype, device=xs.device)
+    dwd = torch.zeros((E, F, D), dtype=dtype, device=xs.device)
+    for e, s, g in _regions(group_sizes, row_block):
+        for out, val in zip((dwg, dwu, dwd), grouped_bwd_wgrad_expert_ref(xs, dy, h, dg, du, s, g)):
+            out[e] = val.to(dtype)
+    return dwg, dwu, dwd
+
+
+def grouped_gemm_bwd_ref(xs, dy, w_gate, w_up, w_down, group_sizes, row_block: int = 1):
+    """The three plain passes in order -> (dx, dWg, dWu, dWd), as
+    ``_grouped_bwd_impl`` chains its kernels."""
+    h, dg, du = grouped_bwd_dh_ref(xs, dy, w_gate, w_up, w_down, group_sizes, row_block)
+    dx = grouped_bwd_dx_ref(dg, du, w_gate, w_up, group_sizes, row_block)
+    return (dx, *grouped_bwd_wgrad_ref(xs, dy, h, dg, du, group_sizes, row_block, w_gate.dtype))
+
+
 def flash_attention_ref(
     q: torch.Tensor,  # (B, Sq, H, d)
     k: torch.Tensor,  # (B, Sk, KV, d), H % KV == 0
@@ -95,6 +161,62 @@ def flash_attention_ref(
     if return_lse:
         return out, torch.logsumexp(s, -1).reshape(B * H, Sq)
     return out
+
+
+def _flash_bwd_probs(q, k, v, do, lse, delta, causal, window, scale):
+    """Shared recompute of the flash backward in fp32, per query head (KV
+    heads broadcast): p = exp(s - lse) (0 on masked pairs), ds = p (dp -
+    delta) scale. Returns (p, ds) as (B, H, Sq, Sk) and the broadcast k."""
+    B, Sq, H, d = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    kb = k.repeat_interleave(G, dim=2).float()
+    vb = v.repeat_interleave(G, dim=2).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kb) * scale
+    qp = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    m = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        m = m & (kp <= qp)
+    if window is not None:
+        m = m & (kp > qp - window)
+    s = torch.where(m, s, NEG_INF)
+    p = torch.exp(s - lse.reshape(B, H, Sq, 1))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vb)
+    ds = p * (dp - delta.reshape(B, H, Sq, 1)) * scale
+    return p, ds, kb
+
+
+def flash_bwd_dq_ref(q, k, v, do, lse, delta, causal: bool = True, window: Optional[int] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version of the flash dq kernel (``_fa_bwd_dq_kernel``), fp32
+    throughout as the TPU kernel computes it: ``dq = ds k``. q, do (B, Sq,
+    H, d); k, v (B, Sk, KV, d); lse, delta (B*H, Sq) fp32. Returns dq in q's
+    dtype."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    _, ds, kb = _flash_bwd_probs(q, k, v, do, lse, delta, causal, window, scale)
+    return torch.einsum("bhqk,bkhd->bqhd", ds, kb).to(q.dtype)
+
+
+def flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal: bool = True, window: Optional[int] = None,
+                      scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the flash dk/dv kernel (``_fa_bwd_dkv_kernel``):
+    ``dv = p^T do`` and ``dk = ds^T q`` in fp32, summed over the G query
+    heads of each KV head. Returns (dk, dv) (B, Sk, KV, d) in k's dtype."""
+    B, Sq, H, d = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    p, ds, _ = _flash_bwd_probs(q, k, v, do, lse, delta, causal, window, scale)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float()).reshape(B, Sk, KV, H // KV, d).sum(3)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()).reshape(B, Sk, KV, H // KV, d).sum(3)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(dO * O)`` in fp32, laid out (B*H, Sq) like the lse
+    (the JAX package computes it in XLA, outside its kernels)."""
+    B, Sq, H, _ = out.shape
+    return (dout.float() * out.float()).sum(-1).permute(0, 2, 1).reshape(B * H, Sq).contiguous()
 
 
 def paged_attention_ref(

@@ -5,7 +5,7 @@ Numerics follow the JAX package: norms compute in fp32 and cast back, RoPE
 angles are fp32 and half-split, the embed casts the fp32 table to the model
 dtype before the gather, the unembed returns fp32 logits from operands in
 the model dtype, and the SwiGLU applies ``silu`` in fp32 and casts before
-the ``* up``.
+the ``* up``. ``cross_entropy`` is the training loss.
 """
 from __future__ import annotations
 
@@ -86,3 +86,15 @@ def mlp_apply(params, x: torch.Tensor) -> torch.Tensor:
     up = x @ params["w_up"]
     hidden = F.silu(gate.float()).to(x.dtype) * up
     return hidden @ params["w_down"]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """Mean CE over tokens; logits fp32 over the padded vocab. Padded vocab
+    entries join the partition function (Megatron semantics) but never
+    appear as labels; the max is detached, as ``jax.lax.stop_gradient``
+    detaches it in the JAX version."""
+    logits = logits.float()
+    m = logits.amax(-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(logits - m).sum(-1)) + m.squeeze(-1)
+    label_logit = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (lse - label_logit).mean()

@@ -1,7 +1,9 @@
 """Language model entry points (port of ``repro.models.model`` for the
 dense/moe GQA families):
 
-* ``forward``         — logits over full sequences.
+* ``forward``         — logits over full sequences (``train=True`` for a
+  training step: the stack checkpoints each period when ``cfg.remat``).
+* ``loss_fn``         — CE over the padded logits + the MoE aux losses.
 * ``prefill_forward`` — one full-sequence forward that also emits a
   decode-ready ring cache (length-bucketed via ``valid_len``).
 * ``decode_step``     — one new token against the ring KV cache.
@@ -15,7 +17,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models.layers import embed_apply, embed_decl, norm_apply, norm_decl, unembed_apply
+from repro_torch.models.layers import cross_entropy, embed_apply, embed_decl, norm_apply, norm_decl, unembed_apply
 from repro_torch.models.transformer import build_slots, periods_for, stack_apply, stack_cache_decl, stack_decl
 from repro_torch.params import ParamDecl, torch_dtype, tree_leaves, tree_map
 
@@ -29,15 +31,27 @@ def model_decl(cfg) -> Dict[str, Any]:
     }
 
 
-def forward(cfg, params, batch: Dict[str, torch.Tensor], use_kernel: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def forward(cfg, params, batch: Dict[str, torch.Tensor], use_kernel: bool = False,
+            gen: Optional[torch.Generator] = None, train: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (fp32 logits (B, S, padded_vocab), summed aux losses)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed_apply(params["embed"], tokens, torch_dtype(cfg.dtype))
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
-    x, _, aux = stack_apply(cfg, build_slots(cfg), params["stack"], x, positions, use_kernel=use_kernel)
+    x, _, aux = stack_apply(cfg, build_slots(cfg), params["stack"], x, positions,
+                            use_kernel=use_kernel, gen=gen, train=train)
     x = norm_apply(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
     return unembed_apply(params["embed"], x), aux
+
+
+def loss_fn(cfg, params, batch: Dict[str, torch.Tensor], gen: Optional[torch.Generator] = None,
+            use_kernel: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Training loss: ce + the summed aux losses. Returns (loss, metrics
+    with loss, ce, load_balance_loss, z_loss)."""
+    logits, aux = forward(cfg, params, batch, use_kernel, gen, train=True)
+    ce = cross_entropy(logits, batch["labels"], cfg.vocab_size)
+    loss = ce + sum(aux.values())
+    return loss, {"loss": loss, "ce": ce, **aux}
 
 
 def cache_decl(cfg, batch: int, cache_len: int) -> Dict[str, Any]:

@@ -4,7 +4,10 @@
 Layers are organised as (periods x slots): a slot is one block kind
 (attention + dense or MoE FFN); each slot's parameters carry a leading
 ``(periods,)`` dim, and :func:`stack_apply` loops over periods in Python
-where the JAX package scans.
+where the JAX package scans. In training with ``cfg.remat != "none"`` each
+period's body runs under ``torch.utils.checkpoint`` (the counterpart of
+``jax.checkpoint(body)``): only its inputs are kept, and the backward
+recomputes it.
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.moe import moe_apply, moe_decl
 from repro_torch.models.attention import gqa_apply, gqa_decl
@@ -62,6 +66,8 @@ def block_apply(
     cache_view: Optional[Dict[str, torch.Tensor]] = None,
     use_kernel: bool = False,
     return_cache: bool = False,
+    gen: Optional[torch.Generator] = None,
+    train: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], Dict[str, torch.Tensor]]:
     h = norm_apply(params["norm1"], x, cfg.norm_type, cfg.norm_eps)
     mix, c = gqa_apply(
@@ -72,7 +78,7 @@ def block_apply(
     h = norm_apply(params["norm2"], x, cfg.norm_type, cfg.norm_eps)
     aux: Dict[str, torch.Tensor] = {}
     if spec.ffn == "moe":
-        y, aux = moe_apply(cfg, cfg.moe, params["ffn"], h, use_kernel)
+        y, aux = moe_apply(cfg, cfg.moe, params["ffn"], h, use_kernel, gen, train)
     else:
         y = mlp_apply(params["ffn"], h)
     return x + y, ({"attn": c} if c is not None else None), aux
@@ -95,27 +101,47 @@ def stack_apply(
     cache_view: Optional[Dict[str, torch.Tensor]] = None,
     use_kernel: bool = False,
     return_cache: bool = False,
+    gen: Optional[torch.Generator] = None,
+    train: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], Dict[str, torch.Tensor]]:
     """Python loop over periods. ``cache`` leaves have the leading
     ``(periods,)`` dim and are updated in place; with ``return_cache`` the
     per-layer k/v are stacked into a new ``(periods, B, S, KV, hd)`` cache.
-    Aux losses are summed over layers."""
+    Aux losses are summed over layers. With ``train`` and ``cfg.remat !=
+    "none"`` (and no cache) each period's body is checkpointed."""
     periods = params["slot0"]["norm1"]["scale"].shape[0]
     aux = {k: torch.zeros((), dtype=torch.float32, device=x.device) for k in AUX_KEYS}
     per_layer: Dict[str, list] = {}
-    for p in range(periods):
+    remat = (train and cfg.remat != "none" and cache is None and not return_cache
+             and torch.is_grad_enabled())
+
+    def body(x, period_params, period_cache):
+        period_aux, period_kv = [], {}
         for i, spec in enumerate(slots):
             sk = f"slot{i}"
-            layer_params = tree_map(lambda t: t[p], params[sk])
-            layer_cache = tree_map(lambda t: t[p], cache[sk]) if cache else None
             x, nc, a = block_apply(
-                cfg, spec, layer_params, x, positions, layer_cache, cache_view,
-                use_kernel, return_cache,
+                cfg, spec, period_params[sk], x, positions,
+                period_cache[sk] if period_cache else None, cache_view,
+                use_kernel, return_cache, gen, train,
             )
-            for k in AUX_KEYS:
-                if k in a:
-                    aux[k] = aux[k] + a[k]
-            if return_cache:
+            period_aux.append(a)
+            period_kv[sk] = nc
+        sums = [sum(a[k] for a in period_aux if k in a) for k in AUX_KEYS]
+        return (x, *(torch.as_tensor(v, dtype=torch.float32, device=x.device) for v in sums)), period_kv
+
+    for p in range(periods):
+        period_params = {sk: tree_map(lambda t: t[p], params[sk]) for sk in params}
+        period_cache = {sk: tree_map(lambda t: t[p], cache[sk]) for sk in cache} if cache else None
+        if remat:
+            out = checkpoint(lambda x, pp: body(x, pp, None)[0], x, period_params, use_reentrant=False)
+            period_kv = {}
+        else:
+            out, period_kv = body(x, period_params, period_cache)
+        x = out[0]
+        for k, v in zip(AUX_KEYS, out[1:]):
+            aux[k] = aux[k] + v
+        if return_cache:
+            for sk, nc in period_kv.items():
                 per_layer.setdefault(sk, []).append(nc)
     new_cache = None
     if return_cache:

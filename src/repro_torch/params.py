@@ -127,3 +127,35 @@ def params_to_numpy(tree) -> Tree:
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
     return tree_map(conv, tree)
+
+
+def train_state_from_numpy(tree, device: Union[str, torch.device] = "cuda", cfg=None):
+    """Carry a training state as a nested dict of numpy arrays (``{"step",
+    "rng", "params", "opt": {"step", "master", "m", "v"}}``: the JAX
+    package's ``state_to_tree(state)`` through ``np.asarray``, or the port's
+    own ``train.state.state_to_tree``) into the port's ``TrainState`` on
+    ``device``, extending :func:`params_from_numpy`. Leaves keep their
+    dtypes (a JAX bf16 leaf arrives as bf16); with ``cfg`` the params take
+    the dtypes ``model_decl(cfg)`` declares (the port's ``state_to_tree``
+    hands bf16 leaves over as float32). ``rng``: a two-word JAX key seeds
+    the generator; a port generator state (bytes) is restored as is."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.train.state import TrainState
+
+    dev = resolve_device(device)
+    params = params_from_numpy(tree["params"], dev)
+    if cfg is not None:
+        from repro_torch.models.model import model_decl
+
+        params = tree_map(lambda d, t: t.to(d.dtype), model_decl(cfg), params)
+    o = tree["opt"]
+    rng = np.asarray(tree["rng"])
+    gen = torch.Generator(device=dev)
+    if rng.dtype == np.uint8 and rng.size > 2:
+        gen.set_state(torch.from_numpy(rng.copy()))
+    else:
+        words = rng.astype(np.uint64).reshape(-1)
+        gen.manual_seed(int(words[0]) << 32 | int(words[-1]))
+    opt = AdamWState(int(o["step"]), *(tree_map(lambda t: t.float(), params_from_numpy(o[k], dev))
+                                       for k in ("master", "m", "v")))
+    return TrainState(int(tree["step"]), params, opt, gen)
