@@ -14,8 +14,11 @@ Phases (each failure exits non-zero; nothing is swallowed):
    the llama3-e8t2 shapes the serving path gives it and holds the result
    against its plain PyTorch version (``kernels/ref.py``):
    bf16 outputs within 2e-2 x max|plain|, the flash lse within 1e-3, the
-   paged-attention kernels' idle row exactly 0; prints kernel, plain and
-   library times (CUDA events) beside the bound;
+   paged-attention kernels' idle row exactly 0, the grouped kernels'
+   padding rows exactly 0 (bf16 #3/#4 and int8-weight #10/#11 at the decode
+   and prefill groups, an empty expert in each), the padded #1/#2 at C 4,
+   300 and 512; prints kernel, plain and library times (CUDA events)
+   beside the bound;
 3. serve — llama3-e8t2 at full width, 4 layers (the only cut), sorted
    dispatcher, kernels on, random weights from ``--seed`` drawn on the card:
    ``ServingEngine`` (ring cache, max_batch 4) answers 8 requests of 16-300
@@ -30,7 +33,8 @@ Phases (each failure exits non-zero; nothing is swallowed):
    input (the smoke config cut to one layer) the kernels' first-token
    logits must agree with their plain versions' within 2e-2 x max|logits|;
 4. the serving CLI, in process (smoke config, kernels on): ring cache, then
-   paged with the prefix cache and int8 KV pages;
+   paged with the prefix cache and int8 KV pages, then int8 expert weights,
+   then with no ``--dispatcher`` (the smoke config's allgather);
 5. paged serve — the same model and cut through ``cache_mode="paged"``
    (page size 16, prefill chunk 32, max_batch 4, prefix cache on) on 8
    requests of 16-300 prompt tokens sharing a 64-token stem, 32 new tokens
@@ -63,10 +67,29 @@ Phases (each failure exits non-zero; nothing is swallowed):
    more step, forward and backward, is held against its plain version,
    every parameter must get a finite nonzero gradient, and on the one-layer
    smoke config the gradients through the kernels must agree with autograd
-   through the plain forward within 2e-2 x max|grad|.
+   through the plain forward within 2e-2 x max|grad|;
+7. padded dispatch (``allgather``) — (a) the phase-3 serve (4 layers, the
+   same 8 requests) through allgather at the config's CF 4, kernels on:
+   #1/#2 must launch, every kernel call of a short serve is held against
+   its plain version, greedy tokens against the sorted run are reported;
+   (b) 8 Trainer steps of llama3-e8t2 at 2 layers, 1 x 2048 tokens,
+   allgather at CF 1.0 (the paper's Table 4 setting; the dropped share is
+   printed), kernels and remat on: the loss must fall, #1/#2 launch 4
+   times a step and #5-#7 twice, and every kernel call of one more step,
+   forward and backward, is held against its plain version;
+8. int8 experts at full depth — llama3-e8t2 at all 32 layers and full
+   width, expert weights drawn as int8 on the card from ``--seed``, sorted
+   dispatcher, ring cache, kernels on, the 8 requests of phase 3: every
+   request answered, #10/#11 launched, peak memory, tok/s, prefill and
+   decode-step ms and the busy share printed, every kernel call of a short
+   serve held against its plain version; on the one-layer smoke config
+   the int8 kernels' first-token logits must agree with their plain
+   versions' within 2e-2 x max|logits| (int8 against bf16 logits is
+   reported beside ``INT8_LOGIT_BUDGET``).
 
 ``--phases 1,2`` stops after the build and the kernel checks; ``--phases
-1,6`` is the quick look at training. The last two lines are the card's
+1,6`` is the quick look at training, ``--phases 1,8`` at full-depth int8
+serving. The last two lines are the card's
 ``nvidia-smi`` name and power limit and the result JSON; the lines before
 them list the launches by path, the serve and train figures and the
 kernels. Imports nothing of JAX or of the JAX package.
@@ -125,11 +148,15 @@ def rel_err(out, ref) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def check_grouped(gen, group_sizes, label: str, D=4096, F=14336):
+def check_grouped(gen, group_sizes, label: str, D=4096, F=14336, q8: bool = False):
+    """The sorted gate/up and down kernels (bf16 #3/#4, or with ``q8`` the
+    int8-weight #10/#11) against their plain versions on the same inputs:
+    within GG_TOL x max|plain| on the valid rows, padding rows exactly 0."""
     import torch
     from repro_torch.core.dispatch import aligned_rows
+    from repro_torch.core.quant import quantize_weight
     from repro_torch.kernels import expert_gemm as eg
-    from repro_torch.kernels.ref import grouped_down_ref, grouped_gate_up_ref
+    from repro_torch.kernels import ref
 
     dev = torch.device("cuda")
     E = len(group_sizes)
@@ -148,32 +175,46 @@ def check_grouped(gen, group_sizes, label: str, D=4096, F=14336):
     w = {k: (torch.randn(shape, generator=gen, device=dev) * shape[1] ** -0.5).bfloat16()
          for k, shape in (("w_gate", (E, D, F)), ("w_up", (E, D, F)), ("w_down", (E, F, D)))}
     tg, tr = eg.group_tiling(gs, N_pad // eg.ROW_TILE)
+    if q8:
+        (wg, sg), (wu, su), (wd, sd) = (quantize_weight(w[k]) for k in ("w_gate", "w_up", "w_down"))
+        del w
+        gate_up = lambda: eg.gate_up_q8_cuda(xs, wg, wu, sg, su, tg, tr)
+        gate_up_plain = lambda: ref.grouped_gate_up_q8_ref(xs, wg, wu, sg, su, gs, eg.ROW_TILE)
+        down = lambda h: eg.down_q8_cuda(h, wd, sd, tg, tr)
+        down_plain = lambda h: ref.grouped_down_q8_ref(h, wd, sd, gs, eg.ROW_TILE)
+        names, w_bytes = ("grouped_gate_up_q8", "grouped_down_q8"), 1
+    else:
+        gate_up = lambda: eg.gate_up_cuda(xs, w["w_gate"], w["w_up"], tg, tr)
+        gate_up_plain = lambda: ref.grouped_gate_up_ref(xs, w["w_gate"], w["w_up"], gs, eg.ROW_TILE)
+        down = lambda h: eg.down_cuda(h, w["w_down"], tg, tr)
+        down_plain = lambda h: ref.grouped_down_ref(h, w["w_down"], gs, eg.ROW_TILE)
+        names, w_bytes = ("grouped_gate_up", "grouped_down"), 2
 
-    h = eg.gate_up_cuda(xs, w["w_gate"], w["w_up"], tg, tr)
-    h_ref = grouped_gate_up_ref(xs, w["w_gate"], w["w_up"], gs, eg.ROW_TILE)
-    y = eg.down_cuda(h_ref, w["w_down"], tg, tr)
-    y_ref = grouped_down_ref(h_ref, w["w_down"], gs, eg.ROW_TILE)
+    h = gate_up()
+    h_ref = gate_up_plain()
+    y = down(h_ref)
+    y_ref = down_plain(h_ref)
     torch.cuda.synchronize()
     rows = []
     touched = sum(1 for g in gs_host if g)
-    for name, out, ref, k_in, n_out, flops_per_row, fn, plain in (
-        ("grouped_gate_up", h, h_ref, D, F, 4 * D * F,
-         lambda: eg.gate_up_cuda(xs, w["w_gate"], w["w_up"], tg, tr),
-         lambda: grouped_gate_up_ref(xs, w["w_gate"], w["w_up"], gs, eg.ROW_TILE)),
-        ("grouped_down", y, y_ref, F, D, 2 * F * D,
-         lambda: eg.down_cuda(h_ref, w["w_down"], tg, tr),
-         lambda: grouped_down_ref(h_ref, w["w_down"], gs, eg.ROW_TILE)),
+    for name, out, ref_out, k_in, n_out, flops_per_row, fn, plain in (
+        (names[0], h, h_ref, D, F, 4 * D * F, gate_up, gate_up_plain),
+        (names[1], y, y_ref, F, D, 2 * F * D, lambda: down(h_ref), lambda: down_plain(h_ref)),
     ):
-        err, rel = rel_err(out[valid], ref[valid])
+        err, rel = rel_err(out[valid], ref_out[valid])
         pad_zero = bool((out[~valid] == 0).all())
         ok = rel <= GG_TOL and pad_zero and bool(torch.isfinite(out.float()).all())
-        n_w = 2 if name == "grouped_gate_up" else 1
-        nbytes = N * k_in * 2 + touched * n_w * k_in * n_out * 2 + N_pad * n_out * 2
+        n_w = 2 if name.startswith("grouped_gate_up") else 1
+        # x rows read once, each touched expert's weights (and int8 scales), all N_pad rows written
+        nbytes = (N * k_in * 2 + touched * n_w * k_in * n_out * w_bytes + N_pad * n_out * 2
+                  + (touched * n_w * n_out * 2 if q8 else 0))
         b_ms, b_by = bound(nbytes, N * flops_per_row)
         row = dict(name=name, max_abs_err=err, rel_err=rel, ok=ok, pad_rows_zero=pad_zero,
                    ms=time_ms(fn), plain_ms=time_ms(plain, reps=3, warmup=1),
                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                   shape=f"{label}: N={N} N_pad={N_pad} D={D} F={F} E={E} groups={gs_host}")
+                   library="none (no single call)" if q8 else None,
+                   shape=f"{label}: N={N} N_pad={N_pad} D={D} F={F} E={E} groups={gs_host}"
+                         + (" int8 weights" if q8 else ""))
         if name == "grouped_down":
             row["library_ms"] = grouped_mm_ms(h_ref[valid].contiguous(), w["w_down"], gs)
         rows.append(row)
@@ -182,6 +223,48 @@ def check_grouped(gen, group_sizes, label: str, D=4096, F=14336):
               f"library {row['library_ms']} ms bound {b_ms:.4f} ms ({b_by})")
         if not ok:
             raise SystemExit(f"{name} [{label}] disagrees with its plain version")
+    return rows
+
+
+def check_expert(gen, C: int, label: str, E=8, D=4096, F=14336):
+    """The padded kernels #1/#2 on an (E, C, D) buffer against their plain
+    versions (GG_TOL x max|plain|); every slot is a computed row. Library
+    yardsticks: two torch.bmm for #1 (the SwiGLU not fused), one for #2."""
+    import torch
+    from repro_torch.kernels import expert_gemm as eg
+    from repro_torch.kernels.ref import expert_down_ref, expert_gate_up_ref
+
+    dev = torch.device("cuda")
+    xe = torch.randn((E, C, D), generator=gen, device=dev).bfloat16()
+    wg, wu, wd = ((torch.randn(shape, generator=gen, device=dev) * shape[1] ** -0.5).bfloat16()
+                  for shape in ((E, D, F), (E, D, F), (E, F, D)))
+    h = eg.expert_gate_up_cuda(xe, wg, wu)
+    h_ref = expert_gate_up_ref(xe, wg, wu)
+    y = eg.expert_down_cuda(h_ref, wd)
+    y_ref = expert_down_ref(h_ref, wd)
+    torch.cuda.synchronize()
+    rows = []
+    for name, out, ref_out, nbytes, flops, fn, plain, lib, lib_name in (
+        ("expert_gate_up", h, h_ref, E * C * D * 2 + 2 * E * D * F * 2 + E * C * F * 2, 4 * E * C * D * F,
+         lambda: eg.expert_gate_up_cuda(xe, wg, wu), lambda: expert_gate_up_ref(xe, wg, wu),
+         [lambda: torch.bmm(xe, wg), lambda: torch.bmm(xe, wu)], "sum of two torch.bmm (x Wg, x Wu)"),
+        ("expert_down", y, y_ref, E * C * F * 2 + E * F * D * 2 + E * C * D * 2, 2 * E * C * F * D,
+         lambda: eg.expert_down_cuda(h_ref, wd), lambda: expert_down_ref(h_ref, wd),
+         [lambda: torch.bmm(h_ref, wd)], "torch.bmm"),
+    ):
+        err, rel = rel_err(out, ref_out)
+        ok = rel <= GG_TOL and bool(torch.isfinite(out.float()).all())
+        b_ms, b_by = bound(nbytes, flops)
+        row = dict(name=name, max_abs_err=err, rel_err=rel, ok=ok, ms=time_ms(fn),
+                   plain_ms=time_ms(plain, reps=3, warmup=1), bound_ms=b_ms, bound_by=b_by,
+                   library_ms=sum(time_ms(f) for f in lib), library=lib_name,
+                   shape=f"{label}: E={E} C={C} D={D} F={F}")
+        rows.append(row)
+        print(f"  {name} [{label}, C={C}] err {err:.4g} (rel {rel:.3g}, tol {GG_TOL}) kernel {row['ms']:.4f} ms "
+              f"plain {row['plain_ms']:.4f} ms library ({lib_name}) {row['library_ms']:.4f} ms "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        if not ok:
+            raise SystemExit(f"{name} [{label}, C={C}] disagrees with its plain version")
     return rows
 
 
@@ -585,24 +668,30 @@ def check_flash_bwd(gen, S: int, window=None, B=1, H=32, KV=8, d=128):
 @contextlib.contextmanager
 def plain_kernels():
     """Route the model's kernel call sites (``ops.grouped_gemm``,
-    ``ops.flash_attention``, ``ops.paged_attention``,
-    ``ops.paged_attention_q8``) to the kernels' plain versions for the
-    block: the same path and arithmetic as the kernel run, without the
-    kernels."""
+    ``ops.grouped_gemm_q8``, ``ops.flash_attention``,
+    ``ops.paged_attention``, ``ops.paged_attention_q8``, and
+    ``expert_gemm.expert_gemm`` under ``ops.expert_gemm``) to the kernels'
+    plain versions for the block: the same path and arithmetic as the
+    kernel run, without the kernels."""
+    from repro_torch.kernels import expert_gemm as eg
     from repro_torch.kernels import ops, ref
 
-    names = ("grouped_gemm", "flash_attention", "paged_attention", "paged_attention_q8")
+    names = ("grouped_gemm", "grouped_gemm_q8", "flash_attention", "paged_attention", "paged_attention_q8")
     saved = {n: getattr(ops, n) for n in names}
+    saved_eg = eg.expert_gemm
     ops.grouped_gemm = ref.grouped_gemm_ref
+    ops.grouped_gemm_q8 = ref.grouped_gemm_q8_ref
     ops.flash_attention = lambda q, k, v, causal=True, window=None, scale=None: ref.flash_attention_ref(
         q, k, v, causal, window, scale)
     ops.paged_attention = ref.paged_attention_ref
     ops.paged_attention_q8 = ref.paged_attention_q8_ref
+    eg.expert_gemm = ref.expert_gemm_ref
     try:
         yield
     finally:
         for n, f in saved.items():
             setattr(ops, n, f)
+        eg.expert_gemm = saved_eg
 
 
 @contextlib.contextmanager
@@ -620,7 +709,21 @@ def checked_kernels(report: list):
     from repro_torch.kernels import ops, ref
 
     gg, fa, pa, pa8 = ops.grouped_gemm, ops.flash_attention, ops.paged_attention, ops.paged_attention_q8
+    gq8, egm = ops.grouped_gemm_q8, eg.expert_gemm
     gbwd, fbwd = eg.grouped_gemm_bwd, fa_mod.flash_bwd
+
+    def grouped_q8(xs, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes, row_block=128):
+        y = gq8(xs, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes, row_block)
+        r = ref.grouped_gemm_q8_ref(xs, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes, row_block)
+        report.append(("grouped_gemm_q8", tuple(xs.shape), rel_err(y, r)[1]))
+        return y
+
+    def expert(xe, w_gate, w_up, w_down):
+        y = egm(xe, w_gate, w_up, w_down)
+        with torch.no_grad():
+            r = ref.expert_gemm_ref(xe, w_gate, w_up, w_down)
+        report.append(("expert_gemm", tuple(xe.shape), rel_err(y, r)[1]))
+        return y
 
     def grouped(xs, w_gate, w_up, w_down, group_sizes, row_block=128):
         y = gg(xs, w_gate, w_up, w_down, group_sizes, row_block)
@@ -666,11 +769,13 @@ def checked_kernels(report: list):
 
     ops.grouped_gemm, ops.flash_attention = grouped, flash
     ops.paged_attention, ops.paged_attention_q8 = paged, paged_q8
+    ops.grouped_gemm_q8, eg.expert_gemm = grouped_q8, expert
     eg.grouped_gemm_bwd, fa_mod.flash_bwd = grouped_backward, flash_backward
     try:
         yield
     finally:
         ops.grouped_gemm, ops.flash_attention, ops.paged_attention, ops.paged_attention_q8 = gg, fa, pa, pa8
+        ops.grouped_gemm_q8, eg.expert_gemm = gq8, egm
         eg.grouped_gemm_bwd, fa_mod.flash_bwd = gbwd, fbwd
 
 
@@ -689,14 +794,25 @@ def report_checked(report: list, names, path: str = "serving") -> None:
             raise SystemExit(f"{name} disagrees with its plain version inside the {path} path")
 
 
-def serve(seed: int, layers: int = 4, requests: int = 8, max_new: int = 32, max_batch: int = 4):
+def ring_prompts(seed: int, vocab: int, requests: int = 8, max_new: int = 32):
+    """The ring serves' requests: ``requests`` prompts of 16-300 tokens
+    (the first 300, so its bucket is the ragged cap) drawn from ``seed``,
+    and the engine's max_seq as launch/serve.py sets it."""
     import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(16, 301, size=requests)
+    lens[0] = 300
+    prompts = [rng.integers(0, vocab, int(L)).astype(np.int32) for L in lens]
+    return lens, prompts, int(lens.max()) + max_new + 8
+
+
+def serve(seed: int, layers: int = 4, requests: int = 8, max_new: int = 32, max_batch: int = 4):
     import torch
     from repro_torch.config import get_config, with_dispatcher
     from repro_torch.kernels import ops
     from repro_torch.models.model import model_decl
     from repro_torch.params import init_from_decls
-    from repro_torch.serving.engine import Request, ServingEngine
 
     cfg = with_dispatcher(get_config("llama3-e8t2").replace(num_layers=layers), "sorted")
     print(f"  config {cfg.name}: d_model {cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, "
@@ -707,22 +823,10 @@ def serve(seed: int, layers: int = 4, requests: int = 8, max_new: int = 32, max_
     torch.cuda.synchronize()
     print(f"  weights drawn on the card from seed {seed} in {time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
-    rng = np.random.default_rng(seed)
-    lens = rng.integers(16, 301, size=requests)
-    lens[0] = 300  # the longest prompt sets max_seq, so its bucket is the ragged cap
-    prompts = [rng.integers(0, cfg.vocab_size, int(L)).astype(np.int32) for L in lens]
-    max_seq = int(lens.max()) + max_new + 8  # as launch/serve.py sets it
+    lens, prompts, max_seq = ring_prompts(seed, cfg.vocab_size, requests, max_new)
 
-    def run(use_kernel: bool, which=None, new=max_new):
-        eng = ServingEngine(cfg, params, max_batch=max_batch, max_seq=max_seq,
-                            use_kernel=use_kernel, device="cuda")
-        reqs = [Request(rid=i, prompt=prompts[i], max_new_tokens=new)
-                for i in (which if which is not None else range(len(prompts)))]
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = eng.run(reqs)
-        torch.cuda.synchronize()
-        return eng, out, time.perf_counter() - t
+    def run(_kernels: bool, which=None, new=max_new):  # kernels on; the flag is profile_window's
+        return ring_serve_run(cfg, params, prompts, max_seq, which, new, max_batch)
 
     run(True, [len(prompts) - 1], 2)  # warm-up: library load, cuBLAS handles
     ops.reset_launch_counts()
@@ -1225,10 +1329,311 @@ def profile_window(run) -> float:
     return device_busy(prof, wall, "2 requests, 8 new tokens")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: padded (allgather) dispatch, serving and training
+# ---------------------------------------------------------------------------
+
+
+def ring_serve_run(cfg, params, prompts, max_seq: int, which=None, new: int = 32, max_batch: int = 4, **kw):
+    """One ring-cache ServingEngine run with kernels on: (engine, outputs,
+    wall seconds ending in a synchronise)."""
+    import torch
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    eng = ServingEngine(cfg, params, max_batch=max_batch, max_seq=max_seq, use_kernel=True, device="cuda", **kw)
+    reqs = [Request(rid=i, prompt=prompts[i], max_new_tokens=new)
+            for i in (which if which is not None else range(len(prompts)))]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = eng.run(reqs)
+    torch.cuda.synchronize()
+    return eng, out, time.perf_counter() - t
+
+
+def counted_serve(tag: str, cfg, params, prompts, max_seq: int, needed, checked, max_new: int = 32, **kw):
+    """Warm up, then one counted serve of all ``prompts`` (launch counts set
+    to 0 just before, read just after; every kernel in ``needed`` must have
+    launched and every request got all its tokens), then a short serve with
+    every kernel call in ``checked`` held against its plain version, then a
+    profiled window. Returns (launches, outputs, figures)."""
+    from repro_torch.kernels import ops
+
+    run = lambda which=None, new=max_new: ring_serve_run(cfg, params, prompts, max_seq, which, new, **kw)
+    run([len(prompts) - 1], 2)  # warm-up
+    ops.reset_launch_counts()
+    eng, out, wall = run()
+    launches = ops.launch_counts()
+    ntok = sum(len(v) for v in out.values())
+    pre, dec = eng.timings["prefill_s"], eng.timings["decode_s"]
+    print(f"  [{tag}] served {len(out)} requests, {ntok} tokens in {wall:.3f} s ({ntok / wall:.2f} tok/s); "
+          f"prefill mean {1e3 * sum(pre) / len(pre):.3f} ms over {len(pre)}; "
+          f"decode step mean {1e3 * sum(dec) / len(dec):.3f} ms over {len(dec)} steps")
+    print(f"  [{tag}] kernel launches during the serve run: { {k: v for k, v in launches.items() if v} }")
+    if sorted(out) != list(range(len(prompts))) or not all(len(v) == max_new for v in out.values()):
+        raise SystemExit(f"[{tag}] a request did not receive all its tokens")
+    if not all(launches[n] > 0 for n in needed):
+        raise SystemExit(f"[{tag}] a kernel of the path was never launched: {launches}")
+    report: list = []
+    with checked_kernels(report):
+        run([0, 5], 3)
+    report_checked(report, checked, tag)
+    busy = profile_window(lambda _kernels, which, new: run(which, new))
+    return launches, out, dict(tokens_per_s=ntok / wall, prefill_ms=1e3 * sum(pre) / len(pre),
+                               decode_step_ms=1e3 * sum(dec) / len(dec), device_busy_share=busy)
+
+
+def serve_padded(seed: int, layers: int = 4):
+    """Phase 7 (a): llama3-e8t2 at full width, ``layers`` deep, through the
+    padded allgather dispatcher at the config's CF 4 (C = T at E 8, top-2:
+    prefill buckets pad to T slots per expert, decode has C 4), kernels on,
+    the 8 requests of phase 3. Greedy tokens against the sorted run on the
+    same weights are reported (CF 4 at this T drops nothing, but bf16
+    rounding differs between the two paths)."""
+    import torch
+    from repro_torch.config import get_config, with_dispatcher
+    from repro_torch.models.model import model_decl
+    from repro_torch.params import init_from_decls
+
+    base = get_config("llama3-e8t2").replace(num_layers=layers)
+    cfg = with_dispatcher(base, "allgather")
+    print(f"  {cfg.name}, {layers} layers at full width, dispatcher allgather, capacity factor "
+          f"{cfg.moe.capacity_factor}")
+    params = init_from_decls(model_decl(cfg), seed, "cuda")
+    lens, prompts, max_seq = ring_prompts(seed, cfg.vocab_size)
+    launches, out, stats = counted_serve("padded ring", cfg, params, prompts, max_seq,
+                                         ("expert_gate_up", "expert_down", "flash_fwd"), ("expert_gemm", "flash_fwd"))
+    _, out_sorted, _ = ring_serve_run(with_dispatcher(base, "sorted"), params, prompts, max_seq)
+    ntok = sum(len(v) for v in out.values())
+    same = sum(a == b for r in out for a, b in zip(out[r], out_sorted[r]))
+    print(f"  [padded ring] greedy tokens vs the sorted dispatcher on the same weights and requests: "
+          f"{same}/{ntok} positions equal (reported, not gated)")
+    del params
+    torch.cuda.empty_cache()
+    return launches, {**stats, "equal_to_sorted": f"{same}/{ntok}", **padded_small_input_check(seed)}
+
+
+def padded_small_input_check(seed: int) -> dict:
+    """The smoke config of llama3-e8t2 cut to one layer through allgather
+    at CF 4 (C = T: nothing drops, so it computes the sorted path's
+    function): the first-token logits through #1/#2 must agree with their
+    plain versions' and with the sorted dispatcher's, each within
+    LOGIT_TOL x max|logits| (a CPU run of the same check in bf16 measures
+    up to 0.0014 between allgather and sorted)."""
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config, smoke_config, with_dispatcher
+    from repro_torch.models.model import model_decl
+    from repro_torch.params import init_from_decls
+
+    base = smoke_config(get_config("llama3-e8t2")).replace(num_layers=1)
+    cfg, cfg_sorted = with_dispatcher(base, "allgather"), with_dispatcher(base, "sorted")
+    params = init_from_decls(model_decl(cfg), seed, "cuda")
+    rng = np.random.default_rng(seed)
+    worst, vs_sorted = 0.0, 0.0
+    lens = (12, 40, 100)
+    with torch.inference_mode():
+        for L in lens:
+            p = rng.integers(0, cfg.vocab_size, L).astype(np.int32)
+            bucket = max(16, 1 << (L - 1).bit_length())
+            lk, lp, _ = prefill_three_ways(cfg, params, p, bucket, 128)
+            ls, _, _ = prefill_three_ways(cfg_sorted, params, p, bucket, 128)
+            worst = max(worst, rel_err(lk, lp)[1])
+            vs_sorted = max(vs_sorted, rel_err(lk, ls)[1])
+    print(f"  small input (smoke config, 1 layer, allgather CF {cfg.moe.capacity_factor}, prompts {list(lens)}): "
+          f"first-token logits, #1/#2 vs their plain versions {worst:.4g}, allgather vs sorted {vs_sorted:.4g} of "
+          f"max|logits| (tol {LOGIT_TOL} each)")
+    if max(worst, vs_sorted) > LOGIT_TOL:
+        raise SystemExit("padded-dispatch logits disagree on the small input")
+    return dict(small_padded_vs_plain=worst, small_padded_vs_sorted=vs_sorted)
+
+
+@contextlib.contextmanager
+def drop_counter(counts: list):
+    """Inside the block every padded dispatch appends (assignments kept,
+    assignments routed) to ``counts`` (one host read per MoE layer)."""
+    from repro_torch.core.dispatch import allgather
+
+    tables = allgather.dispatch_tables
+
+    def counted(idx, gates, E, C):
+        sel, slot_gate = tables(idx, gates, E, C)
+        counts.append((int((slot_gate > 0).sum()), idx.numel()))
+        return sel, slot_gate
+
+    allgather.dispatch_tables = counted
+    try:
+        yield
+    finally:
+        allgather.dispatch_tables = tables
+
+
+def train_padded(seed: int, layers: int = 2, steps: int = 8, seq: int = 2048, cf: float = 1.0):
+    """Phase 7 (b): the Trainer on llama3-e8t2 at full width, ``layers``
+    deep, drawn from the seed, 1 x ``seq`` tokens a step through the padded
+    allgather dispatcher at CF ``cf`` (the paper's Table 4 setting: tokens
+    really drop), kernels and remat on. The loss must fall; #1/#2 launch
+    4 times a step (forward and remat recompute, 2 layers) and #5-#7 twice;
+    then every kernel call of one more step, forward and backward, is held
+    against its plain version."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.config import TrainConfig, get_config
+    from repro_torch.core.dispatch import capacity
+    from repro_torch.data.pipeline import make_train_iter
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import loss_fn
+    from repro_torch.train.callbacks import LoggingCallback
+    from repro_torch.train.trainer import Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = get_config("llama3-e8t2")
+    cfg = base.replace(num_layers=layers, moe=dataclasses.replace(base.moe, capacity_factor=cf,
+                                                                  dispatcher="allgather"))
+    C = capacity(cfg.moe, seq)
+    total, active = cfg.param_counts()
+    print(f"  config {cfg.name}: {layers} layers at full width, allgather at CF {cf} (C {C} slots per expert "
+          f"for {seq} tokens x top-{cfg.moe.top_k}), {total / 1e9:.3f} B params; remat {cfg.remat}; "
+          f"batch 1 x {seq}")
+    tcfg = TrainConfig(global_batch=1, seq_len=seq, lr=3e-4, lr_min=3e-6, warmup_steps=1,
+                       total_steps=steps + 2, seed=seed, log_every=1)
+    trainer = Trainer(cfg, tcfg, data_iter=make_train_iter(cfg.vocab_size, seq, 1, tcfg.blend_ratio, seed),
+                      use_kernel=True, device="cuda")
+    log = LoggingCallback(log=lambda m: print("  " + m), log_every=1)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    trainer.run(steps, callbacks=[log])
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.history
+    steady_ms, tflops = hist[-1]["ms_per_step_steady"], hist[-1]["model_tflops_per_sec"]
+    per_step = {k: v / steps for k, v in launches.items() if v}
+    counts: list = []
+    batch = trainer._to_device(next(trainer.data_iter))
+    with torch.no_grad(), drop_counter(counts):
+        loss_fn(cfg, trainer.params, batch, use_kernel=True)
+    dropped = 1.0 - sum(k for k, _ in counts) / sum(n for _, n in counts)
+    print(f"  losses {[round(r['loss'], 4) for r in hist]}")
+    print(f"  steady {steady_ms:.3f} ms/step (steps 2-{steps}), {seq / steady_ms * 1e3:.1f} tok/s, model "
+          f"{tflops:.2f} TFLOP/s (3x convention), MFU {100 * tflops / PEAK_BF16_TFLOPS:.2f}% of "
+          f"{PEAK_BF16_TFLOPS:.0f} TFLOP/s; peak memory allocated {peak} bytes ({peak / 1e9:.2f} GB)")
+    print(f"  dropped share of the top-{cfg.moe.top_k} assignments at CF {cf} on the next batch: "
+          f"{dropped:.4f} (per layer kept/routed {counts})")
+    print(f"  kernel launches per step: {per_step}")
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise SystemExit(f"the padded-dispatch loss did not fall over {steps} steps")
+    expect = {"expert_gate_up": 2 * layers, "expert_down": 2 * layers, "flash_fwd": 2 * layers,
+              **{k: layers for k in ("grouped_bwd_dh", "grouped_bwd_dx", "grouped_bwd_wgrad",
+                                     "flash_bwd_dq", "flash_bwd_dkv")}}
+    if any(launches.get(k, 0) != n * steps for k, n in expect.items()) or launches["grouped_gate_up"]:
+        raise SystemExit(f"launches per step {per_step}, expected {expect}")
+    report: list = []
+    named = named_leaves(trainer.params)
+    with checked_kernels(report):
+        loss, _ = loss_fn(cfg, trainer.params, batch, trainer.state.gen, use_kernel=True)
+        grads = torch.autograd.grad(loss, [t for _, t in named], allow_unused=True)
+    torch.cuda.synchronize()
+    report_checked(report, ("expert_gemm", "flash_fwd", "grouped_bwd_dh", "grouped_bwd_dx", "grouped_bwd_wgrad",
+                            "flash_bwd_dq", "flash_bwd_dkv"), "padded training")
+    bad = [n for (n, _), g in zip(named, grads) if g is None or not bool(torch.isfinite(g).all())]
+    if bad:
+        raise SystemExit(f"parameters without a finite gradient: {bad}")
+    del grads, loss, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dict(losses=[r["loss"] for r in hist], ms_per_step=steady_ms, tokens_per_s=seq / steady_ms * 1e3,
+                          model_tflops_per_s=tflops, mfu=tflops / PEAK_BF16_TFLOPS, peak_bytes=peak,
+                          dropped_share=dropped, capacity=C, launches_per_step=per_step)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: int8 expert weights at full depth
+# ---------------------------------------------------------------------------
+
+
+def serve_int8_full_depth(seed: int):
+    """Phase 8: llama3-e8t2 at all 32 layers and full width, expert weights
+    drawn as int8 on the card from the seed (the bf16 expert tree never
+    exists), sorted dispatcher, ring cache, kernels on, the 8 requests of
+    phase 3. Every request must be answered and #10/#11 must launch."""
+    import gc
+
+    import torch
+    from repro_torch.config import get_config, with_dispatcher
+    from repro_torch.models.model import model_decl
+    from repro_torch.params import init_from_decls, tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  memory allocated at the start of the phase: {torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    cfg = with_dispatcher(get_config("llama3-e8t2"), "sorted").replace(quant_weights="int8")
+    total, _ = cfg.param_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_from_decls(model_decl(cfg), seed, "cuda", quant_weights="int8")
+    torch.cuda.synchronize()
+    by_dtype: dict = {}
+    for t in tree_leaves(params):
+        by_dtype[str(t.dtype)] = by_dtype.get(str(t.dtype), 0) + t.numel() * t.element_size()
+    print(f"  {cfg.name}, {cfg.num_layers} layers (no cut), {total / 1e9:.3f} B params; drawn as int8 experts "
+          f"on the card from seed {seed} in {time.perf_counter() - t0:.2f} s: "
+          + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in by_dtype.items())
+          + f"; peak during the draw {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    lens, prompts, max_seq = ring_prompts(seed, cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    launches, _, stats = counted_serve("int8 full depth", cfg, params, prompts, max_seq,
+                                       ("grouped_gate_up_q8", "grouped_down_q8", "flash_fwd"),
+                                       ("grouped_gemm_q8", "flash_fwd"), quant_weights="int8")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  [int8 full depth] peak memory allocated {peak} bytes ({peak / 1e9:.2f} GB) of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats.update(peak_bytes=peak, weight_bytes=by_dtype, **int8_small_input_check(seed))
+    return launches, stats
+
+
+def int8_small_input_check(seed: int) -> dict:
+    """The smoke config of llama3-e8t2 cut to one layer, int8 experts: the
+    first-token logits through the int8 kernels must agree with their plain
+    versions' within LOGIT_TOL x max|logits|; the int8 model's logits
+    against the bf16 model's are reported beside INT8_LOGIT_BUDGET."""
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config, smoke_config, with_dispatcher
+    from repro_torch.core.quant import INT8_LOGIT_BUDGET, quantize_params
+    from repro_torch.models.model import model_decl
+    from repro_torch.params import init_from_decls
+
+    cfg = with_dispatcher(smoke_config(get_config("llama3-e8t2")).replace(num_layers=1), "sorted")
+    params = init_from_decls(model_decl(cfg), seed, "cuda")
+    qparams = quantize_params(params)
+    rng = np.random.default_rng(seed)
+    worst, vs_bf16 = 0.0, 0.0
+    lens = (12, 40, 100)
+    with torch.inference_mode():
+        for L in lens:
+            p = rng.integers(0, cfg.vocab_size, L).astype(np.int32)
+            bucket = max(16, 1 << (L - 1).bit_length())
+            lk, lp, _ = prefill_three_ways(cfg, qparams, p, bucket, 128)
+            lb, _, _ = prefill_three_ways(cfg, params, p, bucket, 128)
+            worst = max(worst, rel_err(lk, lp)[1])
+            vs_bf16 = max(vs_bf16, float((lk.float() - lb.float()).abs().max()))
+    print(f"  small input (smoke config, 1 layer, int8 experts, prompts {list(lens)}): first-token logits, int8 "
+          f"kernels vs their plain versions {worst:.4g} of max|logits| (tol {LOGIT_TOL}); int8 vs bf16 model "
+          f"max|diff| {vs_bf16:.4g} (budget {INT8_LOGIT_BUDGET}, reported)")
+    if worst > LOGIT_TOL:
+        raise SystemExit("int8 kernel path logits disagree with the plain versions on the small input")
+    return dict(small_int8_vs_plain=worst, small_int8_vs_bf16=vs_bf16)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="1,2,3,4,5,6", help="comma list of phases to run")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8", help="comma list of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -1267,7 +1672,15 @@ def main(argv=None) -> int:
         # skewed, with an empty expert and groups that are not multiples of 128
         dec = check_grouped(gen, (3, 0, 2, 1, 0, 1, 1, 0), "decode")
         check_grouped(gen, (200, 0, 131, 77, 64, 50, 40, 38), "prefill")
-        for row in dec:
+        dec_q8 = check_grouped(gen, (3, 0, 2, 1, 0, 1, 1, 0), "decode", q8=True)
+        check_grouped(gen, (200, 0, 131, 77, 64, 50, 40, 38), "prefill", q8=True)
+        torch.cuda.empty_cache()
+        # padded, CF 4: decode (4 tokens, C 4), one 300-token prompt (C 300);
+        # training at CF 1 (2048 tokens, C 512)
+        pad_dec = check_expert(gen, 4, "decode")
+        check_expert(gen, 300, "prefill")
+        check_expert(gen, 512, "train")
+        for row in dec + dec_q8 + pad_dec:
             kernels[row["name"]] = row
         check_flash(gen, 16)
         check_flash(gen, 340)
@@ -1285,13 +1698,14 @@ def main(argv=None) -> int:
     if 4 in phases:
         from repro_torch.launch.serve import main as serve_main
 
-        for extra in ([], ["--cache-mode", "paged", "--prefix-cache", "--quant-kv", "int8", "--requests", "6",
-                           "--prompt-len", "40"]):
-            argv = ["--arch", "llama3-e8t2", "--smoke", "--requests", "2", "--max-new", "4",
-                    "--dispatcher", "sorted", "--use-kernel", *extra]
+        sorted_ = ["--dispatcher", "sorted"]
+        for extra in (sorted_, sorted_ + ["--cache-mode", "paged", "--prefix-cache", "--quant-kv", "int8",
+                                          "--requests", "6", "--prompt-len", "40"],
+                      sorted_ + ["--quant-weights", "int8"], []):
+            argv = ["--arch", "llama3-e8t2", "--smoke", "--requests", "2", "--max-new", "4", "--use-kernel", *extra]
             print(f"[4] python -m repro_torch.launch.serve {' '.join(argv)}")
             out = serve_main(argv)
-            n = 6 if extra else 2
+            n = 6 if "--prefix-cache" in extra else 2
             if sorted(out) != list(range(n)) or not all(len(v) == 4 for v in out.values()):
                 raise SystemExit(f"serving CLI returned {out}")
     paged_launches = {}
@@ -1317,6 +1731,16 @@ def main(argv=None) -> int:
         print("[6] train llama3-e8t2 (upcycled from a dense llama3-8b drawn from the seed)")
         train_launches, train_stats = train(args.seed)
 
+    padded_launches, padded_stats, padded_train_launches, int8_launches = {}, {}, {}, {}
+    if 7 in phases:
+        print("[7] padded dispatch (allgather): (a) ring serve of llama3-e8t2 at CF 4, kernels on")
+        padded_launches, padded_stats["serve"] = serve_padded(args.seed)
+        print("[7] (b) train llama3-e8t2 (2 layers) through allgather at CF 1.0, kernels on")
+        padded_train_launches, padded_stats["train"] = train_padded(args.seed)
+    if 8 in phases:
+        print("[8] serve llama3-e8t2 at all 32 layers with int8 expert weights (sorted, ring cache, kernels on)")
+        int8_launches, stats["int8_full_depth"] = serve_int8_full_depth(args.seed)
+
     sources = {
         "grouped_gate_up": ("src/repro_torch/kernels/csrc/grouped_gemm.cu", "src/repro/kernels/expert_gemm.py:335"),
         "grouped_down": ("src/repro_torch/kernels/csrc/grouped_gemm.cu", "src/repro/kernels/expert_gemm.py:355"),
@@ -1331,13 +1755,19 @@ def main(argv=None) -> int:
                             "src/repro/kernels/paged_attention.py:126"),
         "paged_attention_q8": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                                "src/repro/kernels/paged_attention.py:265"),
+        "expert_gate_up": ("src/repro_torch/kernels/csrc/grouped_gemm.cu", "src/repro/kernels/expert_gemm.py:177"),
+        "expert_down": ("src/repro_torch/kernels/csrc/grouped_gemm.cu", "src/repro/kernels/expert_gemm.py:194"),
+        "grouped_gate_up_q8": ("src/repro_torch/kernels/csrc/grouped_gemm.cu",
+                               "src/repro/kernels/expert_gemm.py:827"),
+        "grouped_down_q8": ("src/repro_torch/kernels/csrc/grouped_gemm.cu", "src/repro/kernels/expert_gemm.py:851"),
     }
     rows = []
     for name, (src, replaces) in sources.items():
         k = kernels.get(name, {})
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": next((d[name] for d in (launches, train_launches) if d.get(name)), 0),
+            "launches": next((d[name] for d in (launches, train_launches, padded_launches, int8_launches)
+                              if d.get(name)), 0),
             "max_abs_err": k.get("max_abs_err"),
             "ms": k.get("ms"), "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
             "bound_by": k.get("bound_by"), "library_ms": k.get("library_ms"), "library": k.get("library"),
@@ -1346,9 +1776,14 @@ def main(argv=None) -> int:
     print(json.dumps({"launches_by_path": {"ring": {k: v for k, v in launches.items()
                                                     if k in ("grouped_gate_up", "grouped_down", "flash_fwd")},
                                            **{f"paged_{q}": v for q, v in paged_launches.items()},
-                                           "train": {k: v for k, v in train_launches.items() if v}}}))
+                                           "train": {k: v for k, v in train_launches.items() if v},
+                                           **{name: {k: v for k, v in d.items() if v} for name, d in (
+                                               ("padded_ring", padded_launches),
+                                               ("padded_train", padded_train_launches),
+                                               ("int8_full_depth", int8_launches))}}}))
     print(json.dumps({"serve": stats}))
     print(json.dumps({"train": train_stats}))
+    print(json.dumps({"padded": padded_stats}))
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

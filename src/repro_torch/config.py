@@ -24,8 +24,9 @@ class MoEConfig:
 
     ``router_type``: ``mixtral`` = softmax over the top-k logits (preserves
     the dense function at upcycling init), ``st`` = top-k of the softmax.
-    ``capacity_factor=None`` means dropless. Only ``dispatcher="sorted"``
-    runs in the port so far (``core.dispatch.get_dispatcher``)."""
+    ``capacity_factor=None`` means dropless. On one card ``allgather`` and
+    ``sorted`` run; ``alltoall``/``a2a_overlap`` need an expert-parallel
+    plan and fall back to ``allgather`` (``core.dispatch.get_dispatcher``)."""
 
     num_experts: int = 8
     top_k: int = 2
@@ -81,7 +82,7 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
 
     dtype: str = "bfloat16"
-    quant_weights: str = "none"  # none | int8 (int8 expert weights: not ported yet)
+    quant_weights: str = "none"  # none | int8 (int8 expert weights with bf16 per-channel scales)
     quant_kv: str = "none"  # none | int8 (int8 KV pages with per-token scale sidecars)
     vocab_divisor: int = 2048
     # remat policy of the training stack: 'none' | 'full' | 'dots' (the JAX
@@ -103,8 +104,6 @@ class ModelConfig:
                 raise ValueError(
                     f"{name} must be one of {self.QUANT_MODES}, got {getattr(self, name)!r}"
                 )
-        if self.quant_weights != "none":
-            raise NotImplementedError("int8 expert weights are ROADMAP queue 1, 'int8'")
 
     @property
     def head_dim_(self) -> int:

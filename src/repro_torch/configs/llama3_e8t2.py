@@ -1,7 +1,9 @@
 """llama3-e8t2 — the paper's upcycled 8-Expert Top-2 MoE (§4.2): every FFN
 of llama3-8b becomes an 8-expert MoE, Mixtral-type router, CF=4. Its
-dispatcher default ``alltoall`` needs an expert-parallel mesh; on one card
-serve it with ``dispatcher="sorted"`` (dropless, CF ignored)."""
+dispatcher default ``alltoall`` needs an expert-parallel mesh: on one card
+it falls back to the padded ``allgather`` at CF 4 with a warning (or raises
+under strict dispatch); ``dispatcher="sorted"`` is the dropless path (CF
+ignored)."""
 from repro_torch.config import ModelConfig, MoEConfig
 from repro_torch.configs.llama3_8b import get_config as dense_config
 from repro_torch.core.upcycle import upcycle_config

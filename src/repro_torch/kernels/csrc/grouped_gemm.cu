@@ -1,38 +1,59 @@
-// Grouped expert GEMM with fused SwiGLU over the sorted (dropless) layout,
-// for Hopper (sm_90a).
+// Expert FFN GEMMs with fused SwiGLU for Hopper (sm_90a): one tile loop,
+// templated over the row mapping and the weight type, behind six entry
+// points with their own launch counters in kernels/expert_gemm.py.
 //
-// Replaces the TPU kernels of src/repro/kernels/expert_gemm.py,
-// _grouped_fwd_impl: _grouped_gate_up_kernel (h = silu(x@Wg[e]) * (x@Wu[e]))
-// and _grouped_down_kernel (y = h@Wd[e]).
+// Replaces the TPU kernels of src/repro/kernels/expert_gemm.py:
+//   grouped_gate_up     _grouped_gate_up_kernel     (#3)  sorted, bf16
+//   grouped_down        _grouped_down_kernel        (#4)  sorted, bf16
+//   expert_gate_up      _gate_up_kernel             (#1)  padded, bf16
+//   expert_down         _down_kernel                (#2)  padded, bf16
+//   grouped_gate_up_q8  _grouped_gate_up_kernel_q8  (#10) sorted, int8 weights
+//   grouped_down_q8     _grouped_down_kernel_q8     (#11) sorted, int8 weights
+// gate/up: h = silu(x@Wg[e]) * (x@Wu[e]); down: y = h@Wd[e]; fp32 sums.
 //
-// Input: an expert-sorted (N_pad, D) bf16 buffer whose expert regions are
-// aligned to 128 rows; per 128-row tile, tile_group[t] is its expert and
-// tile_rows[t] its valid rows (computed on the device by the wrapper, as
-// group_tiling does). Rows past the valid count come out zero; a block
-// whose rows are all empty writes zeros and does no product.
+// Row mapping. Sorted: an expert-sorted (N_pad, D) buffer whose expert
+// regions are aligned to 128 rows; per 128-row tile, tile_group[t] is its
+// expert and tile_rows[t] its valid rows (computed on the device by the
+// wrapper, as group_tiling does). Rows past the valid count come out zero;
+// a 64-row half tile with no valid row writes zeros and does no product.
+// Padded: the dense (E, C, D) buffer read in place, expert = the block's
+// row-block index / ceil(C/64), row e*C + r; every slot r < C is computed
+// (empty slots hold token 0's row and are zeroed by the combine's gate), a
+// block that straddles C reads its last valid row in place of the rows
+// past it and writes only rows < C, so it never touches the next expert.
+//
+// int8 weights (per-output-channel bf16 scales): WMMA has no bf16 x int8
+// product, so each 32 x 128 int8 slab is staged by cp.async (16 weights per
+// 16-byte copy) and widened to bf16 in shared memory before the fragment
+// loads (|q| <= 127: exact). The scale multiplies the fp32 accumulator in
+// the epilogue, before silu for gate and up (each its own scale) and before
+// the store for down, as the TPU epilogue does.
 //
 // What bounds it on an H100: at decode (a few rows per expert) the kernel
-// must stream each touched expert's weights once, 3*D*F*2 bytes (352 MB at
-// llama3-e8t2 widths): it is bound by bytes, ~105 us per expert at
-// 3.35 TB/s. At prefill (hundreds of rows per expert) the products reach
-// the tensor-core side of the ridge (~295 FLOP/byte).
+// must stream each computed expert's weights once: 3*D*F*2 bytes (352 MB
+// at llama3-e8t2 widths) per expert in bf16, half that in int8: bound by
+// bytes, ~105 us (bf16) or ~53 us (int8) per expert at 3.35 TB/s. The
+// padded layout computes every expert whatever its load; the sorted one
+// skips empty experts. At prefill and in training (hundreds of rows per
+// expert) the products reach the tensor-core side of the ridge.
 //
-// What this simple design does about it: one block per (64-row half tile,
-// 128 output columns); blocks that share a weight column block are launched
-// next to each other (row sub-tile is the fastest grid dim) so the second
+// What this simple design does about it: one block per (64-row block, 128
+// output columns); blocks that share a weight column block are launched
+// next to each other (the row block is the fastest grid dim) so the second
 // reads the weights from L2. The contraction loop streams 32-deep slabs of
 // x and of the weights through shared memory with a two-stage cp.async
-// pipeline (16-byte copies, coalesced 256-byte weight rows) and multiplies
-// them with WMMA bf16 16x16x16 into fp32 accumulators. The gate/up kernel
-// keeps both accumulators and applies silu(g)*u elementwise on the fragments
-// (same fragment type, same element mapping) before one fp32 staging pass
-// through shared memory masks the rows and stores bf16. Half tiles past the
-// valid rows skip the whole product, which halves decode's wasted MMA work.
-// No wgmma, TMA or warp specialisation yet.
+// pipeline and multiplies them with WMMA bf16 16x16x16 into fp32
+// accumulators. The gate/up kernel keeps both accumulators and applies
+// silu(g)*u elementwise on the fragments (same fragment type, same element
+// mapping; the int8 scales are loaded into accumulator fragments from a
+// shared-memory tile of repeated rows, so they line up the same way)
+// before one fp32 staging pass through shared memory masks the rows and
+// stores bf16. No wgmma, TMA or warp specialisation yet.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <cstdint>
+#include <type_traits>
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
@@ -47,18 +68,30 @@ constexpr int THREADS = 256;   // 8 warps: 2 (rows) x 4 (columns), 32x32 each
 constexpr int A_LD = BK + 8;   // padded smem strides (bank spread, 32-byte
 constexpr int B_LD = BN + 8;   // aligned WMMA fragment pointers)
 constexpr int C_LD = BN + 4;
+constexpr int S_LD = BN + 4;   // int8 scale tile (16 repeated rows per weight)
 
+template <int NB, bool Q8>
+struct Pipe;
 template <int NB>
-struct Pipe {
+struct Pipe<NB, false> {  // two stages of bf16 x and weight slabs
   bf16 a[2][BM * A_LD];
   bf16 b[2][NB][BK * B_LD];
 };
-
 template <int NB>
+struct Pipe<NB, true> {  // two stages of int8 weight slabs, one widened bf16 slab
+  bf16 a[2][BM * A_LD];
+  int8_t q[2][NB][BK * BN];
+  bf16 b[1][NB][BK * B_LD];
+};
+
+template <int NB, bool Q8>
 __host__ __device__ constexpr int smem_bytes() {
-  return sizeof(Pipe<NB>) > BM * C_LD * sizeof(float) ? (int)sizeof(Pipe<NB>)
-                                                       : (int)(BM * C_LD * sizeof(float));
+  return sizeof(Pipe<NB, Q8>) > BM * C_LD * sizeof(float) ? (int)sizeof(Pipe<NB, Q8>)
+                                                           : (int)(BM * C_LD * sizeof(float));
 }
+static_assert(smem_bytes<2, false>() <= 48 * 1024 && smem_bytes<2, true>() <= 48 * 1024,
+              "static shared memory above 48 KB");
+static_assert(2 * 16 * S_LD * sizeof(float) <= BM * C_LD * sizeof(float), "scale tiles exceed the smem");
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -68,49 +101,70 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
-// NB = 2: out = silu(A@W0[e]) * (A@W1[e]); NB = 1: out = A@W0[e].
-// A (rows, K) bf16; W (E, K, N) bf16; out (rows, N) bf16.
-template <int NB>
+// NB = 2: out = silu(A@W0[e] * S0[e]) * (A@W1[e] * S1[e]); NB = 1: out = A@W0[e] * S0[e]
+// (no S without Q8). A (rows, K) bf16; W (E, K, N) bf16 or int8; S (E, N) bf16;
+// out (rows, N) bf16. PADDED: rows = E * cap, blockIdx.x = e * ceil(cap/BM) + row block;
+// otherwise the sorted mapping through tile_group / tile_rows.
+template <int NB, bool PADDED, bool Q8>
 __global__ void __launch_bounds__(THREADS)
-grouped_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W0, const bf16* __restrict__ W1,
-               const int* __restrict__ tile_group, const int* __restrict__ tile_rows,
-               bf16* __restrict__ out, int K, int N) {
-  __shared__ __align__(128) unsigned char smem_raw[smem_bytes<NB>()];
-  Pipe<NB>& pipe = *reinterpret_cast<Pipe<NB>*>(smem_raw);
+ffn_kernel(const bf16* __restrict__ A, const void* __restrict__ W0v, const void* __restrict__ W1v,
+           const bf16* __restrict__ S0, const bf16* __restrict__ S1,
+           const int* __restrict__ tile_group, const int* __restrict__ tile_rows, int cap,
+           bf16* __restrict__ out, int K, int N) {
+  using WT = typename std::conditional<Q8, int8_t, bf16>::type;
+  __shared__ __align__(128) unsigned char smem_raw[smem_bytes<NB, Q8>()];
+  Pipe<NB, Q8>& pipe = *reinterpret_cast<Pipe<NB, Q8>*>(smem_raw);
   float* ctile = reinterpret_cast<float*>(smem_raw);  // epilogue reuses the pipe
 
   const int tid = threadIdx.x;
-  const int sub = blockIdx.x;
-  const int tile = sub / (ROW_TILE / BM);
-  const int row0 = sub * BM;
   const int n0 = blockIdx.y * BN;
-  int valid = tile_rows[tile] - (sub % (ROW_TILE / BM)) * BM;
-  valid = valid < 0 ? 0 : (valid > BM ? BM : valid);
-
-  if (valid == 0) {  // empty half tile: zeros, no product
-    for (int c = tid; c < BM * BN / 8; c += THREADS) {
-      const int r = c / (BN / 8), col = (c % (BN / 8)) * 8;
-      *reinterpret_cast<uint4*>(out + (size_t)(row0 + r) * N + n0 + col) = make_uint4(0, 0, 0, 0);
+  int e, valid;
+  size_t row0;  // first row of this block in A and out
+  if constexpr (PADDED) {
+    const int nsub = (cap + BM - 1) / BM;
+    e = blockIdx.x / nsub;
+    const int sub = blockIdx.x % nsub;
+    valid = min(BM, cap - sub * BM);
+    row0 = (size_t)e * cap + (size_t)sub * BM;
+  } else {
+    const int sub = blockIdx.x;
+    const int tile = sub / (ROW_TILE / BM);
+    row0 = (size_t)sub * BM;
+    valid = tile_rows[tile] - (sub % (ROW_TILE / BM)) * BM;
+    valid = valid < 0 ? 0 : (valid > BM ? BM : valid);
+    if (valid == 0) {  // empty half tile: zeros, no product
+      for (int c = tid; c < BM * BN / 8; c += THREADS) {
+        const int r = c / (BN / 8), col = (c % (BN / 8)) * 8;
+        *reinterpret_cast<uint4*>(out + (row0 + r) * N + n0 + col) = make_uint4(0, 0, 0, 0);
+      }
+      return;
     }
-    return;
+    e = tile_group[tile];
   }
 
-  const size_t e_off = (size_t)tile_group[tile] * K * N + n0;
-  const bf16* Ab = A + (size_t)row0 * K;
-  const bf16* Wb[2] = {W0 + e_off, W1 + e_off};
+  const size_t e_off = (size_t)e * K * N + n0;
+  const bf16* Ab = A + row0 * K;
+  const WT* Wb[2] = {static_cast<const WT*>(W0v) + e_off, static_cast<const WT*>(W1v) + e_off};
 
   auto load_stage = [&](int stage, int k0) {
-    {  // A slab: BM x BK = one 16-byte chunk per thread
+    {  // x slab: BM x BK = one 16-byte chunk per thread; rows past `valid`
+       // re-read the last valid row (their results are never stored as data)
       const int r = tid / (BK / 8), c = (tid % (BK / 8)) * 8;
-      cp_async16(&pipe.a[stage][r * A_LD + c], Ab + (size_t)r * K + k0 + c);
+      const int rs = r < valid ? r : valid - 1;
+      cp_async16(&pipe.a[stage][r * A_LD + c], Ab + (size_t)rs * K + k0 + c);
     }
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) {
+      if constexpr (Q8) {  // int8 slab: BK x BN bytes = one 16-byte chunk per thread
+        const int r = tid / (BN / 16), c = (tid % (BN / 16)) * 16;
+        cp_async16(&pipe.q[stage][nb][r * BN + c], Wb[nb] + (size_t)(k0 + r) * N + c);
+      } else {
 #pragma unroll
-      for (int i = 0; i < BK * BN / 8 / THREADS; ++i) {
-        const int ch = tid + i * THREADS;
-        const int r = ch / (BN / 8), c = (ch % (BN / 8)) * 8;
-        cp_async16(&pipe.b[stage][nb][r * B_LD + c], Wb[nb] + (size_t)(k0 + r) * N + c);
+        for (int i = 0; i < BK * BN / 8 / THREADS; ++i) {
+          const int ch = tid + i * THREADS;
+          const int r = ch / (BN / 8), c = (ch % (BN / 8)) * 8;
+          cp_async16(&pipe.b[stage][nb][r * B_LD + c], Wb[nb] + (size_t)(k0 + r) * N + c);
+        }
       }
     }
   };
@@ -134,6 +188,22 @@ grouped_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W0, const bf
     cp_async_wait<1>();  // slab kt has landed
     __syncthreads();
     const int st = kt & 1;
+    if constexpr (Q8) {  // widen the int8 slab to bf16 (exact), 16 weights a thread
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const int r = tid / (BN / 16), c = (tid % (BN / 16)) * 16;
+        const int4 raw = *reinterpret_cast<const int4*>(&pipe.q[st][nb][r * BN + c]);
+        const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
+        __nv_bfloat162 w2[8];
+#pragma unroll
+        for (int t = 0; t < 8; ++t) w2[t] = __floats2bfloat162_rn((float)v[2 * t], (float)v[2 * t + 1]);
+        uint4* dst = reinterpret_cast<uint4*>(&pipe.b[0][nb][r * B_LD + c]);
+        dst[0] = *reinterpret_cast<const uint4*>(&w2[0]);
+        dst[1] = *reinterpret_cast<const uint4*>(&w2[4]);
+      }
+      __syncthreads();
+    }
+    const int bst = Q8 ? 0 : st;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
@@ -145,16 +215,39 @@ grouped_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W0, const bf
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-          wmma::load_matrix_sync(bfr, &pipe.b[st][nb][kk * B_LD + wn * 32 + j * 16], B_LD);
+          wmma::load_matrix_sync(bfr, &pipe.b[bst][nb][kk * B_LD + wn * 32 + j * 16], B_LD);
 #pragma unroll
           for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[nb][i][j], af[i], bfr, acc[nb][i][j]);
         }
       }
     }
-    __syncthreads();  // slab kt consumed before its buffer is refilled
+    __syncthreads();  // slab kt consumed before its buffers are refilled
   }
   cp_async_wait<0>();
   __syncthreads();
+
+  if constexpr (Q8) {  // per-column scales on the fp32 sums, before silu
+    float* stile = reinterpret_cast<float*>(smem_raw);  // NB x 16 x S_LD, rows repeated
+    const bf16* S[2] = {S0, S1};
+    for (int i = tid; i < NB * 16 * BN; i += THREADS) {
+      const int nb = i / (16 * BN), r = (i / BN) % 16, c = i % BN;
+      stile[(nb * 16 + r) * S_LD + c] = __bfloat162float(S[nb][(size_t)e * N + n0 + c]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> sc;
+        wmma::load_matrix_sync(sc, &stile[nb * 16 * S_LD + wn * 32 + j * 16], S_LD, wmma::mem_row_major);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int t = 0; t < sc.num_elements; ++t) acc[nb][i][j].x[t] *= sc.x[t];
+      }
+    }
+    __syncthreads();  // the scale tiles are read before ctile overwrites them
+  }
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -173,31 +266,69 @@ grouped_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W0, const bf
   __syncthreads();
   for (int c = tid; c < BM * BN / 2; c += THREADS) {
     const int r = c / (BN / 2), col = (c % (BN / 2)) * 2;
+    if (PADDED && r >= valid) continue;  // the next expert's rows
     float v0 = 0.0f, v1 = 0.0f;
     if (r < valid) {
       v0 = ctile[r * C_LD + col];
       v1 = ctile[r * C_LD + col + 1];
     }
-    *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(row0 + r) * N + n0 + col) =
-        __floats2bfloat162_rn(v0, v1);
+    *reinterpret_cast<__nv_bfloat162*>(out + (row0 + r) * N + n0 + col) = __floats2bfloat162_rn(v0, v1);
   }
 }
+
+int sorted_blocks(int n_pad) { return n_pad / BM; }
+int padded_blocks(int e, int c) { return e * ((c + BM - 1) / BM); }
 
 }  // namespace
 
 extern "C" int grouped_gate_up(const void* xs, const void* w_gate, const void* w_up,
                                const int* tile_group, const int* tile_rows, void* h,
                                int n_pad, int d, int f, void* stream) {
-  dim3 grid(n_pad / BM, f / BN);
-  grouped_kernel<2><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)xs, (const bf16*)w_gate, (const bf16*)w_up, tile_group, tile_rows, (bf16*)h, d, f);
+  dim3 grid(sorted_blocks(n_pad), f / BN);
+  ffn_kernel<2, false, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)xs, w_gate, w_up, nullptr, nullptr, tile_group, tile_rows, 0, (bf16*)h, d, f);
   return (int)cudaGetLastError();
 }
 
 extern "C" int grouped_down(const void* h, const void* w_down, const int* tile_group,
                             const int* tile_rows, void* y, int n_pad, int f, int d, void* stream) {
-  dim3 grid(n_pad / BM, d / BN);
-  grouped_kernel<1><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)h, (const bf16*)w_down, (const bf16*)w_down, tile_group, tile_rows, (bf16*)y, f, d);
+  dim3 grid(sorted_blocks(n_pad), d / BN);
+  ffn_kernel<1, false, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)h, w_down, w_down, nullptr, nullptr, tile_group, tile_rows, 0, (bf16*)y, f, d);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int expert_gate_up(const void* xe, const void* w_gate, const void* w_up, void* h,
+                              int e, int c, int d, int f, void* stream) {
+  dim3 grid(padded_blocks(e, c), f / BN);
+  ffn_kernel<2, true, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)xe, w_gate, w_up, nullptr, nullptr, nullptr, nullptr, c, (bf16*)h, d, f);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int expert_down(const void* h, const void* w_down, void* y, int e, int c, int f, int d,
+                           void* stream) {
+  dim3 grid(padded_blocks(e, c), d / BN);
+  ffn_kernel<1, true, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)h, w_down, w_down, nullptr, nullptr, nullptr, nullptr, c, (bf16*)y, f, d);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int grouped_gate_up_q8(const void* xs, const void* w_gate, const void* w_up,
+                                  const void* s_gate, const void* s_up, const int* tile_group,
+                                  const int* tile_rows, void* h, int n_pad, int d, int f, void* stream) {
+  dim3 grid(sorted_blocks(n_pad), f / BN);
+  ffn_kernel<2, false, true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)xs, w_gate, w_up, (const bf16*)s_gate, (const bf16*)s_up, tile_group, tile_rows, 0,
+      (bf16*)h, d, f);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int grouped_down_q8(const void* h, const void* w_down, const void* s_down, const int* tile_group,
+                               const int* tile_rows, void* y, int n_pad, int f, int d, void* stream) {
+  dim3 grid(sorted_blocks(n_pad), d / BN);
+  ffn_kernel<1, false, true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)h, w_down, w_down, (const bf16*)s_down, (const bf16*)s_down, tile_group, tile_rows, 0,
+      (bf16*)y, f, d);
   return (int)cudaGetLastError();
 }

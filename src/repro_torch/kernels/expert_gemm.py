@@ -1,7 +1,11 @@
-"""Grouped expert GEMM with fused SwiGLU over the sorted layout — the port
-of ``repro.kernels.expert_gemm.grouped_gemm``'s forward
-(``_grouped_fwd_impl``: ``_grouped_gate_up_kernel`` and
-``_grouped_down_kernel``).
+"""Expert GEMMs with fused SwiGLU — the port of ``repro.kernels.expert_gemm``
+for the sorted layout in bf16 (``grouped_gemm``) and int8
+(``grouped_gemm_q8``) and the padded layout in bf16 (``expert_gemm``).
+All six forward kernels live in ``csrc/grouped_gemm.cu``, one templated
+tile loop.
+
+Sorted, bf16 (``_grouped_fwd_impl``: ``_grouped_gate_up_kernel`` and
+``_grouped_down_kernel``):
 
 Input: an expert-sorted ``(N_pad, D)`` buffer whose expert regions are
 aligned to 128 rows, plus ``group_sizes`` (E,). Two CUDA kernels
@@ -16,6 +20,18 @@ Per 128-row tile, the expert id and the valid-row count are computed on
 the device from ``group_sizes`` (:func:`group_tiling`, as the JAX package
 does; no host sync) and each block reads its own. On a CPU tensor the
 wrapper runs the plain version, ``kernels.ref.grouped_gemm_ref``.
+
+Padded (``_expert_fwd_impl``: ``_gate_up_kernel``, ``_down_kernel``): the
+dense ``(E, C, D)`` buffer read in place by ``expert_gate_up`` and
+``expert_down``, every slot computed. :class:`ExpertGemm` is its autograd
+node: its backward views the buffer as a sorted one with ``group_sizes ==
+C`` (``_expert_gemm_bwd``), copied into 128-row-aligned regions because the
+backward kernels need that alignment, and runs the three backward kernels.
+
+Sorted, int8 weights (``_grouped_fwd_q8_impl``: ``_grouped_gate_up_kernel_q8``,
+``_grouped_down_kernel_q8``): ``grouped_gate_up_q8`` and ``grouped_down_q8``
+widen int8 weight slabs to bf16 in shared memory and apply the bf16
+per-column scales to the fp32 sums. Forward only, as in the JAX package.
 
 The backward (``_grouped_bwd_impl``: ``_grouped_bwd_dh_kernel``,
 ``_grouped_bwd_dx_kernel``, ``_grouped_bwd_wgrad_kernel``) is three more
@@ -33,13 +49,14 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import grouped_gemm_bwd_ref, grouped_gemm_ref
+from repro_torch.kernels.ref import expert_gemm_ref, grouped_gemm_bwd_ref, grouped_gemm_q8_ref, grouped_gemm_ref
 
 ROW_TILE = 128  # metadata granularity: the sorted buffer's region alignment
 COL_TILE = 128  # output columns per CUDA block (F and D must be multiples)
 
 # launches of each CUDA kernel in this process (chip_smoke.py reads them)
-LAUNCHES = {"grouped_gate_up": 0, "grouped_down": 0,
+LAUNCHES = {"grouped_gate_up": 0, "grouped_down": 0, "expert_gate_up": 0, "expert_down": 0,
+            "grouped_gate_up_q8": 0, "grouped_down_q8": 0,
             "grouped_bwd_dh": 0, "grouped_bwd_dx": 0, "grouped_bwd_wgrad": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -48,6 +65,14 @@ _SIGS = {
     "grouped_gate_up": [_P] * 6 + [_I] * 3 + [_P],
     # h, w_down, tile_group, tile_rows, y, n_pad, f, d, stream
     "grouped_down": [_P] * 5 + [_I] * 3 + [_P],
+    # xe, w_gate, w_up, h, e, c, d, f, stream
+    "expert_gate_up": [_P] * 4 + [_I] * 4 + [_P],
+    # h, w_down, y, e, c, f, d, stream
+    "expert_down": [_P] * 3 + [_I] * 4 + [_P],
+    # xs, w_gate, w_up, s_gate, s_up, tile_group, tile_rows, h, n_pad, d, f, stream
+    "grouped_gate_up_q8": [_P] * 8 + [_I] * 3 + [_P],
+    # h, w_down, s_down, tile_group, tile_rows, y, n_pad, f, d, stream
+    "grouped_down_q8": [_P] * 6 + [_I] * 3 + [_P],
 }
 _BWD_SIGS = {
     # xs, dy, w_gate, w_up, w_down, tile_group, tile_rows, h, dg, du, n_pad, d, f, stream
@@ -73,20 +98,32 @@ def group_tiling(group_sizes: torch.Tensor, num_tiles: int, bc: int = ROW_TILE):
     return tg.int().contiguous(), tr.int().contiguous()
 
 
-def _check(xs, w_gate, w_up, w_down, group_sizes, row_block):
-    N_pad, D = xs.shape
+def _check_weights(what, x, w_gate, w_up, w_down, wdtype=torch.bfloat16, scales=None):
+    D = x.shape[-1]
     E, _, F = w_gate.shape
-    for name, t in (("xs", xs), ("w_gate", w_gate), ("w_up", w_up), ("w_down", w_down)):
-        if t.device != xs.device or t.dtype != torch.bfloat16 or not t.is_contiguous():
-            raise ValueError(f"grouped_gemm: {name} must be a contiguous bf16 tensor on {xs.device}")
+    tensors = (("x", x, torch.bfloat16), ("w_gate", w_gate, wdtype), ("w_up", w_up, wdtype),
+               ("w_down", w_down, wdtype))
+    if scales is not None:
+        tensors += tuple((n, t, torch.bfloat16) for n, t in zip(("s_gate", "s_up", "s_down"), scales))
+        if tuple(s.shape for s in scales) != ((E, F), (E, F), (E, D)):
+            raise ValueError(f"{what}: scale shapes {[tuple(s.shape) for s in scales]} for E={E} F={F} D={D}")
+    for name, t, dt in tensors:
+        if t.device != x.device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous {dt} tensor on {x.device}")
     if w_gate.shape != (E, D, F) or w_up.shape != (E, D, F) or w_down.shape != (E, F, D):
-        raise ValueError(f"grouped_gemm: weight shapes {w_gate.shape} {w_up.shape} {w_down.shape} for D={D}")
+        raise ValueError(f"{what}: weight shapes {w_gate.shape} {w_up.shape} {w_down.shape} for D={D}")
+    if D % COL_TILE or F % COL_TILE:
+        raise ValueError(f"{what}: D={D} and F={F} must be multiples of {COL_TILE}")
+
+
+def _check(xs, w_gate, w_up, w_down, group_sizes, row_block, wdtype=torch.bfloat16, scales=None):
+    N_pad = xs.shape[0]
+    E = w_gate.shape[0]
+    _check_weights("grouped_gemm", xs, w_gate, w_up, w_down, wdtype, scales)
     if group_sizes.shape != (E,) or group_sizes.device != xs.device:
         raise ValueError("grouped_gemm: group_sizes must be (E,) on the device of xs")
     if row_block != ROW_TILE or N_pad % ROW_TILE:
         raise ValueError(f"grouped_gemm: the CUDA kernel needs row_block={ROW_TILE} and N_pad % {ROW_TILE} == 0")
-    if D % COL_TILE or F % COL_TILE:
-        raise ValueError(f"grouped_gemm: D={D} and F={F} must be multiples of {COL_TILE}")
 
 
 def gate_up_cuda(xs, w_gate, w_up, tile_group, tile_rows) -> torch.Tensor:
@@ -122,6 +159,80 @@ def grouped_gemm_cuda(xs, w_gate, w_up, w_down, group_sizes, row_block: int = RO
     _check(xs, w_gate, w_up, w_down, group_sizes, row_block)
     tg, tr = group_tiling(group_sizes, xs.shape[0] // ROW_TILE)
     return down_cuda(gate_up_cuda(xs, w_gate, w_up, tg, tr), w_down, tg, tr)
+
+
+def expert_gate_up_cuda(xe, w_gate, w_up) -> torch.Tensor:
+    """Launch ``expert_gate_up`` on the current stream: (E, C, D) -> h (E, C, F)."""
+    E, C, D = xe.shape
+    F = w_gate.shape[2]
+    h = torch.empty((E, C, F), dtype=xe.dtype, device=xe.device)
+    lib = _build.load("grouped_gemm", _SIGS)
+    _build.check(lib.expert_gate_up(
+        xe.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), h.data_ptr(), E, C, D, F,
+        torch.cuda.current_stream(xe.device).cuda_stream), "expert_gate_up")
+    LAUNCHES["expert_gate_up"] += 1
+    return h
+
+
+def expert_down_cuda(h, w_down) -> torch.Tensor:
+    """Launch ``expert_down`` on the current stream: (E, C, F) -> y (E, C, D)."""
+    E, C, F = h.shape
+    D = w_down.shape[2]
+    y = torch.empty((E, C, D), dtype=h.dtype, device=h.device)
+    lib = _build.load("grouped_gemm", _SIGS)
+    _build.check(lib.expert_down(
+        h.data_ptr(), w_down.data_ptr(), y.data_ptr(), E, C, F, D,
+        torch.cuda.current_stream(h.device).cuda_stream), "expert_down")
+    LAUNCHES["expert_down"] += 1
+    return y
+
+
+def _check_padded(xe, w_gate, w_up, w_down):
+    if xe.dim() != 3 or xe.shape[0] != w_gate.shape[0] or xe.shape[1] < 1:
+        raise ValueError(f"expert_gemm: xe must be (E, C>=1, D) for {w_gate.shape[0]} experts, got {tuple(xe.shape)}")
+    _check_weights("expert_gemm", xe, w_gate, w_up, w_down)
+
+
+def expert_gemm_cuda(xe, w_gate, w_up, w_down) -> torch.Tensor:
+    """#1 then #2 on the current stream; raises on a refused launch."""
+    _check_padded(xe, w_gate, w_up, w_down)
+    return expert_down_cuda(expert_gate_up_cuda(xe, w_gate, w_up), w_down)
+
+
+def gate_up_q8_cuda(xs, w_gate, w_up, s_gate, s_up, tile_group, tile_rows) -> torch.Tensor:
+    """Launch ``grouped_gate_up_q8`` on the current stream -> h (N_pad, F)."""
+    N_pad, D = xs.shape
+    F = w_gate.shape[2]
+    h = torch.empty((N_pad, F), dtype=xs.dtype, device=xs.device)
+    lib = _build.load("grouped_gemm", _SIGS)
+    _build.check(lib.grouped_gate_up_q8(
+        xs.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), s_gate.data_ptr(), s_up.data_ptr(),
+        tile_group.data_ptr(), tile_rows.data_ptr(), h.data_ptr(), N_pad, D, F,
+        torch.cuda.current_stream(xs.device).cuda_stream), "grouped_gate_up_q8")
+    LAUNCHES["grouped_gate_up_q8"] += 1
+    return h
+
+
+def down_q8_cuda(h, w_down, s_down, tile_group, tile_rows) -> torch.Tensor:
+    """Launch ``grouped_down_q8`` on the current stream -> y (N_pad, D)."""
+    N_pad, F = h.shape
+    D = w_down.shape[2]
+    y = torch.empty((N_pad, D), dtype=h.dtype, device=h.device)
+    lib = _build.load("grouped_gemm", _SIGS)
+    _build.check(lib.grouped_down_q8(
+        h.data_ptr(), w_down.data_ptr(), s_down.data_ptr(), tile_group.data_ptr(), tile_rows.data_ptr(),
+        y.data_ptr(), N_pad, F, D, torch.cuda.current_stream(h.device).cuda_stream), "grouped_down_q8")
+    LAUNCHES["grouped_down_q8"] += 1
+    return y
+
+
+def grouped_gemm_q8_cuda(xs, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes,
+                         row_block: int = ROW_TILE) -> torch.Tensor:
+    """#10 then #11 on the current stream; raises on a refused launch."""
+    _check(xs, w_gate, w_up, w_down, group_sizes, row_block, torch.int8, (s_gate, s_up, s_down))
+    tg, tr = group_tiling(group_sizes, xs.shape[0] // ROW_TILE)
+    h = gate_up_q8_cuda(xs, w_gate, w_up, s_gate, s_up, tg, tr)
+    return down_q8_cuda(h, w_down, s_down, tg, tr)
 
 
 def bwd_dh_cuda(xs, dy, w_gate, w_up, w_down, tile_group, tile_rows):
@@ -236,6 +347,73 @@ def grouped_gemm(xs, w_gate, w_up, w_down, group_sizes, row_block: int = ROW_TIL
     :class:`GroupedGemm` on both devices. A CUDA tensor launches the kernels
     (or raises); a CPU tensor runs the plain versions."""
     return GroupedGemm.apply(xs, w_gate, w_up, w_down, group_sizes, row_block)
+
+
+def grouped_gemm_q8(xs, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes,
+                    row_block: int = ROW_TILE) -> torch.Tensor:
+    """int8-weight grouped FFN over the sorted layout, forward only (the
+    JAX q8 kernels have no VJP): a weight that requires grad raises. A CUDA
+    tensor launches #10 and #11 (or raises); a CPU tensor runs the plain
+    version."""
+    if any(w.requires_grad for w in (w_gate, w_up, w_down, s_gate, s_up, s_down)):
+        raise ValueError("grouped_gemm_q8 is forward only: int8 expert weights have no gradient")
+    if xs.is_cuda:
+        return grouped_gemm_q8_cuda(xs, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes, row_block)
+    if xs.device.type != "cpu":
+        raise ValueError(f"grouped_gemm_q8: unsupported device {xs.device}")
+    return grouped_gemm_q8_ref(xs, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes, row_block)
+
+
+def _aligned_view(t: torch.Tensor) -> torch.Tensor:
+    """(E, C, X) -> (E * Cp, X) with Cp = C rounded up to ROW_TILE: each
+    expert's slots copied into its own 128-row region, zero rows after."""
+    E, C, X = t.shape
+    Cp = -(-C // ROW_TILE) * ROW_TILE
+    if Cp == C:
+        return t.reshape(E * C, X)
+    out = t.new_zeros((E, Cp, X))
+    out[:, :C] = t
+    return out.reshape(E * Cp, X)
+
+
+def expert_gemm_fwd(xe, w_gate, w_up, w_down) -> torch.Tensor:
+    """Padded forward without autograd: a CUDA tensor launches #1 and #2
+    (or raises); a CPU tensor runs the plain version."""
+    if xe.is_cuda:
+        return expert_gemm_cuda(xe, w_gate, w_up, w_down)
+    if xe.device.type != "cpu":
+        raise ValueError(f"expert_gemm: unsupported device {xe.device}")
+    return expert_gemm_ref(xe, w_gate, w_up, w_down)
+
+
+class ExpertGemm(torch.autograd.Function):
+    """Autograd node of the padded expert GEMM (the JAX ``_expert_gemm_p``
+    ``custom_vjp``). Saves only its inputs. The backward is
+    ``_expert_gemm_bwd``'s: the (E, C, D) buffer is a sorted buffer with
+    ``group_sizes == C``, here copied into 128-row-aligned regions (the
+    backward kernels' alignment; the zero rows past C are masked out and add
+    nothing), run through ``grouped_gemm_bwd`` (#5-#7, looked up at call
+    time) and sliced back to C rows."""
+
+    @staticmethod
+    def forward(ctx, xe, w_gate, w_up, w_down):
+        ctx.save_for_backward(xe, w_gate, w_up, w_down)
+        return expert_gemm_fwd(xe, w_gate, w_up, w_down)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xe, w_gate, w_up, w_down = ctx.saved_tensors
+        E, C, D = xe.shape
+        gs = torch.full((E,), C, dtype=torch.int32, device=xe.device)
+        dxs, dwg, dwu, dwd = grouped_gemm_bwd(_aligned_view(xe), _aligned_view(dy.contiguous()),
+                                              w_gate, w_up, w_down, gs, ROW_TILE)
+        return dxs.reshape(E, -1, D)[:, :C], dwg, dwu, dwd
+
+
+def expert_gemm(xe, w_gate, w_up, w_down) -> torch.Tensor:
+    """(E, C, D) padded expert buffer -> (E, C, D), differentiable through
+    :class:`ExpertGemm` on both devices."""
+    return ExpertGemm.apply(xe, w_gate, w_up, w_down)
 
 
 def grouped_gemm_residuals(xs, w_gate, w_up, w_down, group_sizes, row_block: int = ROW_TILE):

@@ -1,8 +1,9 @@
 """Public wrappers for the port's kernels (port of ``repro.kernels.ops``
 for the serving and training slices). A CUDA tensor launches the
 hand-written kernel and raises if it cannot; a CPU tensor takes the plain
-version. ``grouped_gemm`` and ``flash_attention`` are differentiable on
-both devices (``expert_gemm.GroupedGemm``, ``flash_attention.FlashAttention``:
+version. ``grouped_gemm``, ``expert_gemm`` and ``flash_attention`` are
+differentiable on both devices (``expert_gemm.GroupedGemm``,
+``expert_gemm.ExpertGemm``, ``flash_attention.FlashAttention``:
 hand-written backward kernels on the card, their plain versions on the
 CPU), so a training step runs forward and backward on the kernel path. No
 autotuner: the CUDA kernels have fixed tiles.
@@ -24,6 +25,35 @@ def grouped_gemm(xs, w_gate, w_up, w_down, group_sizes, row_block: int = _eg.ROW
     (N_pad, D) rows, each expert's region ``row_block``-aligned,
     ``group_sizes`` (E,) valid rows per expert."""
     return _eg.grouped_gemm(xs, w_gate, w_up, w_down, group_sizes, row_block)
+
+
+def grouped_gemm_q8(xs, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes,
+                    row_block: int = _eg.ROW_TILE) -> torch.Tensor:
+    """int8-weight grouped GEMM over the sorted layout: int8 (E, D, F) /
+    (E, F, D) weights with bf16 per-output-channel scales (E, F) / (E, D),
+    applied to the fp32 sums. Forward only."""
+    return _eg.grouped_gemm_q8(xs, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes, row_block)
+
+
+def expert_gemm(xe, w_gate, w_up, w_down) -> torch.Tensor:
+    """Padded expert FFN: (..., E, C, D) -> (..., E, C, D). Leading group
+    dims fold into each expert's slots, as the JAX ``ops.expert_gemm``
+    does."""
+    lead = xe.shape[:-3]
+    E, C, D = xe.shape[-3:]
+    if not lead:
+        return _eg.expert_gemm(xe, w_gate, w_up, w_down)
+    x3 = xe.reshape(-1, E, C, D).transpose(0, 1).reshape(E, -1, D)
+    y = _eg.expert_gemm(x3.contiguous(), w_gate, w_up, w_down)
+    return y.reshape(E, -1, C, D).transpose(0, 1).reshape(*lead, E, C, D)
+
+
+def expert_gemm_q8(xe, w_gate, w_up, w_down, s_gate, s_up, s_down) -> torch.Tensor:
+    """int8-weight padded expert FFN: kernels #8/#9, not ported yet."""
+    raise NotImplementedError(
+        "padded dispatch with int8 expert weights on the kernel path needs kernels #8/#9 "
+        "(_gate_up_kernel_q8, _down_kernel_q8), ported with the next slice (ROADMAP queue 1 item 5); "
+        "use dispatcher='sorted' or use_kernel=False")
 
 
 def grouped_gemm_ragged(xs, w_gate, w_up, w_down, group_sizes) -> torch.Tensor:

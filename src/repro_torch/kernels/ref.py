@@ -63,6 +63,64 @@ def grouped_gemm_ref(
     return grouped_down_ref(h, w_down, group_sizes, row_block)
 
 
+def expert_gate_up_ref(xe, w_gate, w_up) -> torch.Tensor:
+    """Plain version of the padded gate/up kernel (the TPU
+    ``_gate_up_kernel``): ``h[e] = silu(xe[e] @ Wg[e]) * (xe[e] @ Wu[e])``
+    in fp32 over every slot of ``xe`` (E, C, D), cast to xe's dtype. One
+    expert at a time: an fp32 copy of all weights would not fit beside a
+    full-width model."""
+    h = torch.empty(xe.shape[:-1] + w_gate.shape[-1:], dtype=xe.dtype, device=xe.device)
+    for e in range(xe.shape[0]):
+        x = xe[e].float()
+        h[e] = (F.silu(x @ w_gate[e].float()) * (x @ w_up[e].float())).to(xe.dtype)
+    return h
+
+
+def expert_down_ref(h, w_down) -> torch.Tensor:
+    """Plain version of the padded down kernel (``_down_kernel``): ``y[e] =
+    h[e] @ Wd[e]`` in fp32, cast to h's dtype."""
+    return torch.stack([(h[e].float() @ w_down[e].float()).to(h.dtype) for e in range(h.shape[0])])
+
+
+def expert_gemm_ref(xe, w_gate, w_up, w_down) -> torch.Tensor:
+    """Fused SwiGLU expert FFN over the dense padded ``(E, C, D)`` layout
+    (the JAX ``expert_gemm_ref``): every slot is computed."""
+    return expert_down_ref(expert_gate_up_ref(xe, w_gate, w_up), w_down)
+
+
+def grouped_gate_up_q8_ref(xs, w_gate, w_up, s_gate, s_up, group_sizes, row_block: int = 1) -> torch.Tensor:
+    """Plain version of the int8 grouped gate/up kernel
+    (``_grouped_gate_up_kernel_q8``): int8 weights widened (exact), fp32
+    sums, each product times its per-column bf16 scale on the fp32 sum
+    before silu, ``h = silu(g) * u`` cast to x's dtype; rows past
+    ``group_sizes[e]`` zero."""
+    h = torch.zeros((xs.shape[0], w_gate.shape[-1]), dtype=xs.dtype, device=xs.device)
+    for e, s, g in _regions(group_sizes, row_block):
+        x = xs[s:s + g].float()
+        gv = (x @ w_gate[e].float()) * s_gate[e].float()
+        uv = (x @ w_up[e].float()) * s_up[e].float()
+        h[s:s + g] = (F.silu(gv) * uv).to(xs.dtype)
+    return h
+
+
+def grouped_down_q8_ref(h, w_down, s_down, group_sizes, row_block: int = 1) -> torch.Tensor:
+    """Plain version of the int8 grouped down kernel
+    (``_grouped_down_kernel_q8``): ``y = (h @ Wd[e]) * sd[e]`` with the
+    scale on the fp32 sum, cast to h's dtype; other rows zero."""
+    y = torch.zeros((h.shape[0], w_down.shape[-1]), dtype=h.dtype, device=h.device)
+    for e, s, g in _regions(group_sizes, row_block):
+        y[s:s + g] = ((h[s:s + g].float() @ w_down[e].float()) * s_down[e].float()).to(h.dtype)
+    return y
+
+
+def grouped_gemm_q8_ref(xs, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes,
+                        row_block: int = 1) -> torch.Tensor:
+    """int8-weight grouped FFN over the sorted layout (the JAX
+    ``grouped_gemm_q8_ref``)."""
+    h = grouped_gate_up_q8_ref(xs, w_gate, w_up, s_gate, s_up, group_sizes, row_block)
+    return grouped_down_q8_ref(h, w_down, s_down, group_sizes, row_block)
+
+
 def grouped_bwd_dh_ref(xs, dy, w_gate, w_up, w_down, group_sizes, row_block: int = 1):
     """Plain version of the grouped backward's first pass (the TPU
     ``_grouped_bwd_dh_kernel``): recompute ``g = x @ Wg[e]`` and ``u = x @

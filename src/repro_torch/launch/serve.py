@@ -6,6 +6,16 @@ cache or page pool), on the card unless ``--device cpu``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-e8t2 \\
       --smoke --dispatcher sorted --use-kernel --cache-mode paged \\
       --prefix-cache --quant-kv int8 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-e8t2 \\
+      --smoke --dispatcher sorted --use-kernel --quant-weights int8
+
+With no ``--dispatcher`` the config's choice stands: llama3-e8t2's
+``alltoall`` has no expert-parallel plan on one card, so it falls back to
+``allgather`` (capacity factor 4) with a warning, or raises under
+``REPRO_STRICT_DISPATCH``, as the JAX launcher does on one device. With
+``--quant-weights int8`` the expert weights are drawn straight into int8
+with their scales (``init_from_decls(..., quant_weights="int8")``), so no
+bf16 expert tree is ever held.
 """
 from __future__ import annotations
 
@@ -33,7 +43,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dispatcher", default=None,
                     choices=["allgather", "alltoall", "a2a_overlap", "sorted"],
-                    help="MoE token dispatcher (only 'sorted' is ported so far)")
+                    help="MoE token dispatcher (default: the config's choice; alltoall "
+                         "and a2a_overlap fall back to allgather without an EP plan)")
     ap.add_argument("--use-kernel", action="store_true",
                     help="run the hand-written CUDA kernels (grouped expert "
                          "GEMM, flash-attention prefill, paged-attention decode)")
@@ -59,6 +70,9 @@ def main(argv=None):
                          "sharing a prompt stem reuse its KV pages (paged "
                          "mode only; the demo prompts share a stem so the "
                          "cache actually hits)")
+    ap.add_argument("--quant-weights", default="none", choices=["none", "int8"],
+                    help="int8 expert FFN weights with bf16 per-output-channel scales "
+                         "(the int8 grouped kernels with --dispatcher sorted --use-kernel)")
     ap.add_argument("--quant-kv", default="none", choices=["none", "int8"],
                     help="int8 KV pages with a per-token scale sidecar "
                          "(requires --cache-mode paged)")
@@ -75,7 +89,7 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
-    params = init_from_decls(model_decl(cfg), args.seed, device)
+    params = init_from_decls(model_decl(cfg), args.seed, device, quant_weights=args.quant_weights)
     engine = ServingEngine(
         cfg, params, max_batch=args.max_batch,
         max_seq=args.prompt_len + args.max_new + 8,
@@ -83,7 +97,8 @@ def main(argv=None):
         cache_mode=args.cache_mode, page_size=args.page_size, num_pages=args.num_pages,
         prefill_chunk=args.prefill_chunk, deadline_steps=args.deadline_steps or None,
         max_queue=args.max_queue or None, shed_watermark=args.shed_watermark or None,
-        prefix_cache=args.prefix_cache, quant_kv=args.quant_kv, device=device,
+        prefix_cache=args.prefix_cache, quant_weights=args.quant_weights, quant_kv=args.quant_kv,
+        device=device,
     )
     rng = np.random.default_rng(args.seed)
 
@@ -119,8 +134,8 @@ def main(argv=None):
     print(f"served {len(accepted)} requests ({shed} shed), {total_tokens} "
           f"tokens in {dt:.2f}s ({total_tokens/dt:.1f} tok/s, "
           f"batch={args.max_batch}, cache={args.cache_mode}, device={device})")
-    if args.quant_kv != "none":
-        print(f"  quant: weights=none, kv={args.quant_kv} "
+    if args.quant_weights != "none" or args.quant_kv != "none":
+        print(f"  quant: weights={args.quant_weights}, kv={args.quant_kv} "
               f"(int8 payloads, fp32 accumulate, scales in sidecars)")
     h = engine.health()
     expired = [r.rid for r in accepted if r.status == "deadline"]

@@ -68,12 +68,11 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
-def _init_leaf(d: ParamDecl, gen: torch.Generator, device: torch.device) -> torch.Tensor:
-    out = torch.empty(d.shape, dtype=d.dtype, device=device)
-    if d.init == "zeros":
-        return out.zero_()
-    if d.init == "ones":
-        return out.fill_(1)
+def _random_slices(d: ParamDecl, gen: torch.Generator, device: torch.device):
+    """Yield each leading slice (the last two dims) of a random leaf, drawn
+    in fp32 and scaled by the init's std, in the generator's order: one
+    slice at a time, since the stacked expert leaf of llama3-e8t2 is
+    periods x 8 x 4096 x 14336 values and an fp32 copy of it would not fit."""
     if d.init.startswith("normal"):
         std = float(d.init.split(":")[1]) if ":" in d.init else 0.02
     elif d.init == "fan_in":
@@ -81,23 +80,69 @@ def _init_leaf(d: ParamDecl, gen: torch.Generator, device: torch.device) -> torc
         std = 1.0 / math.sqrt(max(fan_in, 1))
     else:
         raise ValueError(f"unknown init {d.init!r}")
-    # draw in fp32 one leading slice at a time: the stacked expert leaf of
-    # llama3-e8t2 is periods x 8 x 4096 x 14336 values, and an fp32 copy of
-    # the whole leaf would double its footprint
+    n = math.prod(d.shape[:-2]) if len(d.shape) > 2 else 1
+    for _ in range(n):
+        r = torch.randn(d.shape[-2:] if len(d.shape) >= 2 else d.shape, generator=gen, device=device,
+                        dtype=torch.float32)
+        yield r.mul_(std)
+
+
+def _init_leaf(d: ParamDecl, gen: torch.Generator, device: torch.device) -> torch.Tensor:
+    out = torch.empty(d.shape, dtype=d.dtype, device=device)
+    if d.init == "zeros":
+        return out.zero_()
+    if d.init == "ones":
+        return out.fill_(1)
     view = out.reshape((-1,) + d.shape[-2:]) if len(d.shape) > 2 else out[None]
-    for i in range(view.shape[0]):
-        r = torch.randn(view.shape[1:], generator=gen, device=device, dtype=torch.float32)
-        view[i].copy_(r.mul_(std))
+    for i, r in enumerate(_random_slices(d, gen, device)):
+        view[i].copy_(r)
     return out
 
 
-def init_from_decls(decls: Tree, seed: int, device: Union[str, torch.device] = "cuda") -> Tree:
+def _init_int8_expert(d: ParamDecl, gen: torch.Generator, device: torch.device):
+    """An expert weight drawn as :func:`_init_leaf` draws it, each slice
+    rounded to the bf16 the bf16 tree would hold and quantised at once:
+    (int8 leaf, bf16 per-output-channel scales). The bf16 leaf never exists."""
+    from repro_torch.core.quant import quantize_matrix
+
+    q = torch.empty(d.shape, dtype=torch.int8, device=device)
+    s = torch.empty(d.shape[:-2] + d.shape[-1:], dtype=torch.bfloat16, device=device)
+    qv, sv = q.reshape((-1,) + d.shape[-2:]), s.reshape((-1, d.shape[-1]))
+    for i, r in enumerate(_random_slices(d, gen, device)):
+        quantize_matrix(r.to(d.dtype), qv[i], sv[i])
+    return q, s
+
+
+def init_from_decls(decls: Tree, seed: int, device: Union[str, torch.device] = "cuda",
+                    quant_weights: str = "none") -> Tree:
     """Materialise a tree of :class:`ParamDecl` on ``device``, leaf by leaf,
-    from one generator seeded with ``seed``."""
+    from one generator seeded with ``seed``. With ``quant_weights="int8"``
+    every expert-FFN dict comes out quantised (int8 weights and bf16
+    ``*_scale`` leaves) straight from the draw: the same generator stream,
+    and bit for bit ``quantize_params`` of the bf16 tree, which is never
+    built."""
+    from repro_torch.core.quant import EXPERT_KEYS, QUANT_MODES
+
+    if quant_weights not in QUANT_MODES:
+        raise ValueError(f"quant_weights must be one of {QUANT_MODES}, got {quant_weights!r}")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return tree_map(lambda d: _init_leaf(d, gen, dev), decls)
+
+    def init(node):
+        if not isinstance(node, dict):
+            return _init_leaf(node, gen, dev)
+        if quant_weights == "int8" and all(isinstance(node.get(k), ParamDecl) for k in EXPERT_KEYS):
+            out, scales = {}, {}
+            for k, d in node.items():
+                if k in EXPERT_KEYS:
+                    out[k], scales[k + "_scale"] = _init_int8_expert(d, gen, dev)
+                else:
+                    out[k] = init(d)
+            return {**out, **scales}
+        return {k: init(v) for k, v in node.items()}
+
+    return init(decls)
 
 
 def params_from_numpy(tree, device: Union[str, torch.device] = "cuda") -> Tree:
@@ -105,7 +150,8 @@ def params_from_numpy(tree, device: Union[str, torch.device] = "cuda") -> Tree:
     to torch tensors on ``device``. A JAX bf16 leaf arrives as numpy dtype
     ``bfloat16`` (from ``ml_dtypes``), which ``torch.from_numpy`` refuses:
     it is recognised by name and carried bit for bit as int16, then viewed
-    as ``torch.bfloat16``. Other dtypes keep their type."""
+    as ``torch.bfloat16``. Other dtypes keep their type: int8 expert
+    weights arrive as int8, their ``*_scale`` leaves as bf16."""
     dev = resolve_device(device)
 
     def conv(a):

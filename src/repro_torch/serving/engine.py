@@ -13,10 +13,13 @@
   (``models.model.decode_step_paged``; the paged-attention kernel with
   ``use_kernel``).
 
+Both backends take int8 expert weights (``quant_weights="int8"``: the
+tree is quantised once here, a no-op on an already-quantised tree, and the
+MoE layers pick the int8 kernels or the dequantising paths by key).
 Greedy decode over both backends gives the same tokens. Not ported yet,
-and raising ``NotImplementedError``: the EP x DP mesh mode, int8 expert
-weights, fused dispatch, sampling (``greedy=False``), and the
-``serving.step`` fault site with its step watchdog (``step_timeout_s``).
+and raising ``NotImplementedError``: the EP x DP mesh mode, fused
+dispatch, sampling (``greedy=False``), and the ``serving.step`` fault site
+with its step watchdog (``step_timeout_s``).
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig, with_dispatcher
+from repro_torch.core.quant import quantize_params
 from repro_torch.models.model import cache_decl, decode_step, decode_step_paged, paged_forward, prefill_forward
 from repro_torch.params import init_from_decls, resolve_device, tree_map
 from repro_torch.resilience import ShedError
@@ -85,7 +89,6 @@ class ServingEngine:
     ):
         unported = {
             "mesh (ROADMAP queue 1, 'multi-GPU')": mesh is not None,
-            "quant_weights (ROADMAP queue 1, 'int8')": quant_weights != "none",
             "fused_dispatch (ROADMAP queue 1, 'fused dispatch')": fused_dispatch,
             "greedy=False (sampling)": not greedy,
             "step_timeout_s (fault sites and step watchdog, ROADMAP queue 1)": step_timeout_s is not None,
@@ -108,6 +111,12 @@ class ServingEngine:
                 "(the ring cache has no step clock or page accounting); "
                 "max_queue load-shedding works in both modes"
             )
+        for qv in (quant_weights, quant_kv):
+            if qv not in ("none", "int8"):
+                raise ValueError(f"quant mode must be 'none' or 'int8', got {qv!r}")
+        # engine kwargs extend (never clear) quant modes already set on the config
+        if quant_weights != "none":
+            cfg = cfg.replace(quant_weights=quant_weights)
         if quant_kv != "none":
             cfg = cfg.replace(quant_kv=quant_kv)
         if cfg.quant_kv == "int8" and cache_mode != "paged":
@@ -115,6 +124,8 @@ class ServingEngine:
         self.device = resolve_device(device)
         cfg = with_dispatcher(cfg, dispatcher)
         self.cfg = cfg
+        if cfg.quant_weights == "int8":
+            params = quantize_params(params)  # idempotent
         self.params = tree_map(lambda t: t.to(self.device), params)
         self.max_batch, self.max_seq = max_batch, max_seq
         self.prefix_caching = prefix_cache

@@ -1,6 +1,8 @@
 """Port parity: router gates and indices, sorted dispatch/combine, the plain
 grouped GEMM against the JAX Pallas kernel (interpret mode) and its
-oracle, and moe_apply."""
+oracle, moe_apply, and the dispatcher registry's single-device fallbacks."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +19,7 @@ from repro.kernels import ops as jops
 from repro.kernels.expert_gemm import group_tiling as j_group_tiling
 from repro.kernels.ref import grouped_gemm_ref as j_gg_ref
 from repro_torch.core.dispatch import SortedDispatcher as TSorted
+from repro_torch.config import MoEConfig as TMoEConfig
 from repro_torch.core.dispatch import get_dispatcher
 from repro_torch.core.moe import moe_apply as t_moe_apply
 from repro_torch.core.router import route as t_route
@@ -130,7 +133,26 @@ def test_moe_apply(rng, use_kernel):
     np.testing.assert_allclose(float(taux["z_loss"]), float(jaux["z_loss"]), rtol=1e-5)
 
 
-def test_unported_dispatchers_raise():
-    _, tcfg = configs(moe_kw=dict(dispatcher="allgather"))
-    with pytest.raises(NotImplementedError, match="padded dispatch"):
-        get_dispatcher(tcfg, tcfg.moe)
+def test_unported_dispatchers_raise(monkeypatch):
+    """The port's copy of the JAX ``test_registry_and_fallbacks`` on one
+    device: alltoall with no EP plan raises under strict dispatch (the
+    suite's default) and otherwise warns and gives allgather."""
+    from repro_torch.core.dispatch import AllGatherDispatcher
+
+    _, tcfg = configs(moe_kw=dict(dispatcher="sorted"))
+    assert isinstance(get_dispatcher(tcfg, tcfg.moe), TSorted)
+    _, tcfg = configs(moe_kw=dict(dispatcher="allgather", capacity_factor=2.0))
+    assert isinstance(get_dispatcher(tcfg, tcfg.moe), AllGatherDispatcher)
+    for name in ("alltoall", "a2a_overlap"):
+        _, tcfg = configs(moe_kw=dict(dispatcher=name))
+        with pytest.raises(ValueError, match="illegal"):
+            get_dispatcher(tcfg, tcfg.moe)
+    monkeypatch.setenv("REPRO_STRICT_DISPATCH", "0")
+    with pytest.warns(UserWarning, match="falling back"):
+        assert isinstance(get_dispatcher(tcfg, tcfg.moe), AllGatherDispatcher)
+    strict = dataclasses.replace(tcfg.moe, strict_dispatch=True)
+    with pytest.raises(ValueError, match="illegal"):
+        get_dispatcher(tcfg, strict)
+    monkeypatch.setenv("REPRO_STRICT_DISPATCH", "1")
+    with pytest.raises(ValueError, match="unknown dispatcher"):
+        TMoEConfig(dispatcher="bogus")

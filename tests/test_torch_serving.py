@@ -49,8 +49,8 @@ def test_max_queue_sheds(rng):
     assert eng.health()["shed_count"] == 1
 
 
-@pytest.mark.parametrize("kw", [dict(cache_mode="paged", mesh=object()), dict(quant_weights="int8"),
-                                dict(fused_dispatch=True), dict(greedy=False)])
+@pytest.mark.parametrize("kw", [dict(cache_mode="paged", mesh=object()), dict(fused_dispatch=True),
+                                dict(greedy=False)])
 def test_unported_engine_options_raise(kw):
     _, tcfg = configs(moe=False)
     with pytest.raises(NotImplementedError):
