@@ -34,7 +34,9 @@ Phases (each failure exits non-zero; nothing is swallowed):
    logits must agree with their plain versions' within 2e-2 x max|logits|;
 4. the serving CLI, in process (smoke config, kernels on): ring cache, then
    paged with the prefix cache and int8 KV pages, then int8 expert weights,
-   then with no ``--dispatcher`` (the smoke config's allgather);
+   then with no ``--dispatcher`` (the smoke config's allgather), then
+   ``--fused-dispatch`` in the ring cache and in the page pool with int8
+   expert weights;
 5. paged serve — the same model and cut through ``cache_mode="paged"``
    (page size 16, prefill chunk 32, max_batch 4, prefix cache on) on 8
    requests of 16-300 prompt tokens sharing a 64-token stem, 32 new tokens
@@ -79,17 +81,41 @@ Phases (each failure exits non-zero; nothing is swallowed):
    forward and backward, is held against its plain version;
 8. int8 experts at full depth — llama3-e8t2 at all 32 layers and full
    width, expert weights drawn as int8 on the card from ``--seed``, sorted
-   dispatcher, ring cache, kernels on, the 8 requests of phase 3: every
+   dispatcher, ring cache, kernels on, the 8 requests of phase 3: (a) every
    request answered, #10/#11 launched, peak memory, tok/s, prefill and
    decode-step ms and the busy share printed, every kernel call of a short
-   serve held against its plain version; on the one-layer smoke config
-   the int8 kernels' first-token logits must agree with their plain
-   versions' within 2e-2 x max|logits| (int8 against bf16 logits is
-   reported beside ``INT8_LOGIT_BUDGET``).
+   serve held against its plain version; (b) the same drawn weights and
+   requests with fused dispatch: #14/#15 launched and #10/#11 not, every
+   kernel call of a short serve checked, the figures printed beside (a)'s;
+   on the one-layer smoke config the int8 kernels' first-token logits must
+   agree with their plain versions' within 2e-2 x max|logits| (int8
+   against bf16 logits is reported beside ``INT8_LOGIT_BUDGET``);
+9. fused dispatch (the sorted dispatcher's gather in the gate/up kernel's
+   prologue, the gate-weighted combine in the down kernel's epilogue) —
+   (a) #12-#15 at the decode (4 tokens) and prefill (300 tokens) routings
+   of phase 2 and #12/#13 at phase 6's training routing (2048 tokens)
+   against their plain versions (2e-2 x max|plain|; h's padding rows
+   exactly 0; the partials buffer filled with NaN before the down launch
+   comes back finite), with kernel, plain and bound times and the whole
+   fused path beside the port's unfused path on the same routing; (b)
+   phase 3's model and requests through the ring engine with
+   ``fused_dispatch=True``: #12/#13 launch and #3/#4 do not, every kernel
+   call of a short serve is checked, greedy tokens against the unfused
+   run are reported, and on the one-layer smoke config the fused
+   kernels' first-token logits must agree with their plain versions' and
+   with the unfused kernels' within 2e-2 x max|logits|; (c) phase 6's
+   training run (upcycled, 2 layers, 1 x 2048 tokens, 8 steps, remat) with
+   fused dispatch: the loss must fall, #12/#13 launch 4 times a step
+   (forward and remat recompute), #3/#4 twice (the fused backward's
+   recompute of ys) and #5-#7 twice, peak memory is printed beside phase
+   6's, every kernel call of one more step is held against its plain
+   version, every parameter (the routers through the gates) gets a
+   finite nonzero gradient, and the one-layer small-input gradient gate
+   holds with fused dispatch.
 
 ``--phases 1,2`` stops after the build and the kernel checks; ``--phases
 1,6`` is the quick look at training, ``--phases 1,8`` at full-depth int8
-serving. The last two lines are the card's
+serving, ``--phases 1,9`` at fused dispatch. The last two lines are the card's
 ``nvidia-smi`` name and power limit and the result JSON; the lines before
 them list the launches by path, the serve and train figures and the
 kernels. Imports nothing of JAX or of the JAX package.
@@ -668,7 +694,8 @@ def check_flash_bwd(gen, S: int, window=None, B=1, H=32, KV=8, d=128):
 @contextlib.contextmanager
 def plain_kernels():
     """Route the model's kernel call sites (``ops.grouped_gemm``,
-    ``ops.grouped_gemm_q8``, ``ops.flash_attention``,
+    ``ops.grouped_gemm_q8``, ``ops.grouped_gemm_fused``,
+    ``ops.grouped_gemm_fused_q8``, ``ops.flash_attention``,
     ``ops.paged_attention``, ``ops.paged_attention_q8``, and
     ``expert_gemm.expert_gemm`` under ``ops.expert_gemm``) to the kernels'
     plain versions for the block: the same path and arithmetic as the
@@ -676,11 +703,14 @@ def plain_kernels():
     from repro_torch.kernels import expert_gemm as eg
     from repro_torch.kernels import ops, ref
 
-    names = ("grouped_gemm", "grouped_gemm_q8", "flash_attention", "paged_attention", "paged_attention_q8")
+    names = ("grouped_gemm", "grouped_gemm_q8", "grouped_gemm_fused", "grouped_gemm_fused_q8", "flash_attention",
+             "paged_attention", "paged_attention_q8")
     saved = {n: getattr(ops, n) for n in names}
     saved_eg = eg.expert_gemm
     ops.grouped_gemm = ref.grouped_gemm_ref
     ops.grouped_gemm_q8 = ref.grouped_gemm_q8_ref
+    ops.grouped_gemm_fused = ref.grouped_gemm_fused_ref
+    ops.grouped_gemm_fused_q8 = ref.grouped_gemm_fused_q8_ref
     ops.flash_attention = lambda q, k, v, causal=True, window=None, scale=None: ref.flash_attention_ref(
         q, k, v, causal, window, scale)
     ops.paged_attention = ref.paged_attention_ref
@@ -694,23 +724,61 @@ def plain_kernels():
         eg.expert_gemm = saved_eg
 
 
+def fused_checked(report: list, x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted,
+                  scales=None):
+    """The fused path's two kernels in order (#12 then #13, or with
+    ``scales`` #14 then #15), each held against its plain version fed the
+    same inputs (the gate/up kernel's own h for the down check); appends
+    one (kernel, shape, max|diff|/max|plain|) per kernel to ``report``
+    (inf where a padding row of h is not exactly 0) and returns the
+    kernels' combined output."""
+    import torch
+    from repro_torch.kernels import expert_gemm as eg
+    from repro_torch.kernels import ref
+
+    T = x.shape[0]
+    tok_pad, row_out, gate_pad, tg, tr, k = eg.fused_tables(w_gate, group_sizes, token, dest, slot, gate_sorted, T)
+    valid = valid_rows(group_sizes, tok_pad.shape[0])
+    with torch.no_grad():
+        if scales is None:
+            h = eg.fused_gate_up_cuda(x, w_gate, w_up, tok_pad, tg, tr)
+            h_r = ref.fused_gate_up_ref(x, w_gate, w_up, tok_pad, tg, tr)
+            part = eg.fused_down_cuda(h, w_down, row_out, gate_pad, tg, tr, k, T)
+            part_r = ref.fused_down_ref(h, w_down, row_out, gate_pad, tg, tr, k, T)
+            names = ("grouped_gate_up_fused", "grouped_down_fused")
+        else:
+            sg, su, sd = scales
+            h = eg.fused_gate_up_q8_cuda(x, w_gate, w_up, sg, su, tok_pad, tg, tr)
+            h_r = ref.fused_gate_up_q8_ref(x, w_gate, w_up, sg, su, tok_pad, tg, tr)
+            part = eg.fused_down_q8_cuda(h, w_down, sd, row_out, gate_pad, tg, tr, k, T)
+            part_r = ref.fused_down_q8_ref(h, w_down, sd, row_out, gate_pad, tg, tr, k, T)
+            names = ("grouped_gate_up_fused_q8", "grouped_down_fused_q8")
+    pad_zero = bool((h[~valid] == 0).all())
+    report.append((names[0], tuple(x.shape), rel_err(h[valid], h_r[valid])[1] if pad_zero else float("inf")))
+    report.append((names[1], tuple(x.shape), rel_err(part, part_r)[1]))
+    return ref.combine_partials(part, x.dtype)
+
+
 @contextlib.contextmanager
 def checked_kernels(report: list):
     """Inside the block every kernel call of the model, forward and backward,
     also runs its plain version on the same inputs and appends (kernel,
     input shape, max|diff| / max|plain|) to ``report``; the kernel's output
-    is what the model uses. The backward passes are wrapped where the
-    autograd Functions look them up (``expert_gemm.grouped_gemm_bwd``,
-    ``flash_attention.flash_bwd``), and each of their kernels is held
-    against its plain version fed that kernel's own inputs."""
+    is what the model uses. The grouped and fused forwards and the backward
+    passes are wrapped where the autograd Functions look them up
+    (``expert_gemm.grouped_gemm_fwd``, ``grouped_gemm_fused_fwd``,
+    ``grouped_gemm_bwd``, ``flash_attention.flash_bwd``), so the fused
+    backward's recompute is held too; each kernel of a multi-kernel pass
+    is held against its plain version fed that kernel's own inputs."""
     import torch
     from repro_torch.kernels import expert_gemm as eg
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ops, ref
 
-    gg, fa, pa, pa8 = ops.grouped_gemm, ops.flash_attention, ops.paged_attention, ops.paged_attention_q8
+    gfwd, fa, pa, pa8 = eg.grouped_gemm_fwd, ops.flash_attention, ops.paged_attention, ops.paged_attention_q8
     gq8, egm = ops.grouped_gemm_q8, eg.expert_gemm
     gbwd, fbwd = eg.grouped_gemm_bwd, fa_mod.flash_bwd
+    ffwd, fq8 = eg.grouped_gemm_fused_fwd, ops.grouped_gemm_fused_q8
 
     def grouped_q8(xs, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes, row_block=128):
         y = gq8(xs, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes, row_block)
@@ -726,11 +794,19 @@ def checked_kernels(report: list):
         return y
 
     def grouped(xs, w_gate, w_up, w_down, group_sizes, row_block=128):
-        y = gg(xs, w_gate, w_up, w_down, group_sizes, row_block)
+        y = gfwd(xs, w_gate, w_up, w_down, group_sizes, row_block)
         with torch.no_grad():
             r = ref.grouped_gemm_ref(xs, w_gate, w_up, w_down, group_sizes, row_block)
         report.append(("grouped_gemm", tuple(xs.shape), rel_err(y, r)[1]))
         return y
+
+    def fused(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted, row_block=128):
+        return fused_checked(report, x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted)
+
+    def fused_q8(x, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes, token, dest, slot, gate_sorted,
+                 row_block=128):
+        return fused_checked(report, x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted,
+                             (s_gate, s_up, s_down))
 
     def flash(q, k, v, causal=True, window=None, scale=None):
         y = fa(q, k, v, causal, window, scale)
@@ -767,16 +843,18 @@ def checked_kernels(report: list):
                        max(rel_err(a, b)[1] for a, b in zip((dk, dv), ref.flash_bwd_dkv_ref(*args)))))
         return dq, dk, dv
 
-    ops.grouped_gemm, ops.flash_attention = grouped, flash
+    eg.grouped_gemm_fwd, ops.flash_attention = grouped, flash
     ops.paged_attention, ops.paged_attention_q8 = paged, paged_q8
     ops.grouped_gemm_q8, eg.expert_gemm = grouped_q8, expert
     eg.grouped_gemm_bwd, fa_mod.flash_bwd = grouped_backward, flash_backward
+    eg.grouped_gemm_fused_fwd, ops.grouped_gemm_fused_q8 = fused, fused_q8
     try:
         yield
     finally:
-        ops.grouped_gemm, ops.flash_attention, ops.paged_attention, ops.paged_attention_q8 = gg, fa, pa, pa8
+        eg.grouped_gemm_fwd, ops.flash_attention, ops.paged_attention, ops.paged_attention_q8 = gfwd, fa, pa, pa8
         ops.grouped_gemm_q8, eg.expert_gemm = gq8, egm
         eg.grouped_gemm_bwd, fa_mod.flash_bwd = gbwd, fbwd
+        eg.grouped_gemm_fused_fwd, ops.grouped_gemm_fused_q8 = ffwd, fq8
 
 
 def report_checked(report: list, names, path: str = "serving") -> None:
@@ -1261,18 +1339,22 @@ def profile_train_step(trainer) -> float:
     return device_busy(prof, wall, "one training step")
 
 
-def small_grad_check(seed: int) -> float:
+def small_grad_check(seed: int, fused: bool = False) -> float:
     """End-to-end gradients on a small input: the smoke config of
     llama3-e8t2 cut to one layer (d_model 256, head_dim 64, 4 experts),
-    batch 2 x 128. Every parameter's gradient through the kernels (forward
-    and backward) must agree with autograd through the plain forward
-    (``plain_kernels``) within GRAD_TOL x max|grad|."""
+    batch 2 x 128, with ``fused`` through fused dispatch. Every parameter's
+    gradient through the kernels (forward and backward) must agree with
+    autograd through the plain forward (``plain_kernels``) within GRAD_TOL
+    x max|grad|."""
+    import dataclasses
+
     import torch
     from repro_torch.data.pipeline import make_train_iter
     from repro_torch.models.model import loss_fn, model_decl
     from repro_torch.params import init_from_decls
 
     cfg = moe_train_config(1, smoke=True)
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, fused_dispatch=fused))
     params = init_from_decls(model_decl(cfg), seed, "cuda")
     named = named_leaves(params)
     for _, t in named:
@@ -1285,7 +1367,8 @@ def small_grad_check(seed: int) -> float:
             grads[mode] = torch.autograd.grad(loss, [t for _, t in named])
     errs = {n: rel_err(a, b)[1] for (n, _), a, b in zip(named, grads["kernels"], grads["plain"])}
     worst = max(errs, key=errs.get)
-    print(f"  small input (smoke config, 1 layer, batch 2 x 128): gradients through the kernels vs autograd "
+    print(f"  small input (smoke config, 1 layer, batch 2 x 128{', fused dispatch' if fused else ''}): gradients "
+          f"through the kernels vs autograd "
           f"through the plain forward, worst {errs[worst]:.4g} of max|grad| ({worst}; tol {GRAD_TOL}); "
           + ", ".join(f"{n} {e:.3g}" for n, e in errs.items()))
     if not errs[worst] <= GRAD_TOL:
@@ -1557,7 +1640,9 @@ def serve_int8_full_depth(seed: int):
     """Phase 8: llama3-e8t2 at all 32 layers and full width, expert weights
     drawn as int8 on the card from the seed (the bf16 expert tree never
     exists), sorted dispatcher, ring cache, kernels on, the 8 requests of
-    phase 3. Every request must be answered and #10/#11 must launch."""
+    phase 3: (a) every request must be answered and #10/#11 must launch;
+    (b) the same weights and requests with fused dispatch: #14/#15 must
+    launch and #10/#11 must not."""
     import gc
 
     import torch
@@ -1589,11 +1674,26 @@ def serve_int8_full_depth(seed: int):
     peak = torch.cuda.max_memory_allocated()
     print(f"  [int8 full depth] peak memory allocated {peak} bytes ({peak / 1e9:.2f} GB) of "
           f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB")
+    # (b) the same drawn weights and requests with fused dispatch (#14/#15)
+    torch.cuda.reset_peak_memory_stats()
+    fused = ("grouped_gate_up_fused_q8", "grouped_down_fused_q8")
+    fused_launches, _, fused_stats = counted_serve(
+        "int8 full depth fused", cfg, params, prompts, max_seq, fused + ("flash_fwd",), fused + ("flash_fwd",),
+        quant_weights="int8", fused_dispatch=True)
+    if fused_launches["grouped_gate_up_q8"] or fused_launches["grouped_down_q8"]:
+        raise SystemExit(f"[int8 full depth fused] the unfused int8 kernels launched: {fused_launches}")
+    fused_peak = torch.cuda.max_memory_allocated()
+    print(f"  [int8 full depth fused] peak memory allocated {fused_peak} bytes ({fused_peak / 1e9:.2f} GB); "
+          f"beside 8a: {fused_stats['tokens_per_s']:.2f} vs {stats['tokens_per_s']:.2f} tok/s, prefill "
+          f"{fused_stats['prefill_ms']:.3f} vs {stats['prefill_ms']:.3f} ms, decode step "
+          f"{fused_stats['decode_step_ms']:.3f} vs {stats['decode_step_ms']:.3f} ms, busy "
+          f"{fused_stats['device_busy_share']:.3f} vs {stats['device_busy_share']:.3f}")
     del params
     gc.collect()
     torch.cuda.empty_cache()
     stats.update(peak_bytes=peak, weight_bytes=by_dtype, **int8_small_input_check(seed))
-    return launches, stats
+    stats["fused"] = dict(fused_stats, peak_bytes=fused_peak)
+    return launches, fused_launches, stats
 
 
 def int8_small_input_check(seed: int) -> dict:
@@ -1630,10 +1730,308 @@ def int8_small_input_check(seed: int) -> dict:
     return dict(small_int8_vs_plain=worst, small_int8_vs_bf16=vs_bf16)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: fused dispatch (gather in the gate/up prologue, combine in the
+# down epilogue), kernels, serving and training
+# ---------------------------------------------------------------------------
+
+
+def fused_routing(gen, group_sizes, T: int, k: int = 2):
+    """Top-k routing of ``T`` tokens whose expert loads are ``group_sizes``
+    (each <= T, summing to T * k), with distinct experts per token and the
+    tokens in a random order, and random fp32 gates in [0.2, 1); returns
+    the sorted dispatcher's (token, slot, dest, gate_sorted, group_sizes)
+    at row block 128."""
+    import torch
+    from repro_torch.config import MoEConfig
+    from repro_torch.core.dispatch import SortedDispatcher
+
+    dev = torch.device("cuda")
+    E = len(group_sizes)
+    assert sum(group_sizes) == T * k and max(group_sizes) <= T
+    # assignment i (expert-major) goes to token i % T, slot i // T: a run of
+    # <= T equal experts never lands twice on one token
+    flat = torch.repeat_interleave(torch.arange(E), torch.tensor(group_sizes))
+    perm = torch.randperm(T, generator=torch.Generator().manual_seed(T))
+    idx = torch.empty((T, k), dtype=torch.long)
+    idx[perm[torch.arange(T * k) % T], torch.arange(T * k) // T] = flat
+    gates = 0.2 + 0.8 * torch.rand((T, k), generator=gen, device=dev)
+    d = SortedDispatcher(None, MoEConfig(num_experts=E, top_k=k, dispatcher="sorted"))
+    return d._indices(idx.to(dev), gates, 128)
+
+
+def check_fused(gen, group_sizes, T: int, label: str, D=4096, F=14336, q8: bool = False):
+    """Kernels #12/#13 (``q8``: #14/#15) on one routing against their plain
+    versions (GG_TOL x max|plain|): h's padding rows exactly 0, and the
+    partials buffer filled with NaN before the down launch comes back
+    finite (every (slot, token) row written once). Then kernel, plain and
+    bound times, the unfused twin kernel's time (#3/#4 or #10/#11 on the
+    scattered buffer), and the whole fused path (tables, both kernels, k-way sum)
+    beside the port's unfused path on the same routing (scatter into the
+    aligned buffer, #3/#4 or #10/#11, gather and combine)."""
+    import torch
+    from repro_torch.core.dispatch import SortedDispatcher
+    from repro_torch.core.dispatch.base import DispatchLayout, DispatchState
+    from repro_torch.core.quant import quantize_weight
+    from repro_torch.kernels import expert_gemm as eg
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    E = len(group_sizes)
+    token, slot, dest, gate_sorted, gs = fused_routing(gen, group_sizes, T)
+    N = token.shape[0]
+    k = N // T
+    x = torch.randn((T, D), generator=gen, device=dev).bfloat16()
+    w = {n: (torch.randn(shape, generator=gen, device=dev) * shape[1] ** -0.5).bfloat16()
+         for n, shape in (("w_gate", (E, D, F)), ("w_up", (E, D, F)), ("w_down", (E, F, D)))}
+    tok_pad, row_out, gate_pad, tg, tr, _ = eg.fused_tables(w["w_gate"], gs, token, dest, slot, gate_sorted, T)
+    N_pad = tok_pad.shape[0]
+    valid = valid_rows(gs, N_pad)
+    if q8:
+        (wg, sg), (wu, su), (wd, sd) = (quantize_weight(w[n]) for n in ("w_gate", "w_up", "w_down"))
+        del w
+        gate_up = lambda: eg.fused_gate_up_q8_cuda(x, wg, wu, sg, su, tok_pad, tg, tr)
+        gate_up_plain = lambda: ref.fused_gate_up_q8_ref(x, wg, wu, sg, su, tok_pad, tg, tr)
+        down = lambda h, out=None: eg.fused_down_q8_cuda(h, wd, sd, row_out, gate_pad, tg, tr, k, T, out)
+        down_plain = lambda h: ref.fused_down_q8_ref(h, wd, sd, row_out, gate_pad, tg, tr, k, T)
+        fused_path = lambda: eg.grouped_gemm_fused_q8_cuda(x, wg, wu, wd, sg, su, sd, gs, token, dest, slot,
+                                                           gate_sorted)
+        unfused_ffn = lambda xs: eg.grouped_gemm_q8_cuda(xs, wg, wu, wd, sg, su, sd, gs)
+        twins = (lambda xs: eg.gate_up_q8_cuda(xs, wg, wu, sg, su, tg, tr),
+                 lambda h: eg.down_q8_cuda(h, wd, sd, tg, tr))
+        names, w_bytes, unfused_names = ("grouped_gate_up_fused_q8", "grouped_down_fused_q8"), 1, "#10/#11"
+    else:
+        wg, wu, wd = w["w_gate"], w["w_up"], w["w_down"]
+        gate_up = lambda: eg.fused_gate_up_cuda(x, wg, wu, tok_pad, tg, tr)
+        gate_up_plain = lambda: ref.fused_gate_up_ref(x, wg, wu, tok_pad, tg, tr)
+        down = lambda h, out=None: eg.fused_down_cuda(h, wd, row_out, gate_pad, tg, tr, k, T, out)
+        down_plain = lambda h: ref.fused_down_ref(h, wd, row_out, gate_pad, tg, tr, k, T)
+        fused_path = lambda: eg.grouped_gemm_fused_cuda(x, wg, wu, wd, gs, token, dest, slot, gate_sorted)
+        unfused_ffn = lambda xs: eg.grouped_gemm_cuda(xs, wg, wu, wd, gs)
+        twins = (lambda xs: eg.gate_up_cuda(xs, wg, wu, tg, tr), lambda h: eg.down_cuda(h, wd, tg, tr))
+        names, w_bytes, unfused_names = ("grouped_gate_up_fused", "grouped_down_fused"), 2, "#3/#4"
+    sorted_d = SortedDispatcher(None, None)
+    state = DispatchState(DispatchLayout("sorted", E, group_sizes=gs, row_block=128),
+                          {"token": token, "dest": dest, "gate_sorted": gate_sorted}, {"tokens": T})
+
+    def scatter():
+        xs = x.new_zeros((N_pad, D))
+        xs[dest] = x[token]
+        return xs
+
+    unfused_path = lambda: sorted_d.combine(unfused_ffn(scatter()), state)
+
+    h = gate_up()
+    h_ref = gate_up_plain()
+    nan_buf = torch.full((k, T, D), float("nan"), dtype=torch.bfloat16, device=dev)
+    part = down(h_ref, nan_buf)
+    part_ref = down_plain(h_ref)
+    y_fused, y_unfused = fused_path(), unfused_path()
+    torch.cuda.synchronize()
+    all_written = bool(torch.isfinite(part.float()).all())
+    path_rel = rel_err(y_fused, y_unfused)[1]
+    fused_ms, unfused_ms = time_ms(fused_path), time_ms(unfused_path)
+    xs = scatter()
+    twin_ms = (time_ms(lambda: twins[0](xs)), time_ms(lambda: twins[1](h_ref)))
+    touched = sum(1 for g in group_sizes if g)
+    scale_bytes = lambda n_w, n_out: touched * n_w * n_out * 2 if q8 else 0
+    rows = []
+    for name, twin, out, ref_out, side_ok, nbytes, flops, fn, plain in (
+        (names[0], twin_ms[0], h[valid], h_ref[valid], bool((h[~valid] == 0).all()),
+         # x (each token's row once), the touched experts' weights (and scales), h (all N_pad rows), tok_pad
+         T * D * 2 + touched * 2 * D * F * w_bytes + scale_bytes(2, F) + N_pad * F * 2 + N_pad * 4,
+         N * 4 * D * F, gate_up, gate_up_plain),
+        (names[1], twin_ms[1], part, part_ref, all_written,
+         # h's valid rows, the touched experts' weights (and scales), k*T partial rows, row_out and gate_pad
+         N * F * 2 + touched * F * D * w_bytes + scale_bytes(1, D) + k * T * D * 2 + N_pad * 8,
+         N * 2 * F * D, lambda: down(h_ref), lambda: down_plain(h_ref)),
+    ):
+        err, rel = rel_err(out, ref_out)
+        ok = rel <= GG_TOL and side_ok and bool(torch.isfinite(out.float()).all())
+        b_ms, b_by = bound(nbytes, flops)
+        row = dict(name=name, max_abs_err=err, rel_err=rel, ok=ok, masked_ok=side_ok, ms=time_ms(fn),
+                   plain_ms=time_ms(plain, reps=3, warmup=1), bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                   library="none (no single call)", unfused_twin_ms=twin, fused_path_ms=fused_ms,
+                   unfused_path_ms=unfused_ms,
+                   shape=f"{label}: T={T} k={k} N={N} N_pad={N_pad} D={D} F={F} E={E} groups={list(group_sizes)}"
+                         + (" int8 weights" if q8 else ""))
+        rows.append(row)
+        side = "padding rows of h zero" if name == names[0] else "every partial row written (NaN-filled before)"
+        print(f"  {name} [{label}] err {err:.4g} (rel {rel:.3g}, tol {GG_TOL}) {side} {side_ok} "
+              f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms bound {b_ms:.4f} ms ({b_by}); its unfused "
+              f"twin on the scattered buffer {twin:.4f} ms")
+        if not ok:
+            raise SystemExit(f"{name} [{label}] disagrees with its plain version")
+    print(f"  fused path [{label}] (tables + {names[0]} + {names[1]} + fp32 k-way sum) {fused_ms:.4f} ms; the port's "
+          f"unfused path on the same routing (scatter + {unfused_names} + gather/combine) {unfused_ms:.4f} ms; "
+          f"fused vs unfused output {path_rel:.4g} of max|unfused| (reported: the two round at other points)")
+    return rows
+
+
+def serve_fused(seed: int, layers: int = 4):
+    """Phase 9 (b): phase 3's model (llama3-e8t2, ``layers`` deep at full
+    width, random bf16 weights from the seed) and its 8 requests through
+    the ring engine with ``fused_dispatch=True``, kernels on: #12/#13 must
+    launch and #3/#4 must not; every kernel call of a short serve is held
+    against its plain version; greedy tokens against the unfused sorted
+    run on the same weights are reported; then the one-layer small-input
+    gates."""
+    import torch
+    from repro_torch.config import get_config, with_dispatcher
+    from repro_torch.models.model import model_decl
+    from repro_torch.params import init_from_decls
+
+    cfg = with_dispatcher(get_config("llama3-e8t2").replace(num_layers=layers), "sorted")
+    print(f"  {cfg.name}, {layers} layers at full width, sorted dispatcher with fused dispatch, ring cache")
+    params = init_from_decls(model_decl(cfg), seed, "cuda")
+    lens, prompts, max_seq = ring_prompts(seed, cfg.vocab_size)
+    fused = ("grouped_gate_up_fused", "grouped_down_fused")
+    launches, out, stats = counted_serve("fused ring", cfg, params, prompts, max_seq, fused + ("flash_fwd",),
+                                         fused + ("flash_fwd",), fused_dispatch=True)
+    if launches["grouped_gate_up"] or launches["grouped_down"]:
+        raise SystemExit(f"[fused ring] the unfused grouped kernels launched: {launches}")
+    _, out_unfused, wall_u = ring_serve_run(cfg, params, prompts, max_seq)
+    ntok = sum(len(v) for v in out.values())
+    same = sum(a == b for r in out for a, b in zip(out[r], out_unfused[r]))
+    print(f"  [fused ring] greedy tokens vs the unfused sorted run on the same weights and requests: {same}/{ntok} "
+          f"positions equal (reported, not gated; unfused run {ntok / wall_u:.2f} tok/s in the same process)")
+    del params
+    torch.cuda.empty_cache()
+    return launches, {**stats, "equal_to_unfused": f"{same}/{ntok}", "unfused_tokens_per_s": ntok / wall_u,
+                      **fused_small_input_check(seed)}
+
+
+def fused_small_input_check(seed: int) -> dict:
+    """The smoke config of llama3-e8t2 cut to one layer, sorted: the
+    first-token logits through the fused kernels must agree with their
+    plain versions' and with the unfused kernels' (#3/#4), each within
+    LOGIT_TOL x max|logits|."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config, smoke_config, with_dispatcher
+    from repro_torch.models.model import model_decl
+    from repro_torch.params import init_from_decls
+
+    base = with_dispatcher(smoke_config(get_config("llama3-e8t2")).replace(num_layers=1), "sorted")
+    cfg = base.replace(moe=dataclasses.replace(base.moe, fused_dispatch=True))
+    params = init_from_decls(model_decl(cfg), seed, "cuda")
+    rng = np.random.default_rng(seed)
+    worst, vs_unfused = 0.0, 0.0
+    lens = (12, 40, 100)
+    with torch.inference_mode():
+        for L in lens:
+            p = rng.integers(0, cfg.vocab_size, L).astype(np.int32)
+            bucket = max(16, 1 << (L - 1).bit_length())
+            lk, lp, _ = prefill_three_ways(cfg, params, p, bucket, 128)
+            lu, _, _ = prefill_three_ways(base, params, p, bucket, 128)
+            worst = max(worst, rel_err(lk, lp)[1])
+            vs_unfused = max(vs_unfused, rel_err(lk, lu)[1])
+    print(f"  small input (smoke config, 1 layer, fused dispatch, prompts {list(lens)}): first-token logits, fused "
+          f"kernels vs their plain versions {worst:.4g}, fused vs unfused kernels {vs_unfused:.4g} of max|logits| "
+          f"(tol {LOGIT_TOL} each)")
+    if max(worst, vs_unfused) > LOGIT_TOL:
+        raise SystemExit("fused-dispatch logits disagree on the small input")
+    return dict(small_fused_vs_plain=worst, small_fused_vs_unfused=vs_unfused)
+
+
+def train_fused(seed: int, layers: int = 2, steps: int = 8, seq: int = 2048, phase6_peak=None):
+    """Phase 9 (c): phase 6's run with fused dispatch. A dense llama3-8b cut
+    to ``layers`` drawn from the seed is upcycled to llama3-e8t2 (dropless
+    sorted, ``fused_dispatch``), and the Trainer takes ``steps`` steps of
+    1 x ``seq`` tokens with kernels and remat on. The loss must fall; per
+    step #12/#13 launch 2 x layers times (forward and remat recompute), #3/#4
+    ``layers`` times (the backward's recompute of ys) and #5-#7 ``layers``
+    times; every kernel call of one more step, forward and backward, is
+    held against its plain version; every parameter, the router included,
+    gets a finite nonzero gradient; then the small-input gradient gate."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.config import TrainConfig, get_config
+    from repro_torch.core.upcycle import upcycle_params
+    from repro_torch.data.pipeline import make_train_iter
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import loss_fn, model_decl
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.params import init_from_decls
+    from repro_torch.train.callbacks import LoggingCallback
+    from repro_torch.train.state import TrainState
+    from repro_torch.train.trainer import Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  memory allocated at the start of the phase: {torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    base = moe_train_config(layers)
+    cfg = base.replace(moe=dataclasses.replace(base.moe, fused_dispatch=True))
+    dense_cfg = get_config("llama3-8b").replace(num_layers=layers)
+    dev = torch.device("cuda")
+    with torch.no_grad():
+        params = upcycle_params(dense_cfg, cfg, init_from_decls(model_decl(dense_cfg), seed, dev), seed)
+    gc.collect()
+    tcfg = TrainConfig(global_batch=1, seq_len=seq, lr=3e-4, lr_min=3e-6, warmup_steps=1,
+                       total_steps=steps + 2, seed=seed, log_every=1)
+    state = TrainState(0, params, adamw_init(params), torch.Generator(device=dev))
+    trainer = Trainer(cfg, tcfg, state=state, data_iter=make_train_iter(cfg.vocab_size, seq, 1, tcfg.blend_ratio,
+                                                                        seed), use_kernel=True)
+    print(f"  config {cfg.name}: {layers} layers at full width, upcycled from a dense llama3-8b drawn from seed "
+          f"{seed}, dropless sorted with fused dispatch; remat {cfg.remat}; batch 1 x {seq}")
+    log = LoggingCallback(log=lambda m: print("  " + m), log_every=1)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    trainer.run(steps, callbacks=[log])
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.history
+    steady_ms, tflops = hist[-1]["ms_per_step_steady"], hist[-1]["model_tflops_per_sec"]
+    per_step = {k: v / steps for k, v in launches.items() if v}
+    print(f"  losses {[round(r['loss'], 4) for r in hist]}")
+    print(f"  steady {steady_ms:.3f} ms/step (steps 2-{steps}), {seq / steady_ms * 1e3:.1f} tok/s, model "
+          f"{tflops:.2f} TFLOP/s (3x convention), MFU {100 * tflops / PEAK_BF16_TFLOPS:.2f}% of "
+          f"{PEAK_BF16_TFLOPS:.0f} TFLOP/s")
+    print(f"  peak memory allocated {peak} bytes ({peak / 1e9:.2f} GB); phase 6 (unfused) in this run: "
+          + (f"{phase6_peak} bytes ({phase6_peak / 1e9:.2f} GB)" if phase6_peak else "not run"))
+    print(f"  kernel launches per step: {per_step}")
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise SystemExit(f"the fused-dispatch loss did not fall over {steps} steps")
+    expect = {"grouped_gate_up_fused": 2 * layers, "grouped_down_fused": 2 * layers, "flash_fwd": 2 * layers,
+              **{k: layers for k in ("grouped_gate_up", "grouped_down", "grouped_bwd_dh", "grouped_bwd_dx",
+                                     "grouped_bwd_wgrad", "flash_bwd_dq", "flash_bwd_dkv")}}
+    if {k: v for k, v in launches.items() if v} != {k: n * steps for k, n in expect.items()}:
+        raise SystemExit(f"launches per step {per_step}, expected {expect}")
+    busy = profile_train_step(trainer)
+    report: list = []
+    named = named_leaves(trainer.params)
+    batch = trainer._to_device(next(trainer.data_iter))
+    with checked_kernels(report):
+        loss, _ = loss_fn(cfg, trainer.params, batch, trainer.state.gen, use_kernel=True)
+        grads = torch.autograd.grad(loss, [t for _, t in named], allow_unused=True)
+    torch.cuda.synchronize()
+    report_checked(report, ("grouped_gate_up_fused", "grouped_down_fused", "grouped_gemm", "flash_fwd",
+                            "grouped_bwd_dh", "grouped_bwd_dx", "grouped_bwd_wgrad", "flash_bwd_dq",
+                            "flash_bwd_dkv"), "fused training")
+    bad = [n for (n, _), g in zip(named, grads)
+           if g is None or not bool(torch.isfinite(g).all()) or not float(g.abs().max()) > 0]
+    routers = [n for n, _ in named if "router" in n]
+    print(f"  gradients: {len(named) - len(bad)}/{len(named)} parameters with a finite, nonzero gradient "
+          f"(routers {routers})")
+    if bad or not routers:
+        raise SystemExit(f"parameters without a gradient: {bad}")
+    del grads, loss, trainer, state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    grad_err = small_grad_check(seed, fused=True)
+    return launches, dict(losses=[r["loss"] for r in hist], ms_per_step=steady_ms, tokens_per_s=seq / steady_ms * 1e3,
+                          model_tflops_per_s=tflops, mfu=tflops / PEAK_BF16_TFLOPS, peak_bytes=peak,
+                          launches_per_step=per_step, device_busy_share=busy, small_grad_rel_err=grad_err)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8", help="comma list of phases to run")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9", help="comma list of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -1701,7 +2099,8 @@ def main(argv=None) -> int:
         sorted_ = ["--dispatcher", "sorted"]
         for extra in (sorted_, sorted_ + ["--cache-mode", "paged", "--prefix-cache", "--quant-kv", "int8",
                                           "--requests", "6", "--prompt-len", "40"],
-                      sorted_ + ["--quant-weights", "int8"], []):
+                      sorted_ + ["--quant-weights", "int8"], [], ["--fused-dispatch"],
+                      ["--fused-dispatch", "--cache-mode", "paged", "--quant-weights", "int8"]):
             argv = ["--arch", "llama3-e8t2", "--smoke", "--requests", "2", "--max-new", "4", "--use-kernel", *extra]
             print(f"[4] python -m repro_torch.launch.serve {' '.join(argv)}")
             out = serve_main(argv)
@@ -1731,7 +2130,7 @@ def main(argv=None) -> int:
         print("[6] train llama3-e8t2 (upcycled from a dense llama3-8b drawn from the seed)")
         train_launches, train_stats = train(args.seed)
 
-    padded_launches, padded_stats, padded_train_launches, int8_launches = {}, {}, {}, {}
+    padded_launches, padded_stats, padded_train_launches, int8_launches, int8_fused_launches = {}, {}, {}, {}, {}
     if 7 in phases:
         print("[7] padded dispatch (allgather): (a) ring serve of llama3-e8t2 at CF 4, kernels on")
         padded_launches, padded_stats["serve"] = serve_padded(args.seed)
@@ -1739,7 +2138,23 @@ def main(argv=None) -> int:
         padded_train_launches, padded_stats["train"] = train_padded(args.seed)
     if 8 in phases:
         print("[8] serve llama3-e8t2 at all 32 layers with int8 expert weights (sorted, ring cache, kernels on)")
-        int8_launches, stats["int8_full_depth"] = serve_int8_full_depth(args.seed)
+        int8_launches, int8_fused_launches, stats["int8_full_depth"] = serve_int8_full_depth(args.seed)
+    fused_launches, fused_train_launches, fused_stats = {}, {}, {}
+    if 9 in phases:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(args.seed + 9)
+        print("[9] fused dispatch: (a) kernels #12-#15 vs plain versions at llama3-e8t2 widths")
+        for q8 in (False, True):
+            dec = check_fused(gen, (3, 0, 2, 1, 0, 1, 1, 0), 4, "decode", q8=q8)
+            check_fused(gen, (200, 0, 131, 77, 64, 50, 40, 38), 300, "prefill", q8=q8)
+            for row in dec:
+                kernels[row["name"]] = row
+        check_fused(gen, (1100, 0, 517, 803, 64, 700, 431, 481), 2048, "train")
+        torch.cuda.empty_cache()
+        print("[9] (b) ring serve of llama3-e8t2 (4 layers) with fused dispatch, kernels on")
+        fused_launches, fused_stats["serve"] = serve_fused(args.seed)
+        print("[9] (c) train llama3-e8t2 (upcycled, 2 layers) with fused dispatch, kernels on")
+        fused_train_launches, fused_stats["train"] = train_fused(args.seed, phase6_peak=train_stats.get("peak_bytes"))
 
     sources = {
         "grouped_gate_up": ("src/repro_torch/kernels/csrc/grouped_gemm.cu", "src/repro/kernels/expert_gemm.py:335"),
@@ -1760,14 +2175,22 @@ def main(argv=None) -> int:
         "grouped_gate_up_q8": ("src/repro_torch/kernels/csrc/grouped_gemm.cu",
                                "src/repro/kernels/expert_gemm.py:827"),
         "grouped_down_q8": ("src/repro_torch/kernels/csrc/grouped_gemm.cu", "src/repro/kernels/expert_gemm.py:851"),
+        "grouped_gate_up_fused": ("src/repro_torch/kernels/csrc/grouped_gemm.cu",
+                                  "src/repro/kernels/expert_gemm.py:1088"),
+        "grouped_down_fused": ("src/repro_torch/kernels/csrc/grouped_gemm.cu",
+                               "src/repro/kernels/expert_gemm.py:1112"),
+        "grouped_gate_up_fused_q8": ("src/repro_torch/kernels/csrc/grouped_gemm.cu",
+                                     "src/repro/kernels/expert_gemm.py:1251"),
+        "grouped_down_fused_q8": ("src/repro_torch/kernels/csrc/grouped_gemm.cu",
+                                  "src/repro/kernels/expert_gemm.py:1280"),
     }
     rows = []
     for name, (src, replaces) in sources.items():
         k = kernels.get(name, {})
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": next((d[name] for d in (launches, train_launches, padded_launches, int8_launches)
-                              if d.get(name)), 0),
+            "launches": next((d[name] for d in (launches, train_launches, padded_launches, int8_launches,
+                                                fused_launches, int8_fused_launches) if d.get(name)), 0),
             "max_abs_err": k.get("max_abs_err"),
             "ms": k.get("ms"), "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
             "bound_by": k.get("bound_by"), "library_ms": k.get("library_ms"), "library": k.get("library"),
@@ -1780,10 +2203,14 @@ def main(argv=None) -> int:
                                            **{name: {k: v for k, v in d.items() if v} for name, d in (
                                                ("padded_ring", padded_launches),
                                                ("padded_train", padded_train_launches),
-                                               ("int8_full_depth", int8_launches))}}}))
+                                               ("int8_full_depth", int8_launches),
+                                               ("fused_ring", fused_launches),
+                                               ("fused_train", fused_train_launches),
+                                               ("fused_int8_full_depth", int8_fused_launches))}}}))
     print(json.dumps({"serve": stats}))
     print(json.dumps({"train": train_stats}))
     print(json.dumps({"padded": padded_stats}))
+    print(json.dumps({"fused": fused_stats}))
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,26 +5,23 @@ computed, no capacity. On the kernel path each expert's region is aligned
 to ``KERNEL_ROW_BLOCK`` rows so every 128-row tile of the buffer belongs to
 one expert; the plain path uses the compact buffer (``row_block=1``).
 
-Not in this slice: the fused dispatch-in-kernel path (``_apply_fused``).
+With ``moe.fused_dispatch`` and ``use_kernel`` the buffer is never built:
+``_apply_fused`` hands the token-major x and the routing vectors to
+``ops.grouped_gemm_fused(_q8)``, whose kernels gather the rows in their
+prologue and apply the gates and the combine in their epilogue. Without
+``use_kernel`` the flag is inert, as in the JAX package.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.dispatch.base import DispatchLayout, DispatchState, TokenDispatcher, expert_ffn
+from repro_torch.kernels.ref import aligned_rows
 
 # Row alignment of the expert-sorted buffer on the kernel path; the CUDA
 # grouped GEMM reads its per-tile metadata at this granularity whatever its
 # own inner tile is.
 KERNEL_ROW_BLOCK = 128
-
-
-def aligned_rows(N: int, E: int, row_block: int) -> int:
-    """Static worst-case buffer rows: sum_e ceil(g_e/b)*b <= N + E*(b-1),
-    rounded up to a whole number of row tiles."""
-    if row_block <= 1:
-        return N
-    return -(-(N + E * (row_block - 1)) // row_block) * row_block
 
 
 class SortedDispatcher(TokenDispatcher):
@@ -73,9 +70,24 @@ class SortedDispatcher(TokenDispatcher):
         out.index_add_(0, r["token"], yv)
         return out.to(ye.dtype)
 
+    def _apply_fused(self, experts, x, gates, idx):
+        """Dispatch-in-kernel path: neither the (N_pad, D) buffer nor the
+        (N, D) gathered output exists in device memory."""
+        from repro_torch.core.quant import is_quantized
+        from repro_torch.kernels import ops
+
+        token, slot, dest, gate_sorted, group_sizes = self._indices(idx, gates, KERNEL_ROW_BLOCK)
+        routing = (group_sizes, token, dest, slot, gate_sorted)
+        if is_quantized(experts):
+            return ops.grouped_gemm_fused_q8(
+                x, experts["w_gate"], experts["w_up"], experts["w_down"], experts["w_gate_scale"],
+                experts["w_up_scale"], experts["w_down_scale"], *routing, row_block=KERNEL_ROW_BLOCK)
+        return ops.grouped_gemm_fused(x, experts["w_gate"], experts["w_up"], experts["w_down"], *routing,
+                                      row_block=KERNEL_ROW_BLOCK)
+
     def apply(self, experts, x, gates, idx, use_kernel: bool = False):
-        if getattr(self.moe, "fused_dispatch", False):
-            raise NotImplementedError("fused dispatch is ROADMAP queue 1, 'fused dispatch'")
+        if use_kernel and getattr(self.moe, "fused_dispatch", False):
+            return self._apply_fused(experts, x, gates, idx)
         row_block = KERNEL_ROW_BLOCK if use_kernel else 1
         xe, state = self.dispatch(x, idx, gates, row_block=row_block)
         ye = expert_ffn(experts, xe, state.layout, use_kernel)

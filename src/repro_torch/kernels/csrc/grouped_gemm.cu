@@ -1,14 +1,18 @@
 // Expert FFN GEMMs with fused SwiGLU for Hopper (sm_90a): one tile loop,
-// templated over the row mapping and the weight type, behind six entry
+// templated over the row mapping and the weight type, behind ten entry
 // points with their own launch counters in kernels/expert_gemm.py.
 //
 // Replaces the TPU kernels of src/repro/kernels/expert_gemm.py:
-//   grouped_gate_up     _grouped_gate_up_kernel     (#3)  sorted, bf16
-//   grouped_down        _grouped_down_kernel        (#4)  sorted, bf16
-//   expert_gate_up      _gate_up_kernel             (#1)  padded, bf16
-//   expert_down         _down_kernel                (#2)  padded, bf16
-//   grouped_gate_up_q8  _grouped_gate_up_kernel_q8  (#10) sorted, int8 weights
-//   grouped_down_q8     _grouped_down_kernel_q8     (#11) sorted, int8 weights
+//   grouped_gate_up           _grouped_gate_up_kernel     (#3)  sorted, bf16          :335
+//   grouped_down              _grouped_down_kernel        (#4)  sorted, bf16          :355
+//   expert_gate_up            _gate_up_kernel             (#1)  padded, bf16          :177
+//   expert_down               _down_kernel                (#2)  padded, bf16          :194
+//   grouped_gate_up_q8        _grouped_gate_up_kernel_q8  (#10) sorted, int8 weights  :827
+//   grouped_down_q8           _grouped_down_kernel_q8     (#11) sorted, int8 weights  :851
+//   grouped_gate_up_fused     _fused_gate_up_kernel       (#12) fused gather, bf16    :1088
+//   grouped_down_fused        _fused_down_kernel          (#13) fused combine, bf16   :1112
+//   grouped_gate_up_fused_q8  _fused_gate_up_kernel_q8    (#14) fused gather, int8    :1251
+//   grouped_down_fused_q8     _fused_down_kernel_q8       (#15) fused combine, int8   :1280
 // gate/up: h = silu(x@Wg[e]) * (x@Wu[e]); down: y = h@Wd[e]; fp32 sums.
 //
 // Row mapping. Sorted: an expert-sorted (N_pad, D) buffer whose expert
@@ -21,6 +25,18 @@
 // (empty slots hold token 0's row and are zeroed by the combine's gate), a
 // block that straddles C reads its last valid row in place of the rows
 // past it and writes only rows < C, so it never touches the next expert.
+// Fused (the sorted dispatcher's dispatch-in-kernel path): the sorted
+// mapping's tiles, but the (N_pad, D) buffer never exists. The gate/up
+// kernel gathers row r of its block from the token-major x (T, D) at
+// tok_pad[row0 + r] (padding rows hold token 0 and are masked like the
+// sorted kernel's: they re-read the last valid row and store zeros), and
+// writes h (N_pad, F) as the sorted kernel does. The down kernel reads h
+// in the sorted mapping and stores valid row r, times its fp32 gate
+// gate_pad[row0 + r], rounded to bf16 once, at row row_out[row0 + r] =
+// slot*T + token of a (k*T, D) slot-partials buffer; padding rows and
+// empty half tiles store nothing. Each (slot, token) pair is one row of
+// the buffer, so every row is written exactly once, with no atomics; the
+// wrapper sums the k planes in fp32.
 //
 // int8 weights (per-output-channel bf16 scales): WMMA has no bf16 x int8
 // product, so each 32 x 128 int8 slab is staged by cp.async (16 weights per
@@ -35,7 +51,11 @@
 // bytes, ~105 us (bf16) or ~53 us (int8) per expert at 3.35 TB/s. The
 // padded layout computes every expert whatever its load; the sorted one
 // skips empty experts. At prefill and in training (hundreds of rows per
-// expert) the products reach the tensor-core side of the ridge.
+// expert) the products reach the tensor-core side of the ridge. The fused
+// kernels move the same weight bytes; the gather reads T*D*2 bytes of x
+// (each row once per output column block, from L2 after the first) and
+// the combine writes k*T*D*2 bytes of partials in place of the sorted
+// buffer's N_pad rows.
 //
 // What this simple design does about it: one block per (64-row block, 128
 // output columns); blocks that share a weight column block are launched
@@ -101,17 +121,24 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
+enum RowMap { SORTED = 0, PADDED = 1, FUSED = 2 };
+
 // NB = 2: out = silu(A@W0[e] * S0[e]) * (A@W1[e] * S1[e]); NB = 1: out = A@W0[e] * S0[e]
 // (no S without Q8). A (rows, K) bf16; W (E, K, N) bf16 or int8; S (E, N) bf16;
 // out (rows, N) bf16. PADDED: rows = E * cap, blockIdx.x = e * ceil(cap/BM) + row block;
-// otherwise the sorted mapping through tile_group / tile_rows.
-template <int NB, bool PADDED, bool Q8>
+// otherwise the sorted mapping through tile_group / tile_rows. FUSED, NB = 2: block row r
+// reads A (T, K) at row row_idx[row0 + r]; FUSED, NB = 1: valid row r is stored times
+// row_gate[row0 + r] at out row row_idx[row0 + r].
+template <int NB, int MAP, bool Q8>
 __global__ void __launch_bounds__(THREADS)
 ffn_kernel(const bf16* __restrict__ A, const void* __restrict__ W0v, const void* __restrict__ W1v,
            const bf16* __restrict__ S0, const bf16* __restrict__ S1,
            const int* __restrict__ tile_group, const int* __restrict__ tile_rows, int cap,
+           const int* __restrict__ row_idx, const float* __restrict__ row_gate,
            bf16* __restrict__ out, int K, int N) {
   using WT = typename std::conditional<Q8, int8_t, bf16>::type;
+  constexpr bool GATHER = MAP == FUSED && NB == 2;   // gather prologue (#12, #14)
+  constexpr bool COMBINE = MAP == FUSED && NB == 1;  // combine epilogue (#13, #15)
   __shared__ __align__(128) unsigned char smem_raw[smem_bytes<NB, Q8>()];
   Pipe<NB, Q8>& pipe = *reinterpret_cast<Pipe<NB, Q8>*>(smem_raw);
   float* ctile = reinterpret_cast<float*>(smem_raw);  // epilogue reuses the pipe
@@ -120,7 +147,7 @@ ffn_kernel(const bf16* __restrict__ A, const void* __restrict__ W0v, const void*
   const int n0 = blockIdx.y * BN;
   int e, valid;
   size_t row0;  // first row of this block in A and out
-  if constexpr (PADDED) {
+  if constexpr (MAP == PADDED) {
     const int nsub = (cap + BM - 1) / BM;
     e = blockIdx.x / nsub;
     const int sub = blockIdx.x % nsub;
@@ -132,10 +159,12 @@ ffn_kernel(const bf16* __restrict__ A, const void* __restrict__ W0v, const void*
     row0 = (size_t)sub * BM;
     valid = tile_rows[tile] - (sub % (ROW_TILE / BM)) * BM;
     valid = valid < 0 ? 0 : (valid > BM ? BM : valid);
-    if (valid == 0) {  // empty half tile: zeros, no product
-      for (int c = tid; c < BM * BN / 8; c += THREADS) {
-        const int r = c / (BN / 8), col = (c % (BN / 8)) * 8;
-        *reinterpret_cast<uint4*>(out + (row0 + r) * N + n0 + col) = make_uint4(0, 0, 0, 0);
+    if (valid == 0) {  // empty half tile: no product; zeros, or nothing for the combine
+      if constexpr (!COMBINE) {
+        for (int c = tid; c < BM * BN / 8; c += THREADS) {
+          const int r = c / (BN / 8), col = (c % (BN / 8)) * 8;
+          *reinterpret_cast<uint4*>(out + (row0 + r) * N + n0 + col) = make_uint4(0, 0, 0, 0);
+        }
       }
       return;
     }
@@ -143,16 +172,16 @@ ffn_kernel(const bf16* __restrict__ A, const void* __restrict__ W0v, const void*
   }
 
   const size_t e_off = (size_t)e * K * N + n0;
-  const bf16* Ab = A + row0 * K;
   const WT* Wb[2] = {static_cast<const WT*>(W0v) + e_off, static_cast<const WT*>(W1v) + e_off};
+  // this thread's x row of every slab: BM x BK = one 16-byte chunk per thread.
+  // Rows past `valid` re-read the last valid row (their results are never
+  // stored as data); the gather reads the row of the block row's token.
+  const int a_r = tid / (BK / 8), a_c = (tid % (BK / 8)) * 8;
+  const int a_rs = a_r < valid ? a_r : valid - 1;
+  const bf16* a_src = GATHER ? A + (size_t)row_idx[row0 + a_rs] * K + a_c : A + (row0 + a_rs) * K + a_c;
 
   auto load_stage = [&](int stage, int k0) {
-    {  // x slab: BM x BK = one 16-byte chunk per thread; rows past `valid`
-       // re-read the last valid row (their results are never stored as data)
-      const int r = tid / (BK / 8), c = (tid % (BK / 8)) * 8;
-      const int rs = r < valid ? r : valid - 1;
-      cp_async16(&pipe.a[stage][r * A_LD + c], Ab + (size_t)rs * K + k0 + c);
-    }
+    cp_async16(&pipe.a[stage][a_r * A_LD + a_c], a_src + k0);
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) {
       if constexpr (Q8) {  // int8 slab: BK x BN bytes = one 16-byte chunk per thread
@@ -264,9 +293,19 @@ ffn_kernel(const bf16* __restrict__ A, const void* __restrict__ W0v, const void*
     }
   }
   __syncthreads();
+  if constexpr (COMBINE) {  // valid rows only, gate-weighted in fp32, to their slot-partials row
+    for (int c = tid; c < BM * BN / 2; c += THREADS) {
+      const int r = c / (BN / 2), col = (c % (BN / 2)) * 2;
+      if (r >= valid) continue;
+      const float g = row_gate[row0 + r];
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row_idx[row0 + r] * N + n0 + col) =
+          __floats2bfloat162_rn(ctile[r * C_LD + col] * g, ctile[r * C_LD + col + 1] * g);
+    }
+    return;
+  }
   for (int c = tid; c < BM * BN / 2; c += THREADS) {
     const int r = c / (BN / 2), col = (c % (BN / 2)) * 2;
-    if (PADDED && r >= valid) continue;  // the next expert's rows
+    if (MAP == PADDED && r >= valid) continue;  // the next expert's rows
     float v0 = 0.0f, v1 = 0.0f;
     if (r < valid) {
       v0 = ctile[r * C_LD + col];
@@ -285,32 +324,32 @@ extern "C" int grouped_gate_up(const void* xs, const void* w_gate, const void* w
                                const int* tile_group, const int* tile_rows, void* h,
                                int n_pad, int d, int f, void* stream) {
   dim3 grid(sorted_blocks(n_pad), f / BN);
-  ffn_kernel<2, false, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)xs, w_gate, w_up, nullptr, nullptr, tile_group, tile_rows, 0, (bf16*)h, d, f);
+  ffn_kernel<2, SORTED, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)xs, w_gate, w_up, nullptr, nullptr, tile_group, tile_rows, 0, nullptr, nullptr, (bf16*)h, d, f);
   return (int)cudaGetLastError();
 }
 
 extern "C" int grouped_down(const void* h, const void* w_down, const int* tile_group,
                             const int* tile_rows, void* y, int n_pad, int f, int d, void* stream) {
   dim3 grid(sorted_blocks(n_pad), d / BN);
-  ffn_kernel<1, false, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)h, w_down, w_down, nullptr, nullptr, tile_group, tile_rows, 0, (bf16*)y, f, d);
+  ffn_kernel<1, SORTED, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)h, w_down, w_down, nullptr, nullptr, tile_group, tile_rows, 0, nullptr, nullptr, (bf16*)y, f, d);
   return (int)cudaGetLastError();
 }
 
 extern "C" int expert_gate_up(const void* xe, const void* w_gate, const void* w_up, void* h,
                               int e, int c, int d, int f, void* stream) {
   dim3 grid(padded_blocks(e, c), f / BN);
-  ffn_kernel<2, true, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)xe, w_gate, w_up, nullptr, nullptr, nullptr, nullptr, c, (bf16*)h, d, f);
+  ffn_kernel<2, PADDED, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)xe, w_gate, w_up, nullptr, nullptr, nullptr, nullptr, c, nullptr, nullptr, (bf16*)h, d, f);
   return (int)cudaGetLastError();
 }
 
 extern "C" int expert_down(const void* h, const void* w_down, void* y, int e, int c, int f, int d,
                            void* stream) {
   dim3 grid(padded_blocks(e, c), d / BN);
-  ffn_kernel<1, true, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)h, w_down, w_down, nullptr, nullptr, nullptr, nullptr, c, (bf16*)y, f, d);
+  ffn_kernel<1, PADDED, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)h, w_down, w_down, nullptr, nullptr, nullptr, nullptr, c, nullptr, nullptr, (bf16*)y, f, d);
   return (int)cudaGetLastError();
 }
 
@@ -318,17 +357,58 @@ extern "C" int grouped_gate_up_q8(const void* xs, const void* w_gate, const void
                                   const void* s_gate, const void* s_up, const int* tile_group,
                                   const int* tile_rows, void* h, int n_pad, int d, int f, void* stream) {
   dim3 grid(sorted_blocks(n_pad), f / BN);
-  ffn_kernel<2, false, true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)xs, w_gate, w_up, (const bf16*)s_gate, (const bf16*)s_up, tile_group, tile_rows, 0,
-      (bf16*)h, d, f);
+  ffn_kernel<2, SORTED, true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)xs, w_gate, w_up, (const bf16*)s_gate, (const bf16*)s_up, tile_group, tile_rows, 0, nullptr,
+      nullptr, (bf16*)h, d, f);
   return (int)cudaGetLastError();
 }
 
 extern "C" int grouped_down_q8(const void* h, const void* w_down, const void* s_down, const int* tile_group,
                                const int* tile_rows, void* y, int n_pad, int f, int d, void* stream) {
   dim3 grid(sorted_blocks(n_pad), d / BN);
-  ffn_kernel<1, false, true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)h, w_down, w_down, (const bf16*)s_down, (const bf16*)s_down, tile_group, tile_rows, 0,
-      (bf16*)y, f, d);
+  ffn_kernel<1, SORTED, true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)h, w_down, w_down, (const bf16*)s_down, (const bf16*)s_down, tile_group, tile_rows, 0, nullptr,
+      nullptr, (bf16*)y, f, d);
+  return (int)cudaGetLastError();
+}
+
+// x (T, d) token-major; tok_pad (n_pad,) source token of each buffer row -> h (n_pad, f)
+extern "C" int grouped_gate_up_fused(const void* x, const void* w_gate, const void* w_up, const int* tok_pad,
+                                     const int* tile_group, const int* tile_rows, void* h, int n_pad, int d, int f,
+                                     void* stream) {
+  dim3 grid(sorted_blocks(n_pad), f / BN);
+  ffn_kernel<2, FUSED, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)x, w_gate, w_up, nullptr, nullptr, tile_group, tile_rows, 0, tok_pad, nullptr, (bf16*)h, d, f);
+  return (int)cudaGetLastError();
+}
+
+// h (n_pad, f); row_out / gate_pad (n_pad,) -> partials (k*T, d), each row written once
+extern "C" int grouped_down_fused(const void* h, const void* w_down, const int* row_out, const float* gate_pad,
+                                  const int* tile_group, const int* tile_rows, void* partials, int n_pad, int f,
+                                  int d, void* stream) {
+  dim3 grid(sorted_blocks(n_pad), d / BN);
+  ffn_kernel<1, FUSED, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)h, w_down, w_down, nullptr, nullptr, tile_group, tile_rows, 0, row_out, gate_pad,
+      (bf16*)partials, f, d);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int grouped_gate_up_fused_q8(const void* x, const void* w_gate, const void* w_up, const void* s_gate,
+                                        const void* s_up, const int* tok_pad, const int* tile_group,
+                                        const int* tile_rows, void* h, int n_pad, int d, int f, void* stream) {
+  dim3 grid(sorted_blocks(n_pad), f / BN);
+  ffn_kernel<2, FUSED, true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)x, w_gate, w_up, (const bf16*)s_gate, (const bf16*)s_up, tile_group, tile_rows, 0, tok_pad,
+      nullptr, (bf16*)h, d, f);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int grouped_down_fused_q8(const void* h, const void* w_down, const void* s_down, const int* row_out,
+                                     const float* gate_pad, const int* tile_group, const int* tile_rows,
+                                     void* partials, int n_pad, int f, int d, void* stream) {
+  dim3 grid(sorted_blocks(n_pad), d / BN);
+  ffn_kernel<1, FUSED, true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)h, w_down, w_down, (const bf16*)s_down, (const bf16*)s_down, tile_group, tile_rows, 0, row_out,
+      gate_pad, (bf16*)partials, f, d);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,9 @@
 """Expert GEMMs with fused SwiGLU — the port of ``repro.kernels.expert_gemm``
 for the sorted layout in bf16 (``grouped_gemm``) and int8
-(``grouped_gemm_q8``) and the padded layout in bf16 (``expert_gemm``).
-All six forward kernels live in ``csrc/grouped_gemm.cu``, one templated
-tile loop.
+(``grouped_gemm_q8``), the padded layout in bf16 (``expert_gemm``) and the
+fused dispatch-in-kernel path in bf16 (``grouped_gemm_fused``) and int8
+(``grouped_gemm_fused_q8``). All ten forward kernels live in
+``csrc/grouped_gemm.cu``, one templated tile loop.
 
 Sorted, bf16 (``_grouped_fwd_impl``: ``_grouped_gate_up_kernel`` and
 ``_grouped_down_kernel``):
@@ -33,6 +34,19 @@ Sorted, int8 weights (``_grouped_fwd_q8_impl``: ``_grouped_gate_up_kernel_q8``,
 widen int8 weight slabs to bf16 in shared memory and apply the bf16
 per-column scales to the fp32 sums. Forward only, as in the JAX package.
 
+Fused dispatch (``_fused_fwd_impl``: ``_fused_gate_up_kernel``,
+``_fused_down_kernel``; int8 ``_fused_fwd_q8_impl``): the input is the
+token-major ``x`` (T, D) and the sorted dispatcher's routing vectors.
+:func:`fused_prefetch` turns them into per-buffer-row tables on the device
+(source token, slot-partials row, fp32 gate). ``grouped_gate_up_fused``
+(#12; ``_q8`` #14) gathers each row of its tile from x in its prologue and
+writes h (N_pad, F); ``grouped_down_fused`` (#13; #15) writes each valid
+row times its gate to its (slot, token) row of a (k, T, D) partials
+buffer, which the wrapper sums over k in fp32. :class:`FusedMoe` is its
+autograd node (the JAX ``_fused_moe_p`` ``custom_vjp``): inputs-only
+residuals, and a backward that takes the VJP of the unfused composition
+through the grouped forward (#3/#4) and backward (#5-#7) kernels.
+
 The backward (``_grouped_bwd_impl``: ``_grouped_bwd_dh_kernel``,
 ``_grouped_bwd_dx_kernel``, ``_grouped_bwd_wgrad_kernel``) is three more
 CUDA kernels (``csrc/grouped_gemm_bwd.cu``): ``grouped_bwd_dh`` recomputes
@@ -49,7 +63,16 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import expert_gemm_ref, grouped_gemm_bwd_ref, grouped_gemm_q8_ref, grouped_gemm_ref
+from repro_torch.kernels.ref import (
+    aligned_rows,
+    combine_partials,
+    expert_gemm_ref,
+    grouped_gemm_bwd_ref,
+    grouped_gemm_fused_q8_ref,
+    grouped_gemm_fused_ref,
+    grouped_gemm_q8_ref,
+    grouped_gemm_ref,
+)
 
 ROW_TILE = 128  # metadata granularity: the sorted buffer's region alignment
 COL_TILE = 128  # output columns per CUDA block (F and D must be multiples)
@@ -57,6 +80,8 @@ COL_TILE = 128  # output columns per CUDA block (F and D must be multiples)
 # launches of each CUDA kernel in this process (chip_smoke.py reads them)
 LAUNCHES = {"grouped_gate_up": 0, "grouped_down": 0, "expert_gate_up": 0, "expert_down": 0,
             "grouped_gate_up_q8": 0, "grouped_down_q8": 0,
+            "grouped_gate_up_fused": 0, "grouped_down_fused": 0,
+            "grouped_gate_up_fused_q8": 0, "grouped_down_fused_q8": 0,
             "grouped_bwd_dh": 0, "grouped_bwd_dx": 0, "grouped_bwd_wgrad": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -73,6 +98,14 @@ _SIGS = {
     "grouped_gate_up_q8": [_P] * 8 + [_I] * 3 + [_P],
     # h, w_down, s_down, tile_group, tile_rows, y, n_pad, f, d, stream
     "grouped_down_q8": [_P] * 6 + [_I] * 3 + [_P],
+    # x, w_gate, w_up, tok_pad, tile_group, tile_rows, h, n_pad, d, f, stream
+    "grouped_gate_up_fused": [_P] * 7 + [_I] * 3 + [_P],
+    # h, w_down, row_out, gate_pad, tile_group, tile_rows, partials, n_pad, f, d, stream
+    "grouped_down_fused": [_P] * 7 + [_I] * 3 + [_P],
+    # x, w_gate, w_up, s_gate, s_up, tok_pad, tile_group, tile_rows, h, n_pad, d, f, stream
+    "grouped_gate_up_fused_q8": [_P] * 9 + [_I] * 3 + [_P],
+    # h, w_down, s_down, row_out, gate_pad, tile_group, tile_rows, partials, n_pad, f, d, stream
+    "grouped_down_fused_q8": [_P] * 8 + [_I] * 3 + [_P],
 }
 _BWD_SIGS = {
     # xs, dy, w_gate, w_up, w_down, tile_group, tile_rows, h, dg, du, n_pad, d, f, stream
@@ -429,4 +462,228 @@ def grouped_gemm_residuals(xs, w_gate, w_up, w_down, group_sizes, row_block: int
     leaf = lambda t: t.detach().requires_grad_(True)
     with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
         GroupedGemm.apply(leaf(xs), leaf(w_gate), leaf(w_up), leaf(w_down), group_sizes, row_block)
+    return saved
+
+
+# ---------------------------------------------------------------------------
+# Fused dispatch: gather in the gate/up prologue, gate-weighted combine in the
+# down epilogue (#12-#15)
+# ---------------------------------------------------------------------------
+
+
+def fused_prefetch(token, dest, slot, gate_sorted, T: int, N_pad: int):
+    """Per-buffer-row tables of the fused kernels (``_fused_prefetch``),
+    made on the device with no host sync: the source token of each row
+    (padding rows 0, masked by their tile's valid count), its slot-partials
+    row ``slot * T + token`` (padding rows -1: the down kernel stores
+    nothing for them, so the port needs no trash row) and its fp32 gate
+    (padding rows 0; fp32 whatever the router's dtype)."""
+    dev, dest = token.device, dest.long()
+    tok_pad = torch.zeros(N_pad, dtype=torch.int32, device=dev).index_put((dest,), token.int())
+    row_out = torch.full((N_pad,), -1, dtype=torch.int32, device=dev).index_put(
+        (dest,), (slot.long() * T + token.long()).int())
+    gate_pad = torch.zeros(N_pad, dtype=torch.float32, device=dev).index_put((dest,), gate_sorted.float())
+    return tok_pad, row_out, gate_pad
+
+
+def fused_tables(w_gate, group_sizes, token, dest, slot, gate_sorted, T: int, row_block: int = ROW_TILE):
+    """Everything the fused kernels read besides x and the weights:
+    (tok_pad, row_out, gate_pad, tile_group, tile_rows, k), on the device."""
+    N = token.shape[0]
+    if N % T:
+        raise ValueError(f"grouped_gemm_fused: {N} sorted rows is not a multiple of {T} tokens")
+    N_pad = aligned_rows(N, w_gate.shape[0], row_block)
+    tg, tr = group_tiling(group_sizes, N_pad // row_block, row_block)
+    return (*fused_prefetch(token, dest, slot, gate_sorted, T, N_pad), tg, tr, N // T)
+
+
+def _partials(out, k: int, T: int, D: int, h) -> torch.Tensor:
+    if out is None:
+        return torch.empty((k, T, D), dtype=h.dtype, device=h.device)
+    if out.shape != (k, T, D) or out.dtype != h.dtype or out.device != h.device or not out.is_contiguous():
+        raise ValueError(f"fused down: out must be a contiguous {h.dtype} ({k}, {T}, {D}) tensor on {h.device}")
+    return out
+
+
+def fused_gate_up_cuda(x, w_gate, w_up, tok_pad, tile_group, tile_rows) -> torch.Tensor:
+    """Launch ``grouped_gate_up_fused`` (#12): x (T, D) -> h (N_pad, F)."""
+    N_pad, D, F = tok_pad.shape[0], x.shape[1], w_gate.shape[2]
+    h = torch.empty((N_pad, F), dtype=x.dtype, device=x.device)
+    lib = _build.load("grouped_gemm", _SIGS)
+    _build.check(lib.grouped_gate_up_fused(
+        x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), tok_pad.data_ptr(), tile_group.data_ptr(),
+        tile_rows.data_ptr(), h.data_ptr(), N_pad, D, F, torch.cuda.current_stream(x.device).cuda_stream),
+        "grouped_gate_up_fused")
+    LAUNCHES["grouped_gate_up_fused"] += 1
+    return h
+
+
+def fused_down_cuda(h, w_down, row_out, gate_pad, tile_group, tile_rows, k: int, T: int,
+                    out=None) -> torch.Tensor:
+    """Launch ``grouped_down_fused`` (#13): h (N_pad, F) -> slot partials
+    (k, T, D), every row written exactly once (so ``torch.empty``; ``out``,
+    a contiguous (k, T, D) tensor of h's dtype, is written in its place)."""
+    N_pad, F = h.shape
+    D = w_down.shape[2]
+    partials = _partials(out, k, T, D, h)
+    lib = _build.load("grouped_gemm", _SIGS)
+    _build.check(lib.grouped_down_fused(
+        h.data_ptr(), w_down.data_ptr(), row_out.data_ptr(), gate_pad.data_ptr(), tile_group.data_ptr(),
+        tile_rows.data_ptr(), partials.data_ptr(), N_pad, F, D, torch.cuda.current_stream(h.device).cuda_stream),
+        "grouped_down_fused")
+    LAUNCHES["grouped_down_fused"] += 1
+    return partials
+
+
+def fused_gate_up_q8_cuda(x, w_gate, w_up, s_gate, s_up, tok_pad, tile_group, tile_rows) -> torch.Tensor:
+    """Launch ``grouped_gate_up_fused_q8`` (#14): x (T, D) -> h (N_pad, F)."""
+    N_pad, D, F = tok_pad.shape[0], x.shape[1], w_gate.shape[2]
+    h = torch.empty((N_pad, F), dtype=x.dtype, device=x.device)
+    lib = _build.load("grouped_gemm", _SIGS)
+    _build.check(lib.grouped_gate_up_fused_q8(
+        x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), s_gate.data_ptr(), s_up.data_ptr(), tok_pad.data_ptr(),
+        tile_group.data_ptr(), tile_rows.data_ptr(), h.data_ptr(), N_pad, D, F,
+        torch.cuda.current_stream(x.device).cuda_stream), "grouped_gate_up_fused_q8")
+    LAUNCHES["grouped_gate_up_fused_q8"] += 1
+    return h
+
+
+def fused_down_q8_cuda(h, w_down, s_down, row_out, gate_pad, tile_group, tile_rows, k: int, T: int,
+                       out=None) -> torch.Tensor:
+    """Launch ``grouped_down_fused_q8`` (#15): h (N_pad, F) -> (k, T, D)."""
+    N_pad, F = h.shape
+    D = w_down.shape[2]
+    partials = _partials(out, k, T, D, h)
+    lib = _build.load("grouped_gemm", _SIGS)
+    _build.check(lib.grouped_down_fused_q8(
+        h.data_ptr(), w_down.data_ptr(), s_down.data_ptr(), row_out.data_ptr(), gate_pad.data_ptr(),
+        tile_group.data_ptr(), tile_rows.data_ptr(), partials.data_ptr(), N_pad, F, D,
+        torch.cuda.current_stream(h.device).cuda_stream), "grouped_down_fused_q8")
+    LAUNCHES["grouped_down_fused_q8"] += 1
+    return partials
+
+
+def _check_fused(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted, row_block,
+                 wdtype=torch.bfloat16, scales=None):
+    if x.dim() != 2:
+        raise ValueError(f"grouped_gemm_fused: x must be (T, D), got {tuple(x.shape)}")
+    _check_weights("grouped_gemm_fused", x, w_gate, w_up, w_down, wdtype, scales)
+    E, N = w_gate.shape[0], token.shape[0]
+    if group_sizes.shape != (E,) or any(t.shape != (N,) for t in (dest, slot, gate_sorted)):
+        raise ValueError(f"grouped_gemm_fused: group_sizes must be ({E},) and token/dest/slot/gate_sorted ({N},)")
+    if any(t.device != x.device for t in (group_sizes, token, dest, slot, gate_sorted)):
+        raise ValueError(f"grouped_gemm_fused: the routing vectors must be on {x.device}")
+    if row_block != ROW_TILE:
+        raise ValueError(f"grouped_gemm_fused: the CUDA kernels need row_block={ROW_TILE}")
+
+
+def grouped_gemm_fused_cuda(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted,
+                            row_block: int = ROW_TILE) -> torch.Tensor:
+    """#12 then #13 on the current stream, then the fp32 k-way sum; raises
+    on a refused launch."""
+    _check_fused(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted, row_block)
+    T = x.shape[0]
+    tok_pad, row_out, gate_pad, tg, tr, k = fused_tables(w_gate, group_sizes, token, dest, slot, gate_sorted, T)
+    h = fused_gate_up_cuda(x, w_gate, w_up, tok_pad, tg, tr)
+    return combine_partials(fused_down_cuda(h, w_down, row_out, gate_pad, tg, tr, k, T), x.dtype)
+
+
+def grouped_gemm_fused_q8_cuda(x, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes, token, dest, slot,
+                               gate_sorted, row_block: int = ROW_TILE) -> torch.Tensor:
+    """#14 then #15 on the current stream, then the fp32 k-way sum."""
+    _check_fused(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted, row_block, torch.int8,
+                 (s_gate, s_up, s_down))
+    T = x.shape[0]
+    tok_pad, row_out, gate_pad, tg, tr, k = fused_tables(w_gate, group_sizes, token, dest, slot, gate_sorted, T)
+    h = fused_gate_up_q8_cuda(x, w_gate, w_up, s_gate, s_up, tok_pad, tg, tr)
+    return combine_partials(fused_down_q8_cuda(h, w_down, s_down, row_out, gate_pad, tg, tr, k, T), x.dtype)
+
+
+def grouped_gemm_fused_fwd(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted,
+                           row_block: int = ROW_TILE) -> torch.Tensor:
+    """Fused forward without autograd: a CUDA tensor launches #12/#13 (or
+    raises); a CPU tensor runs the plain version."""
+    if x.is_cuda:
+        return grouped_gemm_fused_cuda(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted,
+                                       row_block)
+    if x.device.type != "cpu":
+        raise ValueError(f"grouped_gemm_fused: unsupported device {x.device}")
+    return grouped_gemm_fused_ref(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted, row_block)
+
+
+class FusedMoe(torch.autograd.Function):
+    """Autograd node of the fused-dispatch FFN (the JAX ``_fused_moe_p``
+    ``custom_vjp``). The forward is #12/#13 and saves only its inputs,
+    never the (N_pad, D) buffer or h. The backward is the VJP of the
+    unfused composition (``_fused_moe_bwd``): x scattered into the aligned
+    buffer, ys recomputed by the grouped forward (#3/#4), the gate-weighted
+    combine's cotangents, and the grouped backward (#5-#7). It returns dx,
+    the three weight gradients and the gates' gradient ``dgate[n] =
+    <ys[dest[n]], dy[token[n]]>`` in fp32, through which the router learns.
+    ``grouped_gemm_fwd``/``grouped_gemm_bwd`` and ``grouped_gemm_fused_fwd``
+    are looked up at call time, so a caller may wrap them."""
+
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted, row_block):
+        ctx.row_block = row_block
+        ctx.save_for_backward(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted)
+        return grouped_gemm_fused_fwd(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted,
+                                      row_block)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted = ctx.saved_tensors
+        rb = ctx.row_block
+        token, dest = token.long(), dest.long()
+        xs = x.new_zeros((aligned_rows(token.shape[0], w_gate.shape[0], rb), x.shape[1]))
+        xs[dest] = x[token]
+        ys = grouped_gemm_fwd(xs, w_gate, w_up, w_down, group_sizes, rb)
+        dyv = dy.float()[token]  # cotangent of the fp32 combine rows, (N, D)
+        dgate = (ys[dest].float() * dyv).sum(-1).to(gate_sorted.dtype)
+        dys = torch.zeros_like(xs)
+        dys[dest] = (dyv * gate_sorted.float()[:, None]).to(xs.dtype)
+        dxs, dwg, dwu, dwd = grouped_gemm_bwd(xs, dys, w_gate, w_up, w_down, group_sizes, rb)
+        dx = torch.zeros_like(x).index_add_(0, token, dxs[dest])
+        return dx, dwg, dwu, dwd, None, None, None, None, dgate, None
+
+
+def grouped_gemm_fused(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted,
+                       row_block: int = ROW_TILE) -> torch.Tensor:
+    """(T, D) token-major activations -> (T, D): the sorted MoE FFN with the
+    token gather in the gate/up prologue and the gate-weighted combine in
+    the down epilogue; differentiable in x, the weights and the gates
+    through :class:`FusedMoe` on both devices."""
+    return FusedMoe.apply(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted, row_block)
+
+
+def grouped_gemm_fused_q8(x, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes, token, dest, slot,
+                          gate_sorted, row_block: int = ROW_TILE) -> torch.Tensor:
+    """int8-weight fused-dispatch FFN, forward only (as in the JAX package):
+    a weight that requires grad raises. A CUDA tensor launches #14/#15 (or
+    raises); a CPU tensor runs the plain version."""
+    if any(w.requires_grad for w in (w_gate, w_up, w_down, s_gate, s_up, s_down)):
+        raise ValueError("grouped_gemm_fused_q8 is forward only: int8 expert weights have no gradient")
+    args = (x, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes, token, dest, slot, gate_sorted, row_block)
+    if x.is_cuda:
+        return grouped_gemm_fused_q8_cuda(*args)
+    if x.device.type != "cpu":
+        raise ValueError(f"grouped_gemm_fused_q8: unsupported device {x.device}")
+    return grouped_gemm_fused_q8_ref(*args)
+
+
+def grouped_gemm_fused_residuals(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted,
+                                 row_block: int = ROW_TILE):
+    """(shape, dtype) of every tensor :class:`FusedMoe` saves for the
+    backward (``fused_moe_residuals``): the token-major inputs and the O(N)
+    routing vectors, never an (N_pad, D) buffer or an (N, F) intermediate."""
+    saved = []
+
+    def pack(t):
+        saved.append((tuple(t.shape), t.dtype))
+        return t
+
+    leaf = lambda t: t.detach().requires_grad_(True)
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        FusedMoe.apply(leaf(x), leaf(w_gate), leaf(w_up), leaf(w_down), group_sizes, token, dest, slot,
+                       leaf(gate_sorted), row_block)
     return saved

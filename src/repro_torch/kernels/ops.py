@@ -3,7 +3,8 @@ for the serving and training slices). A CUDA tensor launches the
 hand-written kernel and raises if it cannot; a CPU tensor takes the plain
 version. ``grouped_gemm``, ``expert_gemm`` and ``flash_attention`` are
 differentiable on both devices (``expert_gemm.GroupedGemm``,
-``expert_gemm.ExpertGemm``, ``flash_attention.FlashAttention``:
+``expert_gemm.ExpertGemm``, ``expert_gemm.FusedMoe`` under
+``grouped_gemm_fused``, ``flash_attention.FlashAttention``:
 hand-written backward kernels on the card, their plain versions on the
 CPU), so a training step runs forward and backward on the kernel path. No
 autotuner: the CUDA kernels have fixed tiles.
@@ -35,6 +36,24 @@ def grouped_gemm_q8(xs, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes,
     return _eg.grouped_gemm_q8(xs, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes, row_block)
 
 
+def grouped_gemm_fused(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted,
+                       row_block: int = _eg.ROW_TILE) -> torch.Tensor:
+    """Dispatch-in-kernel sorted MoE FFN, token-major (T, D) in and out:
+    ``token``/``dest``/``slot`` (N,) place each sorted assignment, whose
+    gather runs in the gate/up kernel's prologue and whose gate-weighted
+    combine (``gate_sorted``, fp32) runs in the down kernel's epilogue.
+    Differentiable; the CUDA kernels take only ``row_block`` 128."""
+    return _eg.grouped_gemm_fused(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted, row_block)
+
+
+def grouped_gemm_fused_q8(x, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes, token, dest, slot,
+                          gate_sorted, row_block: int = _eg.ROW_TILE) -> torch.Tensor:
+    """int8-weight fused-dispatch sorted MoE FFN (scales as in
+    :func:`grouped_gemm_q8`). Forward only."""
+    return _eg.grouped_gemm_fused_q8(x, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes, token, dest,
+                                     slot, gate_sorted, row_block)
+
+
 def expert_gemm(xe, w_gate, w_up, w_down) -> torch.Tensor:
     """Padded expert FFN: (..., E, C, D) -> (..., E, C, D). Leading group
     dims fold into each expert's slots, as the JAX ``ops.expert_gemm``
@@ -52,7 +71,7 @@ def expert_gemm_q8(xe, w_gate, w_up, w_down, s_gate, s_up, s_down) -> torch.Tens
     """int8-weight padded expert FFN: kernels #8/#9, not ported yet."""
     raise NotImplementedError(
         "padded dispatch with int8 expert weights on the kernel path needs kernels #8/#9 "
-        "(_gate_up_kernel_q8, _down_kernel_q8), ported with the next slice (ROADMAP queue 1 item 5); "
+        "(_gate_up_kernel_q8, _down_kernel_q8), the next slice of the port (ROADMAP queue 2); "
         "use dispatcher='sorted' or use_kernel=False")
 
 

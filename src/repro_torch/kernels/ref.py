@@ -121,6 +121,124 @@ def grouped_gemm_q8_ref(xs, w_gate, w_up, w_down, s_gate, s_up, s_down, group_si
     return grouped_down_q8_ref(h, w_down, s_down, group_sizes, row_block)
 
 
+def _tile_rows_by_expert(tile_group, tile_rows, bc: int):
+    """{expert: (valid buffer rows,)} from the per-tile metadata (one host
+    read): the rows r < tile_rows[t] of each tile t of the expert."""
+    rows: dict = {}
+    for t, (e, n) in enumerate(zip(tile_group.tolist(), tile_rows.tolist())):
+        if n:
+            rows.setdefault(e, []).append(torch.arange(t * bc, t * bc + n, device=tile_group.device))
+    return {e: torch.cat(r) for e, r in rows.items()}
+
+
+def fused_gate_up_ref(x, w_gate, w_up, tok_pad, tile_group, tile_rows, bc: int = 128,
+                      s_gate=None, s_up=None) -> torch.Tensor:
+    """Plain version of the fused gate/up kernel (``_fused_gate_up_kernel``,
+    with the scales ``_fused_gate_up_kernel_q8``): valid buffer row r of
+    expert e is ``silu(x[tok_pad[r]] @ Wg[e]) * (x[tok_pad[r]] @ Wu[e])`` in
+    fp32 (int8: each product times its per-column scale before silu), cast
+    to x's dtype; padding rows are zero. -> h (N_pad, F)."""
+    h = torch.zeros((tok_pad.shape[0], w_gate.shape[-1]), dtype=x.dtype, device=x.device)
+    for e, rows in _tile_rows_by_expert(tile_group, tile_rows, bc).items():
+        xr = x[tok_pad[rows].long()].float()
+        g, u = xr @ w_gate[e].float(), xr @ w_up[e].float()
+        if s_gate is not None:
+            g, u = g * s_gate[e].float(), u * s_up[e].float()
+        h[rows] = (F.silu(g) * u).to(x.dtype)
+    return h
+
+
+def fused_down_ref(h, w_down, row_out, gate_pad, tile_group, tile_rows, k: int, T: int, bc: int = 128,
+                   s_down=None) -> torch.Tensor:
+    """Plain version of the fused down kernel (``_fused_down_kernel``; with
+    ``s_down`` ``_fused_down_kernel_q8``): valid buffer row r of expert e
+    goes to row ``row_out[r]`` of the (k*T, D) slot partials as ``(h[r] @
+    Wd[e]) * gate_pad[r]`` (int8: ``(h[r] @ Wd[e]) * sd[e] * gate_pad[r]``)
+    in fp32, rounded to h's dtype once. -> (k, T, D)."""
+    out = torch.zeros((k * T, w_down.shape[-1]), dtype=h.dtype, device=h.device)
+    for e, rows in _tile_rows_by_expert(tile_group, tile_rows, bc).items():
+        acc = h[rows].float() @ w_down[e].float()
+        if s_down is not None:
+            acc = acc * s_down[e].float()
+        out[row_out[rows].long()] = (acc * gate_pad[rows].float()[:, None]).to(h.dtype)
+    return out.reshape(k, T, -1)
+
+
+def fused_gate_up_q8_ref(x, w_gate, w_up, s_gate, s_up, tok_pad, tile_group, tile_rows,
+                         bc: int = 128) -> torch.Tensor:
+    """Plain version of ``_fused_gate_up_kernel_q8`` (int8 weights widened
+    exactly, bf16 scales on the fp32 sums before silu)."""
+    return fused_gate_up_ref(x, w_gate, w_up, tok_pad, tile_group, tile_rows, bc, s_gate, s_up)
+
+
+def fused_down_q8_ref(h, w_down, s_down, row_out, gate_pad, tile_group, tile_rows, k: int, T: int,
+                      bc: int = 128) -> torch.Tensor:
+    """Plain version of ``_fused_down_kernel_q8``."""
+    return fused_down_ref(h, w_down, row_out, gate_pad, tile_group, tile_rows, k, T, bc, s_down)
+
+
+def combine_partials(partials: torch.Tensor, dtype) -> torch.Tensor:
+    """The k-way per-token combine of the (k, T, D) slot partials: an fp32
+    sum over the slot planes, cast once (the JAX package does it outside
+    its kernels)."""
+    return partials.float().sum(0).to(dtype)
+
+
+def aligned_rows(N: int, E: int, row_block: int) -> int:
+    """Rows of the (never materialised, on the fused path) tile-aligned
+    sorted buffer: ``sum_e ceil(g_e/b)*b <= N + E*(b-1)``, rounded up to
+    whole row tiles (``_aligned_rows``)."""
+    if row_block <= 1:
+        return N
+    return -(-(N + E * (row_block - 1)) // row_block) * row_block
+
+
+def grouped_gemm_fused_ref(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted,
+                           row_block: int = 128) -> torch.Tensor:
+    """The function ``_fused_fwd_impl`` computes, (T, D) -> (T, D): gather +
+    gate/up, down + gate into bf16 slot partials, fp32 k-way sum, one cast.
+    Rounding points are the fused kernels' (each slot partial rounded
+    before the sum), not the unfused path's."""
+    from repro_torch.kernels.expert_gemm import fused_tables
+
+    T = x.shape[0]
+    tok_pad, row_out, gate_pad, tg, tr, k = fused_tables(w_gate, group_sizes, token, dest, slot, gate_sorted,
+                                                         T, row_block)
+    h = fused_gate_up_ref(x, w_gate, w_up, tok_pad, tg, tr, row_block)
+    return combine_partials(fused_down_ref(h, w_down, row_out, gate_pad, tg, tr, k, T, row_block), x.dtype)
+
+
+def grouped_gemm_fused_q8_ref(x, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes, token, dest, slot,
+                              gate_sorted, row_block: int = 128) -> torch.Tensor:
+    """int8-weight counterpart of :func:`grouped_gemm_fused_ref`
+    (``_fused_fwd_q8_impl``)."""
+    from repro_torch.kernels.expert_gemm import fused_tables
+
+    T = x.shape[0]
+    tok_pad, row_out, gate_pad, tg, tr, k = fused_tables(w_gate, group_sizes, token, dest, slot, gate_sorted,
+                                                         T, row_block)
+    h = fused_gate_up_q8_ref(x, w_gate, w_up, s_gate, s_up, tok_pad, tg, tr, row_block)
+    return combine_partials(fused_down_q8_ref(h, w_down, s_down, row_out, gate_pad, tg, tr, k, T, row_block),
+                            x.dtype)
+
+
+def fused_unfused_ref(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted,
+                      row_block: int = 128, grouped=None) -> torch.Tensor:
+    """The unfused sorted-dispatcher composition the fused path replaces
+    (``_fused_unfused_ref``): scatter x into the ``row_block``-aligned
+    buffer, the grouped FFN (``grouped``, default the plain
+    :func:`grouped_gemm_ref`), gather, fp32 gate weighting and scatter-add,
+    one cast. Differentiable by autograd; the graph the fused backward
+    differentiates."""
+    grouped = grouped or grouped_gemm_ref
+    T, D = x.shape
+    N_pad = aligned_rows(token.shape[0], w_gate.shape[0], row_block)
+    xs = x.new_zeros((N_pad, D)).index_put((dest,), x[token])
+    ys = grouped(xs, w_gate, w_up, w_down, group_sizes, row_block)
+    yv = ys[dest].float() * gate_sorted.float()[:, None]
+    return torch.zeros((T, D), dtype=torch.float32, device=x.device).index_add(0, token, yv).to(x.dtype)
+
+
 def grouped_bwd_dh_ref(xs, dy, w_gate, w_up, w_down, group_sizes, row_block: int = 1):
     """Plain version of the grouped backward's first pass (the TPU
     ``_grouped_bwd_dh_kernel``): recompute ``g = x @ Wg[e]`` and ``u = x @

@@ -8,6 +8,8 @@ cache or page pool), on the card unless ``--device cpu``.
       --prefix-cache --quant-kv int8 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-e8t2 \\
       --smoke --dispatcher sorted --use-kernel --quant-weights int8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-e8t2 \\
+      --smoke --use-kernel --fused-dispatch --device cpu
 
 With no ``--dispatcher`` the config's choice stands: llama3-e8t2's
 ``alltoall`` has no expert-parallel plan on one card, so it falls back to
@@ -15,7 +17,9 @@ With no ``--dispatcher`` the config's choice stands: llama3-e8t2's
 ``REPRO_STRICT_DISPATCH``, as the JAX launcher does on one device. With
 ``--quant-weights int8`` the expert weights are drawn straight into int8
 with their scales (``init_from_decls(..., quant_weights="int8")``), so no
-bf16 expert tree is ever held.
+bf16 expert tree is ever held. ``--fused-dispatch`` (needs ``--use-kernel``,
+implies ``--dispatcher sorted``) runs the sorted dispatcher's gather and
+combine inside the grouped-GEMM kernels.
 """
 from __future__ import annotations
 
@@ -76,6 +80,10 @@ def main(argv=None):
     ap.add_argument("--quant-kv", default="none", choices=["none", "int8"],
                     help="int8 KV pages with a per-token scale sidecar "
                          "(requires --cache-mode paged)")
+    ap.add_argument("--fused-dispatch", action="store_true",
+                    help="dispatch-in-kernel MoE: the sorted dispatcher's gather and combine "
+                         "run inside the grouped-GEMM kernels (requires --use-kernel; implies "
+                         "--dispatcher sorted)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
     args = ap.parse_args(argv)
@@ -84,6 +92,13 @@ def main(argv=None):
     if args.quant_kv != "none" and args.cache_mode != "paged":
         ap.error("--quant-kv requires --cache-mode paged (the scale sidecar "
                  "lives in the page pool)")
+    if args.fused_dispatch:
+        if not args.use_kernel:
+            ap.error("--fused-dispatch requires --use-kernel (the fusion lives in the "
+                     "grouped-GEMM kernels)")
+        if args.dispatcher not in (None, "sorted"):
+            ap.error("--fused-dispatch requires --dispatcher sorted")
+        args.dispatcher = "sorted"
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -98,7 +113,7 @@ def main(argv=None):
         prefill_chunk=args.prefill_chunk, deadline_steps=args.deadline_steps or None,
         max_queue=args.max_queue or None, shed_watermark=args.shed_watermark or None,
         prefix_cache=args.prefix_cache, quant_weights=args.quant_weights, quant_kv=args.quant_kv,
-        device=device,
+        fused_dispatch=args.fused_dispatch, device=device,
     )
     rng = np.random.default_rng(args.seed)
 
@@ -134,6 +149,8 @@ def main(argv=None):
     print(f"served {len(accepted)} requests ({shed} shed), {total_tokens} "
           f"tokens in {dt:.2f}s ({total_tokens/dt:.1f} tok/s, "
           f"batch={args.max_batch}, cache={args.cache_mode}, device={device})")
+    if args.fused_dispatch:
+        print("  fused dispatch: gather and combine inside the grouped-GEMM kernels")
     if args.quant_weights != "none" or args.quant_kv != "none":
         print(f"  quant: weights={args.quant_weights}, kv={args.quant_kv} "
               f"(int8 payloads, fp32 accumulate, scales in sidecars)")

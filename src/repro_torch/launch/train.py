@@ -11,7 +11,9 @@ launcher does without ``--from-ckpt``). At the default ``--cf 4.0`` it
 trains through the padded ``allgather`` dispatcher (capacity-factor token
 dropping, the paper's recipe); ``--cf -1`` is dropless through ``sorted``.
 ``--quant-weights int8`` reports the held-out CE of an int8-expert copy of
-the trained model beside the bf16 one. Flags of the JAX launcher whose
+the trained model beside the bf16 one. ``--fused-dispatch`` (needs
+``--use-kernel``, implies ``--dispatcher sorted``) trains through the
+fused dispatch-in-kernel path. Flags of the JAX launcher whose
 subsystems are not ported yet raise ``NotImplementedError`` naming the
 ROADMAP item that ports them.
 """
@@ -36,7 +38,6 @@ _NOT_PORTED = {
     "resume": (False, _CKPT),
     "supervise": (False, _CKPT + " (the supervisor's rollback)"),
     "rollback_after": (3, _CKPT + " (the supervisor's rollback)"),
-    "fused_dispatch": (False, "ROADMAP queue 1 item 6, fused dispatch"),
     "autotune": (False, "none: the CUDA kernels have fixed tiles"),
 }
 
@@ -58,6 +59,9 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="MoE token dispatcher (default: sorted when dropless, else allgather)")
     ap.add_argument("--use-kernel", action="store_true",
                     help="run the hand-written CUDA kernels forward and backward")
+    ap.add_argument("--fused-dispatch", action="store_true",
+                    help="sorted dispatcher with the gather and combine inside the grouped-GEMM "
+                         "kernels (requires --use-kernel; implies --dispatcher sorted)")
     ap.add_argument("--step-timeout", type=float, default=0.0,
                     help="per-step wall-clock watchdog in seconds (0 = off); a slower step raises HangError")
     ap.add_argument("--device", default="cuda", help="torch device; 'cpu' runs the plain PyTorch path")
@@ -70,7 +74,6 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--supervise", action="store_true")
     ap.add_argument("--rollback-after", type=int, default=3)
-    ap.add_argument("--fused-dispatch", action="store_true")
     ap.add_argument("--autotune", action="store_true")
     ap.add_argument("--quant-weights", default="none", choices=["none", "int8"],
                     help="after training, report the held-out CE with int8 expert weights")
@@ -82,6 +85,12 @@ def main(argv=None):
     for name, (default, item) in _NOT_PORTED.items():
         if getattr(args, name) != default:
             raise NotImplementedError(f"--{name.replace('_', '-')} is not ported yet ({item})")
+    if args.fused_dispatch:
+        if not args.use_kernel:
+            raise SystemExit("--fused-dispatch requires --use-kernel (the fusion lives in the grouped-GEMM kernels)")
+        if args.dispatcher not in (None, "sorted"):
+            raise SystemExit("--fused-dispatch requires --dispatcher sorted")
+        args.dispatcher = "sorted"
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
@@ -91,7 +100,8 @@ def main(argv=None):
         cf = args.cf if args.cf > 0 else None
         moe = MoEConfig(num_experts=args.upcycle, top_k=args.top_k, capacity_factor=cf,
                         router_type=args.router,
-                        dispatcher=args.dispatcher or ("sorted" if cf is None else "allgather"))
+                        dispatcher=args.dispatcher or ("sorted" if cf is None else "allgather"),
+                        fused_dispatch=args.fused_dispatch)
         cfg = upcycle_config(cfg, moe)
     tcfg = TrainConfig(
         global_batch=args.batch, seq_len=args.seq, lr=args.lr, lr_min=args.lr / 100,

@@ -15,11 +15,13 @@
 
 Both backends take int8 expert weights (``quant_weights="int8"``: the
 tree is quantised once here, a no-op on an already-quantised tree, and the
-MoE layers pick the int8 kernels or the dequantising paths by key).
-Greedy decode over both backends gives the same tokens. Not ported yet,
-and raising ``NotImplementedError``: the EP x DP mesh mode, fused
-dispatch, sampling (``greedy=False``), and the ``serving.step`` fault site
-with its step watchdog (``step_timeout_s``).
+MoE layers pick the int8 kernels or the dequantising paths by key), and
+fused dispatch (``fused_dispatch=True`` with ``use_kernel``: the sorted
+dispatcher's gather and combine inside the grouped-GEMM kernels, bf16 or
+int8). Greedy decode over both backends gives the same tokens. Not ported
+yet, and raising ``NotImplementedError``: the EP x DP mesh mode, sampling
+(``greedy=False``), and the ``serving.step`` fault site with its step
+watchdog (``step_timeout_s``).
 """
 from __future__ import annotations
 
@@ -89,7 +91,6 @@ class ServingEngine:
     ):
         unported = {
             "mesh (ROADMAP queue 1, 'multi-GPU')": mesh is not None,
-            "fused_dispatch (ROADMAP queue 1, 'fused dispatch')": fused_dispatch,
             "greedy=False (sampling)": not greedy,
             "step_timeout_s (fault sites and step watchdog, ROADMAP queue 1)": step_timeout_s is not None,
         }
@@ -123,6 +124,12 @@ class ServingEngine:
             raise ValueError("quant_kv requires cache_mode='paged' (the scale sidecar lives in the page pool)")
         self.device = resolve_device(device)
         cfg = with_dispatcher(cfg, dispatcher)
+        if fused_dispatch and cfg.moe is not None:
+            # dispatch-in-kernel: sorted only (MoEConfig refuses the others)
+            # and only with use_kernel (the fusion lives in the kernels)
+            if not use_kernel:
+                raise ValueError("fused_dispatch requires use_kernel=True")
+            cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, fused_dispatch=True))
         self.cfg = cfg
         if cfg.quant_weights == "int8":
             params = quantize_params(params)  # idempotent

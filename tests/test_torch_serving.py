@@ -49,7 +49,7 @@ def test_max_queue_sheds(rng):
     assert eng.health()["shed_count"] == 1
 
 
-@pytest.mark.parametrize("kw", [dict(cache_mode="paged", mesh=object()), dict(fused_dispatch=True),
+@pytest.mark.parametrize("kw", [dict(cache_mode="paged", mesh=object()), dict(step_timeout_s=1.0),
                                 dict(greedy=False)])
 def test_unported_engine_options_raise(kw):
     _, tcfg = configs(moe=False)

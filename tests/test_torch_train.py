@@ -239,7 +239,6 @@ def test_train_cli_defaults_to_the_card_and_refuses_unported_flags():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             train_cli(argv)
-    for extra in (["--resume"], ["--ckpt-every", "2"], ["--from-ckpt", "x"], ["--fused-dispatch"],
-                  ["--supervise"]):
+    for extra in (["--resume"], ["--ckpt-every", "2"], ["--from-ckpt", "x"], ["--supervise"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train_cli(argv + extra + ["--device", "cpu"])
