@@ -16,8 +16,11 @@ Phases (each failure exits non-zero; nothing is swallowed):
    bf16 outputs within 2e-2 x max|plain|, the flash lse within 1e-3, the
    paged-attention kernels' idle row exactly 0, the grouped kernels'
    padding rows exactly 0 (bf16 #3/#4 and int8-weight #10/#11 at the decode
-   and prefill groups, an empty expert in each), the padded #1/#2 at C 4,
-   300 and 512; prints kernel, plain and library times (CUDA events)
+   and prefill groups, an empty expert in each), the padded #1/#2 and the
+   padded int8-weight #8/#9 at C 4, 300 and 512 (#8/#9 also launched over
+   all but the last expert into a NaN-filled output: the last expert's
+   rows must stay NaN, so no block writes past C); prints kernel, plain
+   and library times (CUDA events; for #8/#9 also the bf16 twin #1/#2)
    beside the bound;
 3. serve — llama3-e8t2 at full width, 4 layers (the only cut), sorted
    dispatcher, kernels on, random weights from ``--seed`` drawn on the card:
@@ -34,7 +37,8 @@ Phases (each failure exits non-zero; nothing is swallowed):
    logits must agree with their plain versions' within 2e-2 x max|logits|;
 4. the serving CLI, in process (smoke config, kernels on): ring cache, then
    paged with the prefix cache and int8 KV pages, then int8 expert weights,
-   then with no ``--dispatcher`` (the smoke config's allgather), then
+   then with no ``--dispatcher`` (the smoke config's allgather), bf16 and
+   with int8 expert weights (#8/#9), then
    ``--fused-dispatch`` in the ring cache and in the page pool with int8
    expert weights;
 5. paged serve — the same model and cut through ``cache_mode="paged"``
@@ -87,8 +91,13 @@ Phases (each failure exits non-zero; nothing is swallowed):
    serve held against its plain version; (b) the same drawn weights and
    requests with fused dispatch: #14/#15 launched and #10/#11 not, every
    kernel call of a short serve checked, the figures printed beside (a)'s;
-   on the one-layer smoke config the int8 kernels' first-token logits must
-   agree with their plain versions' within 2e-2 x max|logits| (int8
+   (c) the same weights and requests through the paper config's own
+   dispatcher (``alltoall``, which on one card falls back to the padded
+   ``allgather`` at CF 4, strict dispatch off): #8/#9 launched and
+   #10/#11 not, every kernel call of a short serve checked, the figures
+   and greedy tokens against (a) reported; on the one-layer smoke config
+   the int8 kernels' first-token logits (sorted #10/#11; allgather #8/#9)
+   must agree with their plain versions' within 2e-2 x max|logits| (int8
    against bf16 logits is reported beside ``INT8_LOGIT_BUDGET``);
 9. fused dispatch (the sorted dispatcher's gather in the gate/up kernel's
    prologue, the gate-weighted combine in the down kernel's epilogue) —
@@ -291,6 +300,72 @@ def check_expert(gen, C: int, label: str, E=8, D=4096, F=14336):
               f"bound {b_ms:.4f} ms ({b_by})")
         if not ok:
             raise SystemExit(f"{name} [{label}, C={C}] disagrees with its plain version")
+    return rows
+
+
+def check_expert_q8(gen, C: int, label: str, E=8, D=4096, F=14336):
+    """The padded int8-weight kernels #8/#9 on an (E, C, D) buffer against
+    their plain versions (GG_TOL x max|plain|). Each kernel is also
+    launched (through its C entry point, uncounted) over the first E - 1
+    experts into a full (E, C, .) output filled with NaN: the rows of the
+    last expert, which no block of that launch owns, must stay NaN, so the
+    block that straddles C writes no row past it. Beside the kernel: its
+    bf16 twin (#1/#2) on the same shapes with the dequantised weights, and
+    ``torch.bmm`` on those bf16 weights as the library yardstick (no
+    single library call computes the int8 function)."""
+    import torch
+    from repro_torch.core.quant import dequantize_weight, quantize_weight
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import expert_gemm as eg
+    from repro_torch.kernels.ref import expert_down_q8_ref, expert_gate_up_q8_ref
+
+    dev = torch.device("cuda")
+    xe = torch.randn((E, C, D), generator=gen, device=dev).bfloat16()
+    (wg, sg), (wu, su), (wd, sd) = (
+        quantize_weight((torch.randn(shape, generator=gen, device=dev) * shape[1] ** -0.5).bfloat16())
+        for shape in ((E, D, F), (E, D, F), (E, F, D)))
+    bg, bu, bd = (dequantize_weight(q, s, torch.bfloat16) for q, s in ((wg, sg), (wu, su), (wd, sd)))
+    h = eg.expert_gate_up_q8_cuda(xe, wg, wu, sg, su)
+    h_ref = expert_gate_up_q8_ref(xe, wg, wu, sg, su)
+    y = eg.expert_down_q8_cuda(h_ref, wd, sd)
+    y_ref = expert_down_q8_ref(h_ref, wd, sd)
+    lib = _build.load("grouped_gemm", eg._SIGS)
+    stream = torch.cuda.current_stream().cuda_stream
+    h_part = torch.full((E, C, F), float("nan"), dtype=torch.bfloat16, device=dev)
+    _build.check(lib.expert_gate_up_q8(xe.data_ptr(), wg.data_ptr(), wu.data_ptr(), sg.data_ptr(), su.data_ptr(),
+                                       h_part.data_ptr(), E - 1, C, D, F, stream), "expert_gate_up_q8")
+    y_part = torch.full((E, C, D), float("nan"), dtype=torch.bfloat16, device=dev)
+    _build.check(lib.expert_down_q8(h_ref.data_ptr(), wd.data_ptr(), sd.data_ptr(), y_part.data_ptr(), E - 1, C,
+                                    F, D, stream), "expert_down_q8")
+    torch.cuda.synchronize()
+    rows = []
+    for name, out, ref_out, part, nbytes, flops, fn, plain, twin, lib_calls, lib_name in (
+        ("expert_gate_up_q8", h, h_ref, h_part,
+         E * C * D * 2 + 2 * E * D * F + 2 * E * F * 2 + E * C * F * 2, 4 * E * C * D * F,
+         lambda: eg.expert_gate_up_q8_cuda(xe, wg, wu, sg, su), lambda: expert_gate_up_q8_ref(xe, wg, wu, sg, su),
+         lambda: eg.expert_gate_up_cuda(xe, bg, bu), [lambda: torch.bmm(xe, bg), lambda: torch.bmm(xe, bu)],
+         "sum of two torch.bmm (x Wg, x Wu) on the bf16-dequantised weights"),
+        ("expert_down_q8", y, y_ref, y_part, E * C * F * 2 + E * F * D + E * D * 2 + E * C * D * 2,
+         2 * E * C * F * D, lambda: eg.expert_down_q8_cuda(h_ref, wd, sd), lambda: expert_down_q8_ref(h_ref, wd, sd),
+         lambda: eg.expert_down_cuda(h_ref, bd), [lambda: torch.bmm(h_ref, bd)],
+         "torch.bmm on the bf16-dequantised weights"),
+    ):
+        err, rel = rel_err(out, ref_out)
+        part_err = rel_err(part[:E - 1], ref_out[:E - 1])[1]
+        untouched = bool(torch.isnan(part[E - 1].float()).all())
+        ok = rel <= GG_TOL and part_err <= GG_TOL and untouched and bool(torch.isfinite(out.float()).all())
+        b_ms, b_by = bound(nbytes, flops)
+        row = dict(name=name, max_abs_err=err, rel_err=rel, ok=ok, next_expert_untouched=untouched,
+                   ms=time_ms(fn), plain_ms=time_ms(plain, reps=3, warmup=1), bound_ms=b_ms, bound_by=b_by,
+                   twin_ms=time_ms(twin), library_ms=sum(time_ms(f) for f in lib_calls), library=lib_name,
+                   shape=f"{label}: E={E} C={C} D={D} F={F} int8 weights")
+        rows.append(row)
+        print(f"  {name} [{label}, C={C}] err {err:.4g} (rel {rel:.3g}; over E-1 experts {part_err:.3g}; "
+              f"tol {GG_TOL}) last expert's rows untouched {untouched} kernel {row['ms']:.4f} ms "
+              f"plain {row['plain_ms']:.4f} ms bf16 twin {row['twin_ms']:.4f} ms library ({lib_name}) "
+              f"{row['library_ms']:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+        if not ok:
+            raise SystemExit(f"{name} [{label}, C={C}] disagrees with its plain version or wrote past C")
     return rows
 
 
@@ -697,16 +772,17 @@ def plain_kernels():
     ``ops.grouped_gemm_q8``, ``ops.grouped_gemm_fused``,
     ``ops.grouped_gemm_fused_q8``, ``ops.flash_attention``,
     ``ops.paged_attention``, ``ops.paged_attention_q8``, and
-    ``expert_gemm.expert_gemm`` under ``ops.expert_gemm``) to the kernels'
-    plain versions for the block: the same path and arithmetic as the
-    kernel run, without the kernels."""
+    ``expert_gemm.expert_gemm`` and ``expert_gemm.expert_gemm_q8`` under
+    ``ops.expert_gemm`` and ``ops.expert_gemm_q8``) to the kernels' plain
+    versions for the block: the same path and arithmetic as the kernel run,
+    without the kernels."""
     from repro_torch.kernels import expert_gemm as eg
     from repro_torch.kernels import ops, ref
 
     names = ("grouped_gemm", "grouped_gemm_q8", "grouped_gemm_fused", "grouped_gemm_fused_q8", "flash_attention",
              "paged_attention", "paged_attention_q8")
     saved = {n: getattr(ops, n) for n in names}
-    saved_eg = eg.expert_gemm
+    saved_eg, saved_eg_q8 = eg.expert_gemm, eg.expert_gemm_q8
     ops.grouped_gemm = ref.grouped_gemm_ref
     ops.grouped_gemm_q8 = ref.grouped_gemm_q8_ref
     ops.grouped_gemm_fused = ref.grouped_gemm_fused_ref
@@ -715,13 +791,13 @@ def plain_kernels():
         q, k, v, causal, window, scale)
     ops.paged_attention = ref.paged_attention_ref
     ops.paged_attention_q8 = ref.paged_attention_q8_ref
-    eg.expert_gemm = ref.expert_gemm_ref
+    eg.expert_gemm, eg.expert_gemm_q8 = ref.expert_gemm_ref, ref.expert_gemm_q8_ref
     try:
         yield
     finally:
         for n, f in saved.items():
             setattr(ops, n, f)
-        eg.expert_gemm = saved_eg
+        eg.expert_gemm, eg.expert_gemm_q8 = saved_eg, saved_eg_q8
 
 
 def fused_checked(report: list, x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted,
@@ -769,14 +845,15 @@ def checked_kernels(report: list):
     (``expert_gemm.grouped_gemm_fwd``, ``grouped_gemm_fused_fwd``,
     ``grouped_gemm_bwd``, ``flash_attention.flash_bwd``), so the fused
     backward's recompute is held too; each kernel of a multi-kernel pass
-    is held against its plain version fed that kernel's own inputs."""
+    is held against its plain version fed that kernel's own inputs (the
+    padded int8 FFN ``expert_gemm.expert_gemm_q8`` as #8 then #9)."""
     import torch
     from repro_torch.kernels import expert_gemm as eg
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ops, ref
 
     gfwd, fa, pa, pa8 = eg.grouped_gemm_fwd, ops.flash_attention, ops.paged_attention, ops.paged_attention_q8
-    gq8, egm = ops.grouped_gemm_q8, eg.expert_gemm
+    gq8, egm, egq8 = ops.grouped_gemm_q8, eg.expert_gemm, eg.expert_gemm_q8
     gbwd, fbwd = eg.grouped_gemm_bwd, fa_mod.flash_bwd
     ffwd, fq8 = eg.grouped_gemm_fused_fwd, ops.grouped_gemm_fused_q8
 
@@ -791,6 +868,15 @@ def checked_kernels(report: list):
         with torch.no_grad():
             r = ref.expert_gemm_ref(xe, w_gate, w_up, w_down)
         report.append(("expert_gemm", tuple(xe.shape), rel_err(y, r)[1]))
+        return y
+
+    def expert_q8(xe, w_gate, w_up, w_down, s_gate, s_up, s_down):
+        eg._check_padded(xe, w_gate, w_up, w_down, torch.int8, (s_gate, s_up, s_down))
+        h = eg.expert_gate_up_q8_cuda(xe, w_gate, w_up, s_gate, s_up)
+        y = eg.expert_down_q8_cuda(h, w_down, s_down)
+        report.append(("expert_gate_up_q8", tuple(xe.shape),
+                       rel_err(h, ref.expert_gate_up_q8_ref(xe, w_gate, w_up, s_gate, s_up))[1]))
+        report.append(("expert_down_q8", tuple(xe.shape), rel_err(y, ref.expert_down_q8_ref(h, w_down, s_down))[1]))
         return y
 
     def grouped(xs, w_gate, w_up, w_down, group_sizes, row_block=128):
@@ -845,14 +931,14 @@ def checked_kernels(report: list):
 
     eg.grouped_gemm_fwd, ops.flash_attention = grouped, flash
     ops.paged_attention, ops.paged_attention_q8 = paged, paged_q8
-    ops.grouped_gemm_q8, eg.expert_gemm = grouped_q8, expert
+    ops.grouped_gemm_q8, eg.expert_gemm, eg.expert_gemm_q8 = grouped_q8, expert, expert_q8
     eg.grouped_gemm_bwd, fa_mod.flash_bwd = grouped_backward, flash_backward
     eg.grouped_gemm_fused_fwd, ops.grouped_gemm_fused_q8 = fused, fused_q8
     try:
         yield
     finally:
         eg.grouped_gemm_fwd, ops.flash_attention, ops.paged_attention, ops.paged_attention_q8 = gfwd, fa, pa, pa8
-        ops.grouped_gemm_q8, eg.expert_gemm = gq8, egm
+        ops.grouped_gemm_q8, eg.expert_gemm, eg.expert_gemm_q8 = gq8, egm, egq8
         eg.grouped_gemm_bwd, fa_mod.flash_bwd = gbwd, fbwd
         eg.grouped_gemm_fused_fwd, ops.grouped_gemm_fused_q8 = ffwd, fq8
 
@@ -1642,8 +1728,13 @@ def serve_int8_full_depth(seed: int):
     exists), sorted dispatcher, ring cache, kernels on, the 8 requests of
     phase 3: (a) every request must be answered and #10/#11 must launch;
     (b) the same weights and requests with fused dispatch: #14/#15 must
-    launch and #10/#11 must not."""
+    launch and #10/#11 must not; (c) the same weights and requests through
+    the paper config's own dispatcher, ``alltoall``, which on one card
+    (no EP plan, strict dispatch off) falls back to the padded
+    ``allgather`` at CF 4: #8/#9 must launch and #10/#11 must not."""
     import gc
+    import os
+    import warnings
 
     import torch
     from repro_torch.config import get_config, with_dispatcher
@@ -1668,7 +1759,7 @@ def serve_int8_full_depth(seed: int):
           + f"; peak during the draw {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     lens, prompts, max_seq = ring_prompts(seed, cfg.vocab_size)
     torch.cuda.reset_peak_memory_stats()
-    launches, _, stats = counted_serve("int8 full depth", cfg, params, prompts, max_seq,
+    launches, out_sorted, stats = counted_serve("int8 full depth", cfg, params, prompts, max_seq,
                                        ("grouped_gate_up_q8", "grouped_down_q8", "flash_fwd"),
                                        ("grouped_gemm_q8", "flash_fwd"), quant_weights="int8")
     peak = torch.cuda.max_memory_allocated()
@@ -1688,16 +1779,54 @@ def serve_int8_full_depth(seed: int):
           f"{fused_stats['prefill_ms']:.3f} vs {stats['prefill_ms']:.3f} ms, decode step "
           f"{fused_stats['decode_step_ms']:.3f} vs {stats['decode_step_ms']:.3f} ms, busy "
           f"{fused_stats['device_busy_share']:.3f} vs {stats['device_busy_share']:.3f}")
+    # (c) the paper config's dispatcher on one card: the allgather fallback
+    # at CF 4 through the padded int8 kernels #8/#9
+    gc.collect()
+    torch.cuda.empty_cache()
+    paper = get_config("llama3-e8t2").replace(quant_weights="int8")
+    padded = ("expert_gate_up_q8", "expert_down_q8", "flash_fwd")
+    strict = os.environ.get("REPRO_STRICT_DISPATCH")
+    os.environ["REPRO_STRICT_DISPATCH"] = "0"
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            padded_launches, out_padded, padded_stats = counted_serve(
+                "int8 full depth padded", paper, params, prompts, max_seq, padded, padded, quant_weights="int8")
+    finally:
+        if strict is None:
+            del os.environ["REPRO_STRICT_DISPATCH"]
+        else:
+            os.environ["REPRO_STRICT_DISPATCH"] = strict
+    fallback = [str(w.message) for w in caught if "falling back to 'allgather'" in str(w.message)]
+    if not fallback:
+        raise SystemExit("[int8 full depth padded] the alltoall -> allgather fallback did not happen")
+    if padded_launches["grouped_gate_up_q8"] or padded_launches["grouped_down_q8"]:
+        raise SystemExit(f"[int8 full depth padded] the sorted int8 kernels launched: {padded_launches}")
+    padded_peak = torch.cuda.max_memory_allocated()
+    ntok = sum(len(v) for v in out_sorted.values())
+    same = sum(a == b for r in out_sorted for a, b in zip(out_sorted[r], out_padded[r]))
+    print(f"  [int8 full depth padded] dispatcher {paper.moe.dispatcher} at CF {paper.moe.capacity_factor}: "
+          f"{len(fallback)} fallback warnings, the first: {fallback[0][:90]}...")
+    print(f"  [int8 full depth padded] peak memory allocated {padded_peak} bytes ({padded_peak / 1e9:.2f} GB; 8a "
+          f"{peak / 1e9:.2f} GB); beside 8a: {padded_stats['tokens_per_s']:.2f} vs {stats['tokens_per_s']:.2f} "
+          f"tok/s, prefill {padded_stats['prefill_ms']:.3f} vs {stats['prefill_ms']:.3f} ms, decode step "
+          f"{padded_stats['decode_step_ms']:.3f} vs {stats['decode_step_ms']:.3f} ms, busy "
+          f"{padded_stats['device_busy_share']:.3f} vs {stats['device_busy_share']:.3f}; greedy tokens vs 8a "
+          f"{same}/{ntok} positions equal (reported, not gated)")
     del params
     gc.collect()
     torch.cuda.empty_cache()
     stats.update(peak_bytes=peak, weight_bytes=by_dtype, **int8_small_input_check(seed))
     stats["fused"] = dict(fused_stats, peak_bytes=fused_peak)
-    return launches, fused_launches, stats
+    stats["padded"] = dict(padded_stats, peak_bytes=padded_peak, equal_to_sorted=f"{same}/{ntok}",
+                           **int8_small_input_check(seed, "allgather"))
+    return launches, fused_launches, padded_launches, stats
 
 
-def int8_small_input_check(seed: int) -> dict:
-    """The smoke config of llama3-e8t2 cut to one layer, int8 experts: the
+def int8_small_input_check(seed: int, dispatcher: str = "sorted") -> dict:
+    """The smoke config of llama3-e8t2 cut to one layer, int8 experts,
+    through ``dispatcher`` (sorted: #10/#11; allgather at CF 4: #8/#9): the
     first-token logits through the int8 kernels must agree with their plain
     versions' within LOGIT_TOL x max|logits|; the int8 model's logits
     against the bf16 model's are reported beside INT8_LOGIT_BUDGET."""
@@ -1708,7 +1837,7 @@ def int8_small_input_check(seed: int) -> dict:
     from repro_torch.models.model import model_decl
     from repro_torch.params import init_from_decls
 
-    cfg = with_dispatcher(smoke_config(get_config("llama3-e8t2")).replace(num_layers=1), "sorted")
+    cfg = with_dispatcher(smoke_config(get_config("llama3-e8t2")).replace(num_layers=1), dispatcher)
     params = init_from_decls(model_decl(cfg), seed, "cuda")
     qparams = quantize_params(params)
     rng = np.random.default_rng(seed)
@@ -1722,11 +1851,11 @@ def int8_small_input_check(seed: int) -> dict:
             lb, _, _ = prefill_three_ways(cfg, params, p, bucket, 128)
             worst = max(worst, rel_err(lk, lp)[1])
             vs_bf16 = max(vs_bf16, float((lk.float() - lb.float()).abs().max()))
-    print(f"  small input (smoke config, 1 layer, int8 experts, prompts {list(lens)}): first-token logits, int8 "
-          f"kernels vs their plain versions {worst:.4g} of max|logits| (tol {LOGIT_TOL}); int8 vs bf16 model "
-          f"max|diff| {vs_bf16:.4g} (budget {INT8_LOGIT_BUDGET}, reported)")
+    print(f"  small input (smoke config, 1 layer, int8 experts, {dispatcher}, prompts {list(lens)}): first-token "
+          f"logits, int8 kernels vs their plain versions {worst:.4g} of max|logits| (tol {LOGIT_TOL}); int8 vs "
+          f"bf16 model max|diff| {vs_bf16:.4g} (budget {INT8_LOGIT_BUDGET}, reported)")
     if worst > LOGIT_TOL:
-        raise SystemExit("int8 kernel path logits disagree with the plain versions on the small input")
+        raise SystemExit(f"int8 kernel path logits ({dispatcher}) disagree with the plain versions on the small input")
     return dict(small_int8_vs_plain=worst, small_int8_vs_bf16=vs_bf16)
 
 
@@ -2078,7 +2207,14 @@ def main(argv=None) -> int:
         pad_dec = check_expert(gen, 4, "decode")
         check_expert(gen, 300, "prefill")
         check_expert(gen, 512, "train")
-        for row in dec + dec_q8 + pad_dec:
+        torch.cuda.empty_cache()
+        # the int8-weight padded kernels at the same shapes (C 4 and 300
+        # end inside a 64-row block, 512 on its edge)
+        pad_dec_q8 = check_expert_q8(gen, 4, "decode")
+        check_expert_q8(gen, 300, "prefill")
+        check_expert_q8(gen, 512, "train")
+        torch.cuda.empty_cache()
+        for row in dec + dec_q8 + pad_dec + pad_dec_q8:
             kernels[row["name"]] = row
         check_flash(gen, 16)
         check_flash(gen, 340)
@@ -2099,7 +2235,7 @@ def main(argv=None) -> int:
         sorted_ = ["--dispatcher", "sorted"]
         for extra in (sorted_, sorted_ + ["--cache-mode", "paged", "--prefix-cache", "--quant-kv", "int8",
                                           "--requests", "6", "--prompt-len", "40"],
-                      sorted_ + ["--quant-weights", "int8"], [], ["--fused-dispatch"],
+                      sorted_ + ["--quant-weights", "int8"], [], ["--quant-weights", "int8"], ["--fused-dispatch"],
                       ["--fused-dispatch", "--cache-mode", "paged", "--quant-weights", "int8"]):
             argv = ["--arch", "llama3-e8t2", "--smoke", "--requests", "2", "--max-new", "4", "--use-kernel", *extra]
             print(f"[4] python -m repro_torch.launch.serve {' '.join(argv)}")
@@ -2131,14 +2267,17 @@ def main(argv=None) -> int:
         train_launches, train_stats = train(args.seed)
 
     padded_launches, padded_stats, padded_train_launches, int8_launches, int8_fused_launches = {}, {}, {}, {}, {}
+    int8_padded_launches = {}
     if 7 in phases:
         print("[7] padded dispatch (allgather): (a) ring serve of llama3-e8t2 at CF 4, kernels on")
         padded_launches, padded_stats["serve"] = serve_padded(args.seed)
         print("[7] (b) train llama3-e8t2 (2 layers) through allgather at CF 1.0, kernels on")
         padded_train_launches, padded_stats["train"] = train_padded(args.seed)
     if 8 in phases:
-        print("[8] serve llama3-e8t2 at all 32 layers with int8 expert weights (sorted, ring cache, kernels on)")
-        int8_launches, int8_fused_launches, stats["int8_full_depth"] = serve_int8_full_depth(args.seed)
+        print("[8] serve llama3-e8t2 at all 32 layers with int8 expert weights (ring cache, kernels on): sorted, "
+              "fused (8b), the paper config's alltoall -> allgather fallback (8c)")
+        int8_launches, int8_fused_launches, int8_padded_launches, stats["int8_full_depth"] = \
+            serve_int8_full_depth(args.seed)
     fused_launches, fused_train_launches, fused_stats = {}, {}, {}
     if 9 in phases:
         gen = torch.Generator(device="cuda")
@@ -2172,6 +2311,8 @@ def main(argv=None) -> int:
                                "src/repro/kernels/paged_attention.py:265"),
         "expert_gate_up": ("src/repro_torch/kernels/csrc/grouped_gemm.cu", "src/repro/kernels/expert_gemm.py:177"),
         "expert_down": ("src/repro_torch/kernels/csrc/grouped_gemm.cu", "src/repro/kernels/expert_gemm.py:194"),
+        "expert_gate_up_q8": ("src/repro_torch/kernels/csrc/grouped_gemm.cu", "src/repro/kernels/expert_gemm.py:701"),
+        "expert_down_q8": ("src/repro_torch/kernels/csrc/grouped_gemm.cu", "src/repro/kernels/expert_gemm.py:720"),
         "grouped_gate_up_q8": ("src/repro_torch/kernels/csrc/grouped_gemm.cu",
                                "src/repro/kernels/expert_gemm.py:827"),
         "grouped_down_q8": ("src/repro_torch/kernels/csrc/grouped_gemm.cu", "src/repro/kernels/expert_gemm.py:851"),
@@ -2190,7 +2331,8 @@ def main(argv=None) -> int:
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": next((d[name] for d in (launches, train_launches, padded_launches, int8_launches,
-                                                fused_launches, int8_fused_launches) if d.get(name)), 0),
+                                                fused_launches, int8_fused_launches, int8_padded_launches)
+                              if d.get(name)), 0),
             "max_abs_err": k.get("max_abs_err"),
             "ms": k.get("ms"), "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
             "bound_by": k.get("bound_by"), "library_ms": k.get("library_ms"), "library": k.get("library"),
@@ -2206,7 +2348,8 @@ def main(argv=None) -> int:
                                                ("int8_full_depth", int8_launches),
                                                ("fused_ring", fused_launches),
                                                ("fused_train", fused_train_launches),
-                                               ("fused_int8_full_depth", int8_fused_launches))}}}))
+                                               ("fused_int8_full_depth", int8_fused_launches),
+                                               ("padded_int8_full_depth", int8_padded_launches))}}}))
     print(json.dumps({"serve": stats}))
     print(json.dumps({"train": train_stats}))
     print(json.dumps({"padded": padded_stats}))

@@ -87,8 +87,8 @@ def expert_ffn(experts, xe: torch.Tensor, layout: DispatchLayout, use_kernel: bo
       ``grouped_gemm_xla``).
 
     int8 experts (``core/quant.py`` dicts with ``*_scale`` keys) take the
-    int8 grouped kernel on the sorted kernel path; the paths without an
-    int8 kernel dequantise the weights to ``xe``'s dtype first.
+    int8 kernels on the kernel path (grouped on sorted, expert on padded);
+    the plain paths dequantise the weights to ``xe``'s dtype first.
     """
     from repro_torch.core.quant import dequantize_experts, is_quantized
     from repro_torch.kernels import ops

@@ -20,6 +20,11 @@ Error budget (``tests/test_torch_quant.py``, ``chip_smoke.py``):
 ``KERNEL_PARITY_TOL`` for an int8 kernel against its plain version (same
 math, other summation order) and ``INT8_LOGIT_BUDGET`` for int8-expert
 logits against the bf16 model's on the e8t2 smoke config.
+
+:func:`sharpen_for_parity` fits the greedy-parity probe: on a random-init
+model the top-1 margins are near zero, so greedy-token parity under int8
+rounding is a coin flip; after a few SGD steps on a periodic token stream
+they are O(1) and exact greedy parity is a meaningful check.
 """
 from __future__ import annotations
 
@@ -33,6 +38,8 @@ QUANT_MODES = ("none", "int8")
 
 KERNEL_PARITY_TOL = 2e-2
 INT8_LOGIT_BUDGET = 0.25
+# int8-KV decode logits against bf16 pages, one step (the JAX package's budget)
+INT8_KV_LOGIT_BUDGET = 0.25
 
 _EPS = 1e-8
 KV_SCALE_DTYPE = torch.float32
@@ -129,3 +136,35 @@ def quantize_kv(x: torch.Tensor):
 
 def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     return (q.float() * scale.float()).to(dtype)
+
+
+def sharpen_for_parity(cfg, params, steps: int = 80, seed: int = 0, seq_len: int = 64, batch: int = 8,
+                       period: int = 32, lr: float = 0.5):
+    """Fit a greedy-parity probe (the JAX ``sharpen_for_parity``): ``steps``
+    plain SGD steps, with an fp32 update rounded back to each parameter's
+    dtype, on a fixed periodic token stream the model memorises, through
+    the port's ``loss_fn`` on the parameters' device. The pattern comes from
+    ``np.random.RandomState(seed)`` as in the JAX package, so both packages
+    train on the same tokens. Returns ``(params, pattern)``: new parameter
+    tensors and the (period,) int32 pattern; prompts built from slices of
+    it keep decode where the margins are."""
+    import numpy as np
+
+    from repro_torch.models.model import loss_fn
+    from repro_torch.params import tree_leaves, tree_map
+
+    rng = np.random.RandomState(seed)
+    pattern = rng.randint(1, max(2, cfg.vocab_size - 124), size=period)
+    seq = np.tile(pattern, seq_len // period + 2)
+    dev = tree_leaves(params)[0].device
+    toks = torch.from_numpy(np.stack([np.roll(seq, -i)[: seq_len + 1] for i in range(batch)]).astype(np.int32)).to(dev)
+    data = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    params = tree_map(lambda t: t.detach().clone(), params)
+    for _ in range(steps):
+        leaves = tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        grads = iter(torch.autograd.grad(loss_fn(cfg, params, data)[0], leaves))
+        with torch.no_grad():  # tree_map visits the leaves in tree_leaves' order
+            params = tree_map(lambda p: (p.float() - lr * next(grads).float()).to(p.dtype), params)
+    return params, pattern.astype(np.int32)

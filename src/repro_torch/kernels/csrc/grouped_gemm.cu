@@ -1,5 +1,5 @@
 // Expert FFN GEMMs with fused SwiGLU for Hopper (sm_90a): one tile loop,
-// templated over the row mapping and the weight type, behind ten entry
+// templated over the row mapping and the weight type, behind twelve entry
 // points with their own launch counters in kernels/expert_gemm.py.
 //
 // Replaces the TPU kernels of src/repro/kernels/expert_gemm.py:
@@ -7,6 +7,8 @@
 //   grouped_down              _grouped_down_kernel        (#4)  sorted, bf16          :355
 //   expert_gate_up            _gate_up_kernel             (#1)  padded, bf16          :177
 //   expert_down               _down_kernel                (#2)  padded, bf16          :194
+//   expert_gate_up_q8         _gate_up_kernel_q8          (#8)  padded, int8 weights  :701
+//   expert_down_q8            _down_kernel_q8             (#9)  padded, int8 weights  :720
 //   grouped_gate_up_q8        _grouped_gate_up_kernel_q8  (#10) sorted, int8 weights  :827
 //   grouped_down_q8           _grouped_down_kernel_q8     (#11) sorted, int8 weights  :851
 //   grouped_gate_up_fused     _fused_gate_up_kernel       (#12) fused gather, bf16    :1088
@@ -25,6 +27,8 @@
 // (empty slots hold token 0's row and are zeroed by the combine's gate), a
 // block that straddles C reads its last valid row in place of the rows
 // past it and writes only rows < C, so it never touches the next expert.
+// The int8 padded kernels (#8/#9) read the scale row of that same padded
+// expert e, and their A tile stays bf16, so the clamp is the bf16 one.
 // Fused (the sorted dispatcher's dispatch-in-kernel path): the sorted
 // mapping's tiles, but the (N_pad, D) buffer never exists. The gate/up
 // kernel gathers row r of its block from the token-major x (T, D) at
@@ -350,6 +354,26 @@ extern "C" int expert_down(const void* h, const void* w_down, void* y, int e, in
   dim3 grid(padded_blocks(e, c), d / BN);
   ffn_kernel<1, PADDED, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const bf16*)h, w_down, w_down, nullptr, nullptr, nullptr, nullptr, c, nullptr, nullptr, (bf16*)y, f, d);
+  return (int)cudaGetLastError();
+}
+
+// xe (E, c, d) bf16; w_gate/w_up (E, d, f) int8; s_gate/s_up (E, f) bf16 -> h (E, c, f)
+extern "C" int expert_gate_up_q8(const void* xe, const void* w_gate, const void* w_up, const void* s_gate,
+                                 const void* s_up, void* h, int e, int c, int d, int f, void* stream) {
+  dim3 grid(padded_blocks(e, c), f / BN);
+  ffn_kernel<2, PADDED, true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)xe, w_gate, w_up, (const bf16*)s_gate, (const bf16*)s_up, nullptr, nullptr, c, nullptr, nullptr,
+      (bf16*)h, d, f);
+  return (int)cudaGetLastError();
+}
+
+// h (E, c, f) bf16; w_down (E, f, d) int8; s_down (E, d) bf16 -> y (E, c, d)
+extern "C" int expert_down_q8(const void* h, const void* w_down, const void* s_down, void* y, int e, int c, int f,
+                              int d, void* stream) {
+  dim3 grid(padded_blocks(e, c), d / BN);
+  ffn_kernel<1, PADDED, true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)h, w_down, w_down, (const bf16*)s_down, (const bf16*)s_down, nullptr, nullptr, c, nullptr,
+      nullptr, (bf16*)y, f, d);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,9 @@
 """Expert GEMMs with fused SwiGLU — the port of ``repro.kernels.expert_gemm``
 for the sorted layout in bf16 (``grouped_gemm``) and int8
-(``grouped_gemm_q8``), the padded layout in bf16 (``expert_gemm``) and the
-fused dispatch-in-kernel path in bf16 (``grouped_gemm_fused``) and int8
-(``grouped_gemm_fused_q8``). All ten forward kernels live in
-``csrc/grouped_gemm.cu``, one templated tile loop.
+(``grouped_gemm_q8``), the padded layout in bf16 (``expert_gemm``) and int8
+(``expert_gemm_q8``) and the fused dispatch-in-kernel path in bf16
+(``grouped_gemm_fused``) and int8 (``grouped_gemm_fused_q8``). All twelve
+forward kernels live in ``csrc/grouped_gemm.cu``, one templated tile loop.
 
 Sorted, bf16 (``_grouped_fwd_impl``: ``_grouped_gate_up_kernel`` and
 ``_grouped_down_kernel``):
@@ -33,6 +33,9 @@ Sorted, int8 weights (``_grouped_fwd_q8_impl``: ``_grouped_gate_up_kernel_q8``,
 ``_grouped_down_kernel_q8``): ``grouped_gate_up_q8`` and ``grouped_down_q8``
 widen int8 weight slabs to bf16 in shared memory and apply the bf16
 per-column scales to the fp32 sums. Forward only, as in the JAX package.
+Padded, int8 weights (``_expert_fwd_q8_impl``: ``_gate_up_kernel_q8``,
+``_down_kernel_q8``): ``expert_gate_up_q8`` (#8) and ``expert_down_q8``
+(#9), the same int8 tile loop over the padded row mapping; forward only.
 
 Fused dispatch (``_fused_fwd_impl``: ``_fused_gate_up_kernel``,
 ``_fused_down_kernel``; int8 ``_fused_fwd_q8_impl``): the input is the
@@ -66,6 +69,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (
     aligned_rows,
     combine_partials,
+    expert_gemm_q8_ref,
     expert_gemm_ref,
     grouped_gemm_bwd_ref,
     grouped_gemm_fused_q8_ref,
@@ -79,6 +83,7 @@ COL_TILE = 128  # output columns per CUDA block (F and D must be multiples)
 
 # launches of each CUDA kernel in this process (chip_smoke.py reads them)
 LAUNCHES = {"grouped_gate_up": 0, "grouped_down": 0, "expert_gate_up": 0, "expert_down": 0,
+            "expert_gate_up_q8": 0, "expert_down_q8": 0,
             "grouped_gate_up_q8": 0, "grouped_down_q8": 0,
             "grouped_gate_up_fused": 0, "grouped_down_fused": 0,
             "grouped_gate_up_fused_q8": 0, "grouped_down_fused_q8": 0,
@@ -94,6 +99,10 @@ _SIGS = {
     "expert_gate_up": [_P] * 4 + [_I] * 4 + [_P],
     # h, w_down, y, e, c, f, d, stream
     "expert_down": [_P] * 3 + [_I] * 4 + [_P],
+    # xe, w_gate, w_up, s_gate, s_up, h, e, c, d, f, stream
+    "expert_gate_up_q8": [_P] * 6 + [_I] * 4 + [_P],
+    # h, w_down, s_down, y, e, c, f, d, stream
+    "expert_down_q8": [_P] * 4 + [_I] * 4 + [_P],
     # xs, w_gate, w_up, s_gate, s_up, tile_group, tile_rows, h, n_pad, d, f, stream
     "grouped_gate_up_q8": [_P] * 8 + [_I] * 3 + [_P],
     # h, w_down, s_down, tile_group, tile_rows, y, n_pad, f, d, stream
@@ -220,10 +229,10 @@ def expert_down_cuda(h, w_down) -> torch.Tensor:
     return y
 
 
-def _check_padded(xe, w_gate, w_up, w_down):
+def _check_padded(xe, w_gate, w_up, w_down, wdtype=torch.bfloat16, scales=None):
     if xe.dim() != 3 or xe.shape[0] != w_gate.shape[0] or xe.shape[1] < 1:
         raise ValueError(f"expert_gemm: xe must be (E, C>=1, D) for {w_gate.shape[0]} experts, got {tuple(xe.shape)}")
-    _check_weights("expert_gemm", xe, w_gate, w_up, w_down)
+    _check_weights("expert_gemm", xe, w_gate, w_up, w_down, wdtype, scales)
 
 
 def expert_gemm_cuda(xe, w_gate, w_up, w_down) -> torch.Tensor:
@@ -266,6 +275,40 @@ def grouped_gemm_q8_cuda(xs, w_gate, w_up, w_down, s_gate, s_up, s_down, group_s
     tg, tr = group_tiling(group_sizes, xs.shape[0] // ROW_TILE)
     h = gate_up_q8_cuda(xs, w_gate, w_up, s_gate, s_up, tg, tr)
     return down_q8_cuda(h, w_down, s_down, tg, tr)
+
+
+def expert_gate_up_q8_cuda(xe, w_gate, w_up, s_gate, s_up) -> torch.Tensor:
+    """Launch ``expert_gate_up_q8`` (#8) on the current stream: (E, C, D)
+    -> h (E, C, F)."""
+    E, C, D = xe.shape
+    F = w_gate.shape[2]
+    h = torch.empty((E, C, F), dtype=xe.dtype, device=xe.device)
+    lib = _build.load("grouped_gemm", _SIGS)
+    _build.check(lib.expert_gate_up_q8(
+        xe.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), s_gate.data_ptr(), s_up.data_ptr(), h.data_ptr(),
+        E, C, D, F, torch.cuda.current_stream(xe.device).cuda_stream), "expert_gate_up_q8")
+    LAUNCHES["expert_gate_up_q8"] += 1
+    return h
+
+
+def expert_down_q8_cuda(h, w_down, s_down) -> torch.Tensor:
+    """Launch ``expert_down_q8`` (#9) on the current stream: (E, C, F) ->
+    y (E, C, D)."""
+    E, C, F = h.shape
+    D = w_down.shape[2]
+    y = torch.empty((E, C, D), dtype=h.dtype, device=h.device)
+    lib = _build.load("grouped_gemm", _SIGS)
+    _build.check(lib.expert_down_q8(
+        h.data_ptr(), w_down.data_ptr(), s_down.data_ptr(), y.data_ptr(), E, C, F, D,
+        torch.cuda.current_stream(h.device).cuda_stream), "expert_down_q8")
+    LAUNCHES["expert_down_q8"] += 1
+    return y
+
+
+def expert_gemm_q8_cuda(xe, w_gate, w_up, w_down, s_gate, s_up, s_down) -> torch.Tensor:
+    """#8 then #9 on the current stream; raises on a refused launch."""
+    _check_padded(xe, w_gate, w_up, w_down, torch.int8, (s_gate, s_up, s_down))
+    return expert_down_q8_cuda(expert_gate_up_q8_cuda(xe, w_gate, w_up, s_gate, s_up), w_down, s_down)
 
 
 def bwd_dh_cuda(xs, dy, w_gate, w_up, w_down, tile_group, tile_rows):
@@ -447,6 +490,20 @@ def expert_gemm(xe, w_gate, w_up, w_down) -> torch.Tensor:
     """(E, C, D) padded expert buffer -> (E, C, D), differentiable through
     :class:`ExpertGemm` on both devices."""
     return ExpertGemm.apply(xe, w_gate, w_up, w_down)
+
+
+def expert_gemm_q8(xe, w_gate, w_up, w_down, s_gate, s_up, s_down) -> torch.Tensor:
+    """int8-weight padded expert FFN over (E, C, D), forward only (the JAX
+    q8 kernels have no VJP): a weight that requires grad raises. A CUDA
+    tensor launches #8 and #9 (or raises); a CPU tensor runs the plain
+    version."""
+    if any(w.requires_grad for w in (w_gate, w_up, w_down, s_gate, s_up, s_down)):
+        raise ValueError("expert_gemm_q8 is forward only: int8 expert weights have no gradient")
+    if xe.is_cuda:
+        return expert_gemm_q8_cuda(xe, w_gate, w_up, w_down, s_gate, s_up, s_down)
+    if xe.device.type != "cpu":
+        raise ValueError(f"expert_gemm_q8: unsupported device {xe.device}")
+    return expert_gemm_q8_ref(xe, w_gate, w_up, w_down, s_gate, s_up, s_down)
 
 
 def grouped_gemm_residuals(xs, w_gate, w_up, w_down, group_sizes, row_block: int = ROW_TILE):

@@ -54,25 +54,31 @@ def grouped_gemm_fused_q8(x, w_gate, w_up, w_down, s_gate, s_up, s_down, group_s
                                      slot, gate_sorted, row_block)
 
 
-def expert_gemm(xe, w_gate, w_up, w_down) -> torch.Tensor:
-    """Padded expert FFN: (..., E, C, D) -> (..., E, C, D). Leading group
-    dims fold into each expert's slots, as the JAX ``ops.expert_gemm``
-    does."""
+def _fold_groups(fn, xe, *weights) -> torch.Tensor:
+    """Run the padded FFN ``fn`` on (..., E, C, D): leading group dims fold
+    into each expert's slots, as the JAX ``ops.expert_gemm`` does, so the
+    kernel sees (E, G*C, D) and reads each expert's weights and scales
+    once."""
     lead = xe.shape[:-3]
     E, C, D = xe.shape[-3:]
     if not lead:
-        return _eg.expert_gemm(xe, w_gate, w_up, w_down)
+        return fn(xe, *weights)
     x3 = xe.reshape(-1, E, C, D).transpose(0, 1).reshape(E, -1, D)
-    y = _eg.expert_gemm(x3.contiguous(), w_gate, w_up, w_down)
+    y = fn(x3.contiguous(), *weights)
     return y.reshape(E, -1, C, D).transpose(0, 1).reshape(*lead, E, C, D)
 
 
+def expert_gemm(xe, w_gate, w_up, w_down) -> torch.Tensor:
+    """Padded expert FFN: (..., E, C, D) -> (..., E, C, D)."""
+    return _fold_groups(_eg.expert_gemm, xe, w_gate, w_up, w_down)
+
+
 def expert_gemm_q8(xe, w_gate, w_up, w_down, s_gate, s_up, s_down) -> torch.Tensor:
-    """int8-weight padded expert FFN: kernels #8/#9, not ported yet."""
-    raise NotImplementedError(
-        "padded dispatch with int8 expert weights on the kernel path needs kernels #8/#9 "
-        "(_gate_up_kernel_q8, _down_kernel_q8), the next slice of the port (ROADMAP queue 2); "
-        "use dispatcher='sorted' or use_kernel=False")
+    """int8-weight padded expert FFN, (..., E, C, D) -> (..., E, C, D):
+    int8 (E, D, F) / (E, F, D) weights with bf16 per-output-channel scales
+    (E, F) / (E, D) applied to the fp32 sums (kernels #8/#9). Forward
+    only."""
+    return _fold_groups(_eg.expert_gemm_q8, xe, w_gate, w_up, w_down, s_gate, s_up, s_down)
 
 
 def grouped_gemm_ragged(xs, w_gate, w_up, w_down, group_sizes) -> torch.Tensor:

@@ -88,6 +88,35 @@ def expert_gemm_ref(xe, w_gate, w_up, w_down) -> torch.Tensor:
     return expert_down_ref(expert_gate_up_ref(xe, w_gate, w_up), w_down)
 
 
+def expert_gate_up_q8_ref(xe, w_gate, w_up, s_gate, s_up) -> torch.Tensor:
+    """Plain version of the padded int8 gate/up kernel (the TPU
+    ``_gate_up_kernel_q8``): int8 weights widened (exact), fp32 sums over
+    every slot of ``xe`` (E, C, D), each product times its per-column bf16
+    scale (E, F) on the fp32 sum before silu, ``h = silu(g) * u`` cast to
+    xe's dtype once. One expert at a time, as :func:`expert_gate_up_ref`."""
+    h = torch.empty(xe.shape[:-1] + w_gate.shape[-1:], dtype=xe.dtype, device=xe.device)
+    for e in range(xe.shape[0]):
+        x = xe[e].float()
+        g = (x @ w_gate[e].float()) * s_gate[e].float()
+        u = (x @ w_up[e].float()) * s_up[e].float()
+        h[e] = (F.silu(g) * u).to(xe.dtype)
+    return h
+
+
+def expert_down_q8_ref(h, w_down, s_down) -> torch.Tensor:
+    """Plain version of the padded int8 down kernel (``_down_kernel_q8``):
+    ``y[e] = (h[e] @ Wd[e]) * sd[e]`` with the (E, D) scale on the fp32
+    sum, cast to h's dtype."""
+    return torch.stack([((h[e].float() @ w_down[e].float()) * s_down[e].float()).to(h.dtype)
+                        for e in range(h.shape[0])])
+
+
+def expert_gemm_q8_ref(xe, w_gate, w_up, w_down, s_gate, s_up, s_down) -> torch.Tensor:
+    """int8-weight fused SwiGLU expert FFN over the dense padded ``(E, C,
+    D)`` layout (the JAX ``expert_gemm_q8_ref``): every slot is computed."""
+    return expert_down_q8_ref(expert_gate_up_q8_ref(xe, w_gate, w_up, s_gate, s_up), w_down, s_down)
+
+
 def grouped_gate_up_q8_ref(xs, w_gate, w_up, s_gate, s_up, group_sizes, row_block: int = 1) -> torch.Tensor:
     """Plain version of the int8 grouped gate/up kernel
     (``_grouped_gate_up_kernel_q8``): int8 weights widened (exact), fp32

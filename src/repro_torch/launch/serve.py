@@ -10,11 +10,15 @@ cache or page pool), on the card unless ``--device cpu``.
       --smoke --dispatcher sorted --use-kernel --quant-weights int8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-e8t2 \\
       --smoke --use-kernel --fused-dispatch --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-e8t2 \\
+      --smoke --dispatcher allgather --quant-weights int8 --use-kernel --device cpu
 
 With no ``--dispatcher`` the config's choice stands: llama3-e8t2's
 ``alltoall`` has no expert-parallel plan on one card, so it falls back to
 ``allgather`` (capacity factor 4) with a warning, or raises under
-``REPRO_STRICT_DISPATCH``, as the JAX launcher does on one device. With
+``REPRO_STRICT_DISPATCH``, as the JAX launcher does on one device; with
+``--quant-weights int8 --use-kernel`` that padded path runs the int8
+expert kernels #8/#9. With
 ``--quant-weights int8`` the expert weights are drawn straight into int8
 with their scales (``init_from_decls(..., quant_weights="int8")``), so no
 bf16 expert tree is ever held. ``--fused-dispatch`` (needs ``--use-kernel``,

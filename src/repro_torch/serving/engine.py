@@ -18,10 +18,11 @@ tree is quantised once here, a no-op on an already-quantised tree, and the
 MoE layers pick the int8 kernels or the dequantising paths by key), and
 fused dispatch (``fused_dispatch=True`` with ``use_kernel``: the sorted
 dispatcher's gather and combine inside the grouped-GEMM kernels, bf16 or
-int8). Greedy decode over both backends gives the same tokens. Not ported
-yet, and raising ``NotImplementedError``: the EP x DP mesh mode, sampling
-(``greedy=False``), and the ``serving.step`` fault site with its step
-watchdog (``step_timeout_s``).
+int8). Greedy decode over both backends gives the same tokens. Like the
+JAX engine, it stores ``greedy`` and never reads it: every token is an
+argmax, also with ``greedy=False``. Not ported yet, and raising
+``NotImplementedError``: the EP x DP mesh mode and the ``serving.step``
+fault site with its step watchdog (``step_timeout_s``).
 """
 from __future__ import annotations
 
@@ -91,7 +92,6 @@ class ServingEngine:
     ):
         unported = {
             "mesh (ROADMAP queue 1, 'multi-GPU')": mesh is not None,
-            "greedy=False (sampling)": not greedy,
             "step_timeout_s (fault sites and step watchdog, ROADMAP queue 1)": step_timeout_s is not None,
         }
         asked = [k for k, v in unported.items() if v]
@@ -135,6 +135,7 @@ class ServingEngine:
             params = quantize_params(params)  # idempotent
         self.params = tree_map(lambda t: t.to(self.device), params)
         self.max_batch, self.max_seq = max_batch, max_seq
+        self.greedy = greedy  # stored, never read: decode is argmax (as in the JAX engine)
         self.prefix_caching = prefix_cache
         self.deadline_steps = deadline_steps
         self.max_queue = max_queue

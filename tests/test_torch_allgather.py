@@ -168,14 +168,19 @@ def test_expert_gemm_grads_match_jax(rng, case):
 
 
 def test_padded_int8_kernel_path_raises_and_plain_path_dequantizes(rng):
+    """The padded int8 kernel path (#8/#9, their plain version here) is
+    forward only: a scale that requires grad raises. Otherwise it computes
+    what the plain path computes on the dequantised weights."""
     q = tq.quantize_experts({k: torch.randn(s) * 0.05 for k, s in
                              (("w_gate", (2, 32, 128)), ("w_up", (2, 32, 128)), ("w_down", (2, 128, 32)))})
     xe = torch.randn(1, 2, 3, 32)
     layout = DispatchLayout("padded", 2, capacity=3)
-    with pytest.raises(NotImplementedError, match="#8/#9"):
-        expert_ffn(q, xe, layout, use_kernel=True)
+    with pytest.raises(ValueError, match="forward only"):
+        expert_ffn({**q, "w_up_scale": q["w_up_scale"].float().requires_grad_(True)}, xe, layout, use_kernel=True)
     deq = tq.dequantize_experts(q, torch.float32)
     torch.testing.assert_close(expert_ffn(q, xe, layout), expert_ffn(deq, xe, layout))
+    torch.testing.assert_close(expert_ffn(q, xe, layout, use_kernel=True), expert_ffn(deq, xe, layout),
+                               atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("use_kernel", [False, True], ids=["plain", "kernel"])

@@ -2,7 +2,9 @@
 ``quantize_params`` bit-equal to the JAX package's, the direct int8 init,
 the int8 grouped kernels' plain versions (#10/#11) against the JAX Pallas
 kernels (interpret mode) and their oracle, and the ring and paged engines'
-greedy tokens with ``quant_weights="int8"`` against the JAX engines'.
+greedy tokens with ``quant_weights="int8"`` against the JAX engines', on
+the sorted and the padded (``allgather``) dispatcher. The padded int8
+kernels' own parity tests are in ``test_torch_padded_q8.py``.
 
 Tolerances: int8 values and bf16 scales are compared bit for bit (same fp32
 division, same round-half-to-even). The grouped q8 FFN in fp32 within 1e-5
@@ -143,17 +145,19 @@ def _requests(cls, vocab, seed=11, n=5, lmax=30):
             for i in range(n)]
 
 
-MODES = {"ring": dict(), "paged": dict(cache_mode="paged", page_size=8, prefill_chunk=16)}
+PAGED = dict(cache_mode="paged", page_size=8, prefill_chunk=16)
+MODES = {"ring": dict(dispatcher="sorted"), "paged": dict(dispatcher="sorted", **PAGED),
+         "ring-allgather": dict(dispatcher="allgather"), "paged-allgather": dict(dispatcher="allgather", **PAGED)}
 
 
 @pytest.mark.parametrize("mode", list(MODES))
 @pytest.mark.parametrize("use_kernel", [False, True], ids=["plain", "kernel"])
 def test_int8_engine_tokens_identical_to_jax(moe, mode, use_kernel):
-    """fp32 tiny MoE, sorted dispatcher, int8 expert weights quantised by
-    each engine from the same bf16-free fp32 tree: identical greedy tokens."""
+    """fp32 tiny MoE, sorted or padded (allgather, int8 kernels #8/#9 on the
+    kernel path) dispatch, int8 expert weights quantised by each engine from
+    the same bf16-free fp32 tree: identical greedy tokens."""
     jcfg, tcfg, jp, tp = moe
-    kw = dict(max_batch=2, max_seq=48, dispatcher="sorted", use_kernel=use_kernel, quant_weights="int8",
-              **MODES[mode])
+    kw = dict(max_batch=2, max_seq=48, use_kernel=use_kernel, quant_weights="int8", **MODES[mode])
     jeng = JEngine(jcfg, jp, **kw)
     teng = TEngine(tcfg, tp, device="cpu", **kw)
     assert teng.cfg.quant_weights == "int8"

@@ -1,6 +1,7 @@
 """Port parity: the ring-cache ServingEngine emits the same greedy tokens as
 the JAX ring engine (fp32, sorted dispatcher, kernels on and off, with a
-mid-stream slot refill), plus admission, option and device checks."""
+mid-stream slot refill), plus admission, option and device checks, and
+``greedy=False`` against the JAX engine's in both cache modes."""
 import numpy as np
 import pytest
 import torch
@@ -50,11 +51,29 @@ def test_max_queue_sheds(rng):
 
 
 @pytest.mark.parametrize("kw", [dict(cache_mode="paged", mesh=object()), dict(step_timeout_s=1.0),
-                                dict(greedy=False)])
+                                dict(mesh=object())])
 def test_unported_engine_options_raise(kw):
     _, tcfg = configs(moe=False)
     with pytest.raises(NotImplementedError):
         TEngine(tcfg, {}, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("mode", ["ring", "paged"])
+def test_greedy_false_tokens_identical_to_jax(mode):
+    """``greedy=False`` is stored and never read, in both packages: the
+    tokens are the JAX engine's with ``greedy=False``, and the greedy ones."""
+    jcfg, tcfg = configs()
+    jp = jax_params(jcfg)
+    kw = dict(max_batch=2, max_seq=40, dispatcher="sorted")
+    if mode == "paged":
+        kw.update(cache_mode="paged", page_size=8, prefill_chunk=16)
+    jout = JEngine(jcfg, jp, greedy=False, **kw).run(_requests(np.random.default_rng(5), JRequest, jcfg.vocab_size))
+    teng = TEngine(tcfg, to_torch(jp), greedy=False, device="cpu", **kw)
+    assert teng.greedy is False
+    tout = teng.run(_requests(np.random.default_rng(5), TRequest, tcfg.vocab_size))
+    greedy = TEngine(tcfg, to_torch(jp), device="cpu", **kw).run(
+        _requests(np.random.default_rng(5), TRequest, tcfg.vocab_size))
+    assert tout == jout == greedy and [len(tout[i]) for i in range(3)] == [3, 6, 4]
 
 
 def test_cuda_requested_without_card_raises():

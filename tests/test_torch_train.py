@@ -5,7 +5,14 @@ state (``train_state_from_numpy``), the in-step guard, and the training CLI.
 
 Tolerances (fp32 configs): losses and aux losses 1e-5 relative (the same
 fp32 arithmetic, other summation order); gradients ``GRAD_TOL`` of max
-|ref| per parameter. Adam amplifies differences where |g| is near eps:
+|ref| per parameter, except in ``test_loss_fn_value_and_grads_match_jax``:
+there the tiny random model's attention logits span ~150, so the softmax
+turns the fp32 rounding of q and k (2**-24 relative, ~1e-5 absolute in a
+logit) into gradient errors of up to ~1.5e-4 of max|g| in either package,
+depending on the batch. That test measures the conditioning instead: both
+fp32 gradients are held against the port's graph evaluated in fp64
+(``torch_parity.Float64``) and against the spread that fp32-sized noise
+gives that graph. Adam amplifies differences where |g| is near eps:
 its update m / (sqrt(v) + eps) is O(lr) whatever |g| is, and a gradient
 element that is a cancelling sum (an embedding element of 5.8e-7 from
 terms of ~0.1, clipped 20x to ~3e-8) carries a large relative rounding
@@ -14,13 +21,15 @@ error. So after the first update the grad norm may differ by
 (half of one step at the peak lr; the CPU measures 1.9e-4), with at most
 1% of the elements more than 1e-5 apart.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from torch_parity import configs, f32, jax_params, to_torch
+from torch_parity import Float64, configs, f32, jax_params, to_torch
 
 from repro.config import TrainConfig as JTrainConfig
 from repro.data.pipeline import make_train_iter as j_make_train_iter
@@ -35,7 +44,7 @@ from repro_torch.launch.train import main as train_cli
 from repro_torch.models.layers import cross_entropy as t_ce
 from repro_torch.models.model import loss_fn as t_loss_fn
 from repro_torch.optim import adamw_init
-from repro_torch.params import train_state_from_numpy, tree_leaves
+from repro_torch.params import train_state_from_numpy, tree_leaves, tree_map
 from repro_torch.resilience import HangError
 from repro_torch.train.callbacks import EvalCallback
 from repro_torch.train.callbacks import LoggingCallback as TLogging
@@ -81,19 +90,57 @@ def _torch_grads(tcfg, tp, batch, use_kernel):
     return met, torch.autograd.grad(loss, leaves)
 
 
-@pytest.mark.parametrize("moe", [False, True], ids=["dense", "moe"])
-@pytest.mark.parametrize("use_kernel", [False, True], ids=["plain", "kernel"])
-def test_loss_fn_value_and_grads_match_jax(rng, moe, use_kernel):
+NOISE_DRAWS = 3  # fp32-noise draws of the fp64 graph that measure its conditioning
+PORT_VS_JAX = 1.5  # the port's fp32 error may be 1.5x JAX's, plus 1.5x the measured noise
+JAX_VS_NOISE = 10.0  # JAX's fp32 error within 10x the measured noise (seen: up to 6.2x)
+REL_FLOOR = 1e-6  # of max|g|: 16 fp32 ulps, for leaves whose errors all round to 0
+
+
+@functools.lru_cache(maxsize=None)
+def _fp64_side(moe: bool, seed: int):
+    """The port's loss graph in fp64 on seed ``seed``'s batch: (grads,
+    per-leaf noise) as numpy. The noise of a leaf is the largest max|g_noisy
+    - g| / max|g| over ``NOISE_DRAWS`` evaluations with every fp64 result
+    perturbed at fp32's rounding size (``Float64(noise=i)``)."""
+    jcfg, tcfg = configs(moe=moe)
+    jp, batch, tcfg = jax_params(jcfg), _batch(jcfg, np.random.default_rng(seed)), tcfg.replace(remat="none")
+
+    def grads(noise=None):
+        tp = tree_map(lambda t: t.double(), to_torch(jp))
+        with Float64(noise):
+            return [g.numpy() for g in _torch_grads(tcfg, tp, batch, False)[1]]
+
+    g64 = grads()
+    draws = [grads(i) for i in range(NOISE_DRAWS)]
+    noise = [max(np.abs(d[i] - g).max() for d in draws) / np.abs(g).max() for i, g in enumerate(g64)]
+    return g64, noise
+
+
+LOSS_CASES = [(uk, moe, seed) for seed in (0, 15) for moe in (False, True) for uk in (False, True)]
+
+
+@pytest.mark.parametrize("use_kernel,moe,seed", LOSS_CASES, ids=[
+    f"{'kernel' if uk else 'plain'}-{'moe' if moe else 'dense'}{'' if seed == 0 else f'-seed{seed}'}"
+    for uk, moe, seed in LOSS_CASES])
+def test_loss_fn_value_and_grads_match_jax(use_kernel, moe, seed):
+    """Loss values against JAX; gradients against the fp64 graph: per leaf,
+    with e = max|g32 - g64| / max|g64|, e_port <= 1.5 e_jax + 1.5 noise +
+    1e-6 and e_jax <= 10 noise + 1e-6 (the second ties the fp64 graph,
+    which is the port's, to JAX)."""
     jcfg, tcfg = configs(moe=moe)
     jp = jax_params(jcfg)
-    batch = _batch(jcfg, rng)
+    batch = _batch(jcfg, np.random.default_rng(seed))
     jm, jg = _jax_grads(jcfg, jp, batch, use_kernel)
     tm, tg = _torch_grads(tcfg, to_torch(jp), batch, use_kernel)
     assert sorted(tm) == sorted(jm) == ["ce", "load_balance_loss", "loss", "z_loss"]
     for k in tm:
         np.testing.assert_allclose(float(tm[k].detach()), float(jm[k]), rtol=1e-5, atol=1e-8)
-    for a, b in zip(tg, jax.tree.leaves(jg)):
-        np.testing.assert_allclose(f32(a), f32(b), atol=GRAD_TOL * max(float(np.abs(f32(b)).max()), 1e-30))
+    g64, noise = _fp64_side(moe, seed)
+    for a, b, c, n in zip(tg, jax.tree.leaves(jg), g64, noise):
+        scale = np.abs(c).max()
+        e_port, e_jax = np.abs(f32(a) - c).max() / scale, np.abs(f32(b) - c).max() / scale
+        assert e_port <= PORT_VS_JAX * (e_jax + n) + REL_FLOOR, (a.shape, e_port, e_jax, n)
+        assert e_jax <= JAX_VS_NOISE * n + REL_FLOOR, (a.shape, e_jax, n)
 
 
 @pytest.mark.parametrize("use_kernel", [False, True], ids=["plain", "kernel"])

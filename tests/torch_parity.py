@@ -76,3 +76,54 @@ def assert_rel(out, ref, rel=BF16_REL):
     out, ref = f32(out), f32(ref)
     err = float(np.max(np.abs(out - ref)))
     assert err <= rel * float(np.max(np.abs(ref))), (err, float(np.max(np.abs(ref))))
+
+
+
+def _requires_grad(args) -> bool:
+    return any(_requires_grad(a) if isinstance(a, (list, tuple)) else
+               isinstance(a, torch.Tensor) and a.requires_grad for a in args)
+
+
+class Float64(torch.overrides.TorchFunctionMode):
+    """Evaluates the port's fp32 graph in fp64 for the gradient checks: in
+    every torch call made inside the mode that reads a tensor requiring
+    grad, ``.float()``, ``.to(float32)`` and ``dtype=float32`` become fp64.
+    Calls that read no such tensor make the graph's constants (RoPE
+    frequencies and angles, masks, positions): they run as written, in
+    fp32, and their result is widened to fp64, so the fp64 graph computes
+    the same function of the parameters as the fp32 programs do. Autograd's
+    backward runs in the dtype of the saved tensors. Custom autograd
+    Functions and non-reentrant checkpointing run outside the mode, so use
+    it on the plain path with ``remat="none"``, parameters already fp64 and
+    requiring grad.
+
+    ``noise=seed`` multiplies every fp64 result by ``1 + 2**-24 * r``, r
+    uniform in [-1, 1) from a generator seeded with ``seed``: the rounding
+    of an fp32 evaluation, drawn independently of any implementation, so
+    the spread of a few such draws measures how far fp32 rounding can move
+    this graph's gradients."""
+
+    def __init__(self, noise=None):
+        super().__init__()
+        self.gen = None if noise is None else torch.Generator().manual_seed(noise)
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if not _requires_grad(list(args) + list(kwargs.values())):
+            out = func(*args, **kwargs)
+            return out.double() if isinstance(out, torch.Tensor) and out.dtype == torch.float32 else out
+        name = getattr(func, "__name__", "")
+        if name == "float":
+            out = args[0].double()
+        else:
+            if kwargs.get("dtype") is torch.float32:
+                kwargs["dtype"] = torch.float64
+            if name == "to":
+                args = tuple(torch.float64 if a is torch.float32 else a for a in args)
+            out = func(*args, **kwargs)
+        if self.gen is not None and isinstance(out, torch.Tensor) and out.dtype == torch.float64 \
+                and not name.endswith("_"):
+            with torch._C.DisableTorchFunction():
+                r = torch.rand(out.shape, generator=self.gen, dtype=torch.float64) * 2 - 1
+                out = out * (1 + 2.0 ** -24 * r)
+        return out
