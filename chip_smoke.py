@@ -55,9 +55,12 @@ Phases (each failure exits non-zero; nothing is swallowed):
    their plain versions' within 2e-2 x max|logits|, for bf16 and int8 KV;
 6. train — (a) the five backward kernels (grouped #5-#7 at 2048 tokens x
    top-2 with skewed groups and an empty expert; flash #17-#18 at B 1, H 32,
-   KV 8, d 128, S 2048 causal and S 1024 window 256) against their plain
-   versions (2e-2 x max|plain|; padding rows and empty experts exactly 0),
-   with kernel, plain and library times beside the bound; (b) a dense
+   KV 8, d 128, S 2048 causal and S 1024 window 256, the ragged S 1000,
+   d 64 at S 512 and G 8 (KV 4) at S 1024) against their plain versions
+   (2e-2 x max|plain|; padding rows and empty experts exactly 0; the flash
+   kernels write over NaN-filled outputs, which must come back finite, and
+   a second launch must be bit-equal), with kernel, plain and library times
+   beside the bound; (b) a dense
    llama3-8b cut to 2 layers, drawn from ``--seed`` on the card, is
    upcycled to llama3-e8t2 (8 experts, top-2, dropless sorted dispatch):
    with both parameter trees cast to fp32, the MoE's logits on the first
@@ -124,7 +127,11 @@ Phases (each failure exits non-zero; nothing is swallowed):
 
 ``--phases 1,2`` stops after the build and the kernel checks; ``--phases
 1,6`` is the quick look at training, ``--phases 1,8`` at full-depth int8
-serving, ``--phases 1,9`` at fused dispatch. The last two lines are the card's
+serving, ``--phases 1,9`` at fused dispatch. ``--flash-bwd-ab PATH`` also
+times kernels #17/#18 against the same entry points built from another
+``flash_bwd.cu`` (an earlier commit's, unpacked beside the checkout) in
+turns, other, this, this, other, at phase 6a's shapes, both held against
+the plain versions. The last two lines are the card's
 ``nvidia-smi`` name and power limit and the result JSON; the lines before
 them list the launches by path, the serve and train figures and the
 kernels. Imports nothing of JAX or of the JAX package.
@@ -680,7 +687,7 @@ def wgrad_errors(dws, xs, dy, h, dg, du, gs):
     return [(d, d / max(m, 1e-30)) for d, m in zip(diff, scale)], empty_zero
 
 
-def _bwd_row(name, errs, side_ok, shape, fn, plain, nbytes, flops, lib_ms, lib_name, tol):
+def _bwd_row(name, errs, side_ok, shape, fn, plain, nbytes, flops, lib_ms, lib_name, tol, reps: int = 5):
     import torch
 
     err = max(e[0] for e in errs)
@@ -688,7 +695,7 @@ def _bwd_row(name, errs, side_ok, shape, fn, plain, nbytes, flops, lib_ms, lib_n
     ok = rel <= tol and side_ok and all(e[0] == e[0] for e in errs)  # e == e: not NaN
     b_ms, b_by = bound(nbytes, flops)
     row = dict(name=name, max_abs_err=err, rel_err=rel, ok=ok, masked_ok=side_ok,
-               ms=time_ms(fn, reps=5, warmup=1), plain_ms=time_ms(plain, reps=2, warmup=1),
+               ms=time_ms(fn, reps=reps, warmup=1), plain_ms=time_ms(plain, reps=2, warmup=1),
                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, library=lib_name,
                shape=shape)
     torch.cuda.empty_cache()
@@ -714,7 +721,12 @@ def live_pairs(Sq: int, Sk: int, window=None) -> int:
 
 def check_flash_bwd(gen, S: int, window=None, B=1, H=32, KV=8, d=128):
     """Kernels #17 and #18 against their plain versions on the same inputs
-    (the forward kernel's out and lse, a random dout)."""
+    (the forward kernel's out and lse, a random dout). Each kernel first
+    writes into outputs filled with NaN, so a row it leaves unwritten stays
+    NaN and fails the finiteness check instead of inheriting a right value
+    from the caching allocator; a second launch into fresh outputs must be
+    bit-equal to the first (no atomics, sums in a fixed order). Prints
+    each kernel's time over SDPA's backward and its bound over its time."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -729,8 +741,11 @@ def check_flash_bwd(gen, S: int, window=None, B=1, H=32, KV=8, d=128):
     out, lse = fa.flash_fwd_cuda(q, k, v, True, window, scale)
     delta = ref.flash_bwd_delta(out, dout)
     args = (q, k, v, dout, lse, delta, True, window, scale)
-    dq = fa.flash_bwd_dq_cuda(*args)
-    dk, dv = fa.flash_bwd_dkv_cuda(*args)
+    nan = float("nan")
+    dq = fa.flash_bwd_dq_cuda(*args, out=torch.full_like(q, nan))
+    dk, dv = fa.flash_bwd_dkv_cuda(*args, out=(torch.full_like(k, nan), torch.full_like(v, nan)))
+    dq2 = fa.flash_bwd_dq_cuda(*args)
+    dk2, dv2 = fa.flash_bwd_dkv_cuda(*args)
     dq_r = ref.flash_bwd_dq_ref(*args)
     dk_r, dv_r = ref.flash_bwd_dkv_ref(*args)
     torch.cuda.synchronize()
@@ -745,19 +760,89 @@ def check_flash_bwd(gen, S: int, window=None, B=1, H=32, KV=8, d=128):
         mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
         o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
     do_t = dout.transpose(1, 2)
-    lib_ms = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), do_t, retain_graph=True))
+    lib_ms = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), do_t, retain_graph=True), reps=20)
     in_bytes = (q.numel() + k.numel() + v.numel() + dout.numel()) * 2 + (lse.numel() + delta.numel()) * 4
     rows = []
-    for name, outs, refs, out_bytes, flops, fn, plain in (
-        ("flash_bwd_dq", (dq,), (dq_r,), dq.numel() * 2, 6 * d * pairs,
+    for name, outs, again, refs, out_bytes, flops, fn, plain in (
+        ("flash_bwd_dq", (dq,), (dq2,), (dq_r,), dq.numel() * 2, 6 * d * pairs,
          lambda: fa.flash_bwd_dq_cuda(*args), lambda: ref.flash_bwd_dq_ref(*args)),
-        ("flash_bwd_dkv", (dk, dv), (dk_r, dv_r), (dk.numel() + dv.numel()) * 2, 8 * d * pairs,
+        ("flash_bwd_dkv", (dk, dv), (dk2, dv2), (dk_r, dv_r), (dk.numel() + dv.numel()) * 2, 8 * d * pairs,
          lambda: fa.flash_bwd_dkv_cuda(*args), lambda: ref.flash_bwd_dkv_ref(*args)),
     ):
         errs = [rel_err(a, b) for a, b in zip(outs, refs)]
         finite = all(bool(torch.isfinite(a.float()).all()) for a in outs)
-        rows.append(_bwd_row(name, errs, finite, shape, fn, plain, in_bytes + out_bytes, flops, lib_ms,
-                             "SDPA backward, dq dk dv together", FA_TOL))
+        same = all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in zip(outs, again))
+        print(f"  {name} [{shape}] written over NaN: every value finite {finite}; two launches bit-equal {same}")
+        row = _bwd_row(name, errs, finite and same, shape, fn, plain, in_bytes + out_bytes, flops, lib_ms,
+                       "SDPA backward, dq dk dv together", FA_TOL, reps=20)
+        print(f"  {name} [{shape}] kernel / SDPA backward {row['ms'] / lib_ms:.3f}; "
+              f"bound / kernel {row['bound_ms'] / row['ms']:.3f}")
+        rows.append(row)
+    pair = rows[0]["ms"] + rows[1]["ms"]
+    print(f"  flash_bwd_dq + flash_bwd_dkv [{shape}] {pair:.4f} ms, {pair / lib_ms:.3f} x SDPA's backward "
+          f"({lib_ms:.4f} ms); bound {rows[0]['bound_ms'] + rows[1]['bound_ms']:.4f} ms")
+    return rows
+
+
+def flash_bwd_ab(gen, other: str) -> list:
+    """Kernels #17/#18 of this checkout against the same C entry points built
+    from ``other`` (another ``flash_bwd.cu``) on the same inputs, timed in
+    turns (other, this, this, other) beside SDPA's backward, at phase 6a's
+    shapes; each build's outputs are held against the plain versions."""
+    import ctypes
+    import hashlib
+
+    import torch
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import flash_attention as fa
+
+    src = Path(other).resolve()
+    lib_path = _build.BUILD_DIR / f"ab-{hashlib.sha256(src.read_bytes()).hexdigest()[:16]}.so"
+    if not lib_path.exists():
+        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib_path), str(src)], check=True,
+                       capture_output=True, text=True)
+    libs = {"other": ctypes.CDLL(str(lib_path)), "this": _build.load("flash_bwd", fa._BWD_SIGS)}
+    for fn, argtypes in fa._BWD_SIGS.items():
+        getattr(libs["other"], fn).argtypes = argtypes
+        getattr(libs["other"], fn).restype = ctypes.c_int
+    rows = []
+    try:
+        for S, window, KV, d in ((2048, None, 8, 128), (1024, 256, 8, 128), (1000, None, 8, 128),
+                                 (512, None, 8, 64), (1024, None, 4, 128)):
+            q = torch.randn((1, S, 32, d), generator=gen, device="cuda").bfloat16()
+            k, v = (torch.randn((1, S, KV, d), generator=gen, device="cuda").bfloat16() for _ in range(2))
+            dout = torch.randn((1, S, 32, d), generator=gen, device="cuda").bfloat16()
+            out, lse = fa.flash_fwd_cuda(q, k, v, True, window, d ** -0.5)
+            args = (q, k, v, dout, lse, ref.flash_bwd_delta(out, dout), True, window, d ** -0.5)
+            plain = (ref.flash_bwd_dq_ref(*args), *ref.flash_bwd_dkv_ref(*args))
+            times = {"other": [], "this": []}
+            for name in ("other", "this", "this", "other"):
+                _build._LIBS["flash_bwd"] = libs[name]
+                got = (fa.flash_bwd_dq_cuda(*args), *fa.flash_bwd_dkv_cuda(*args))
+                err = max(rel_err(a, b)[1] for a, b in zip(got, plain))
+                if not err <= FA_TOL:
+                    raise SystemExit(f"flash backward A/B: {name} build disagrees with the plain versions ({err})")
+                times[name].append((time_ms(lambda: fa.flash_bwd_dq_cuda(*args), reps=20),
+                                    time_ms(lambda: fa.flash_bwd_dkv_cuda(*args), reps=20)))
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+            if window is None:
+                o = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            else:
+                pos = torch.arange(S, device="cuda")
+                mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+                o = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+            lib_ms = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dout.transpose(1, 2), retain_graph=True),
+                             reps=20)
+            row = {"shape": f"S={S} KV={KV} d={d} window={window}", "sdpa_backward_ms": lib_ms,
+                   **{f"{n}_{w}_ms": [t[i] for t in times[n]] for n in times for i, w in enumerate(("dq", "dkv"))}}
+            print(f"  A/B [{row['shape']}] other dq {row['other_dq_ms']} dkv {row['other_dkv_ms']}; this dq "
+                  f"{row['this_dq_ms']} dkv {row['this_dkv_ms']}; SDPA backward {lib_ms:.4f} ms")
+            rows.append(row)
+            del q, k, v, dout, out, lse, args, plain, qt, kt, vt, o
+            torch.cuda.empty_cache()
+    finally:
+        _build._LIBS["flash_bwd"] = libs["this"]
+    print(json.dumps({"flash_bwd_ab": {"other": str(src), "rows": rows}}))
     return rows
 
 
@@ -2161,6 +2246,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9", help="comma list of phases to run")
+    ap.add_argument("--flash-bwd-ab", metavar="PATH", help="also time #17/#18 against those built from PATH")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -2189,6 +2275,12 @@ def main(argv=None) -> int:
         for line in (log.read_text().splitlines() if log.exists() else []):
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"    {name}: {line.strip()}")
+
+    if args.flash_bwd_ab:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(args.seed + 6)
+        print(f"[1] flash backward A/B against {args.flash_bwd_ab}")
+        flash_bwd_ab(gen, args.flash_bwd_ab)
 
     kernels = {}
     if 2 in phases:
@@ -2260,6 +2352,9 @@ def main(argv=None) -> int:
             kernels[row["name"]] = row
         rows6 = check_flash_bwd(gen, 2048)
         check_flash_bwd(gen, 1024, window=256)
+        check_flash_bwd(gen, 1000)  # ragged: no tile size divides it
+        check_flash_bwd(gen, 512, d=64)
+        check_flash_bwd(gen, 1024, KV=4)  # G 8: the widest cluster of the dk/dv reduction
         for row in rows6:
             kernels[row["name"]] = row
         torch.cuda.empty_cache()

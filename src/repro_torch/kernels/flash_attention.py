@@ -13,7 +13,8 @@ CPU tensor the wrapper runs ``kernels.ref.flash_attention_ref``.
 The backward (``_fa_bwd``: ``_fa_bwd_dq_kernel``, ``_fa_bwd_dkv_kernel``)
 is two CUDA kernels (``csrc/flash_bwd.cu``) that recompute the
 probabilities from the lse: ``flash_bwd_dq`` and ``flash_bwd_dkv`` (the
-latter sums over the G query heads of each KV head itself). ``delta =
+latter sums over the G query heads of each KV head across a thread-block
+cluster, in a fixed order). Both take optional ``out=`` outputs. ``delta =
 rowsum(dO * O)`` is computed here in fp32, as the JAX package does it in
 XLA. :class:`FlashAttention` ties them together for autograd on both
 devices and saves (q, k, v, out, lse), as ``_fa_fwd`` does.
@@ -87,7 +88,10 @@ def flash_fwd(q, k, v, causal: bool = True, window: Optional[int] = None,
     return flash_attention_ref(q, k, v, causal, window, scale, return_lse=True)
 
 
-def _bwd_args(q, k, v, dout, lse, delta, causal, window, scale):
+def _bwd_args(q, k, v, dout, lse, delta, causal, window, scale, outs):
+    """Check the backward's inputs and its ``outs`` ((name, tensor, like)
+    triples: None asks for a fresh output shaped like ``like``) before any
+    library or stream is touched; returns the outputs and the C arguments."""
     B, Sq, H, d = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     _check(q, k, v, window, ("dout", dout))
@@ -96,14 +100,21 @@ def _bwd_args(q, k, v, dout, lse, delta, causal, window, scale):
     for name, t in (("lse", lse), ("delta", delta)):
         if t.shape != (B * H, Sq) or t.dtype != torch.float32 or not t.is_contiguous() or t.device != q.device:
             raise ValueError(f"flash_attention backward: {name} must be contiguous fp32 (B*H, Sq) on {q.device}")
-    return (B, Sq, Sk, H, KV, d, float(scale), int(causal), int(window or 0),
-            torch.cuda.current_stream(q.device).cuda_stream)
+    for name, t, like in outs:
+        if t is not None and (t.shape != like.shape or t.dtype != torch.bfloat16 or not t.is_contiguous()
+                              or t.device != q.device):
+            raise ValueError(f"flash_attention backward: out {name} must be a contiguous bf16 tensor of shape "
+                             f"{tuple(like.shape)} on {q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    res = [torch.empty_like(like) if t is None else t for _, t, like in outs]
+    return res, (B, Sq, Sk, H, KV, d, float(scale), int(causal), int(window or 0),
+                 torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal: bool, window: Optional[int], scale: float) -> torch.Tensor:
-    """Launch ``flash_bwd_dq`` -> dq (B, Sq, H, d) bf16."""
-    args = _bwd_args(q, k, v, dout, lse, delta, causal, window, scale)
-    dq = torch.empty_like(q)
+def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal: bool, window: Optional[int], scale: float,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch ``flash_bwd_dq`` -> dq (B, Sq, H, d) bf16, into ``out`` if
+    given (checked like the inputs)."""
+    (dq,), args = _bwd_args(q, k, v, dout, lse, delta, causal, window, scale, [("dq", out, q)])
     lib = _build.load("flash_bwd", _BWD_SIGS)
     _build.check(lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                                   delta.data_ptr(), dq.data_ptr(), *args), "flash_bwd_dq")
@@ -111,11 +122,12 @@ def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal: bool, window: Optional[
     return dq
 
 
-def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal: bool, window: Optional[int],
-                       scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``flash_bwd_dkv`` -> (dk, dv) (B, Sk, KV, d) bf16."""
-    args = _bwd_args(q, k, v, dout, lse, delta, causal, window, scale)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal: bool, window: Optional[int], scale: float,
+                       out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``flash_bwd_dkv`` -> (dk, dv) (B, Sk, KV, d) bf16, into
+    ``out = (dk, dv)`` if given (checked like the inputs)."""
+    dk, dv = out if out is not None else (None, None)
+    (dk, dv), args = _bwd_args(q, k, v, dout, lse, delta, causal, window, scale, [("dk", dk, k), ("dv", dv, v)])
     lib = _build.load("flash_bwd", _BWD_SIGS)
     _build.check(lib.flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                                    delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *args), "flash_bwd_dkv")

@@ -26,6 +26,7 @@ CASES = [  # (B, Sq, Sk, H, KV, d, causal, window)
     (1, 50, 50, 8, 2, 64, True, 16),  # G = 4, sliding window
     (1, 24, 56, 4, 1, 32, True, None),  # G = 4, right-aligned Sq < Sk
     (1, 33, 33, 4, 2, 16, False, None),  # non-causal
+    (1, 40, 40, 8, 1, 32, True, None),  # G = 8: the dk/dv kernel's widest cluster
 ]
 
 
@@ -90,3 +91,44 @@ def test_flash_backward_never_falls_back():
     lse = torch.zeros((2, 16), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tfa.flash_bwd(q, q, q, q, lse, q, True, None, 0.125)
+
+
+_GOOD = {"dq": ((1, 8, 2, 64), torch.bfloat16), "dk": ((1, 8, 1, 64), torch.bfloat16),
+         "dv": ((1, 8, 1, 64), torch.bfloat16)}
+
+
+def _bad_out(name, fault):
+    shape, dtype = _GOOD[name]
+    if fault == "shape":
+        return torch.zeros((1, 8, 2, 32) if name == "dq" else (1, 8, 2, 64), dtype=dtype)
+    if fault == "dtype":
+        return torch.zeros(shape, dtype=torch.float32)
+    if fault == "layout":
+        return torch.zeros(shape[:-1] + (2 * shape[-1],), dtype=dtype)[..., ::2]
+    return torch.zeros(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("fault", ["shape", "dtype", "layout", "device"])
+@pytest.mark.parametrize("name", ["dq", "dk", "dv"])
+def test_backward_out_is_checked_before_any_library(monkeypatch, name, fault):
+    """A wrong ``out=`` on the backward wrappers raises ValueError from the
+    argument checks, before a library is loaded or a stream looked up."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as tfa
+
+    def forbidden(*_a, **_k):
+        raise AssertionError("reached past the argument checks")
+
+    monkeypatch.setattr(_build, "load", forbidden)
+    monkeypatch.setattr(torch.cuda, "current_stream", forbidden)
+    q = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
+    k = torch.zeros((1, 8, 1, 64), dtype=torch.bfloat16)
+    lse = torch.zeros((2, 8))
+    args = (q, k, k, q, lse, lse, True, None, 0.125)
+    good = {n: torch.zeros(s, dtype=d) for n, (s, d) in _GOOD.items()}
+    with pytest.raises(ValueError, match=f"out {name}"):
+        if name == "dq":
+            tfa.flash_bwd_dq_cuda(*args, out=_bad_out(name, fault))
+        else:
+            out = {**good, name: _bad_out(name, fault)}
+            tfa.flash_bwd_dkv_cuda(*args, out=(out["dk"], out["dv"]))
