@@ -127,11 +127,7 @@ Phases (each failure exits non-zero; nothing is swallowed):
 
 ``--phases 1,2`` stops after the build and the kernel checks; ``--phases
 1,6`` is the quick look at training, ``--phases 1,8`` at full-depth int8
-serving, ``--phases 1,9`` at fused dispatch. ``--flash-bwd-ab PATH`` also
-times kernels #17/#18 against the same entry points built from another
-``flash_bwd.cu`` (an earlier commit's, unpacked beside the checkout) in
-turns, other, this, this, other, at phase 6a's shapes, both held against
-the plain versions. The last two lines are the card's
+serving, ``--phases 1,9`` at fused dispatch. The last two lines are the card's
 ``nvidia-smi`` name and power limit and the result JSON; the lines before
 them list the launches by path, the serve and train figures and the
 kernels. Imports nothing of JAX or of the JAX package.
@@ -781,68 +777,6 @@ def check_flash_bwd(gen, S: int, window=None, B=1, H=32, KV=8, d=128):
     pair = rows[0]["ms"] + rows[1]["ms"]
     print(f"  flash_bwd_dq + flash_bwd_dkv [{shape}] {pair:.4f} ms, {pair / lib_ms:.3f} x SDPA's backward "
           f"({lib_ms:.4f} ms); bound {rows[0]['bound_ms'] + rows[1]['bound_ms']:.4f} ms")
-    return rows
-
-
-def flash_bwd_ab(gen, other: str) -> list:
-    """Kernels #17/#18 of this checkout against the same C entry points built
-    from ``other`` (another ``flash_bwd.cu``) on the same inputs, timed in
-    turns (other, this, this, other) beside SDPA's backward, at phase 6a's
-    shapes; each build's outputs are held against the plain versions."""
-    import ctypes
-    import hashlib
-
-    import torch
-    from repro_torch.kernels import _build, ref
-    from repro_torch.kernels import flash_attention as fa
-
-    src = Path(other).resolve()
-    lib_path = _build.BUILD_DIR / f"ab-{hashlib.sha256(src.read_bytes()).hexdigest()[:16]}.so"
-    if not lib_path.exists():
-        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib_path), str(src)], check=True,
-                       capture_output=True, text=True)
-    libs = {"other": ctypes.CDLL(str(lib_path)), "this": _build.load("flash_bwd", fa._BWD_SIGS)}
-    for fn, argtypes in fa._BWD_SIGS.items():
-        getattr(libs["other"], fn).argtypes = argtypes
-        getattr(libs["other"], fn).restype = ctypes.c_int
-    rows = []
-    try:
-        for S, window, KV, d in ((2048, None, 8, 128), (1024, 256, 8, 128), (1000, None, 8, 128),
-                                 (512, None, 8, 64), (1024, None, 4, 128)):
-            q = torch.randn((1, S, 32, d), generator=gen, device="cuda").bfloat16()
-            k, v = (torch.randn((1, S, KV, d), generator=gen, device="cuda").bfloat16() for _ in range(2))
-            dout = torch.randn((1, S, 32, d), generator=gen, device="cuda").bfloat16()
-            out, lse = fa.flash_fwd_cuda(q, k, v, True, window, d ** -0.5)
-            args = (q, k, v, dout, lse, ref.flash_bwd_delta(out, dout), True, window, d ** -0.5)
-            plain = (ref.flash_bwd_dq_ref(*args), *ref.flash_bwd_dkv_ref(*args))
-            times = {"other": [], "this": []}
-            for name in ("other", "this", "this", "other"):
-                _build._LIBS["flash_bwd"] = libs[name]
-                got = (fa.flash_bwd_dq_cuda(*args), *fa.flash_bwd_dkv_cuda(*args))
-                err = max(rel_err(a, b)[1] for a, b in zip(got, plain))
-                if not err <= FA_TOL:
-                    raise SystemExit(f"flash backward A/B: {name} build disagrees with the plain versions ({err})")
-                times[name].append((time_ms(lambda: fa.flash_bwd_dq_cuda(*args), reps=20),
-                                    time_ms(lambda: fa.flash_bwd_dkv_cuda(*args), reps=20)))
-            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
-            if window is None:
-                o = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-            else:
-                pos = torch.arange(S, device="cuda")
-                mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
-                o = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
-            lib_ms = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dout.transpose(1, 2), retain_graph=True),
-                             reps=20)
-            row = {"shape": f"S={S} KV={KV} d={d} window={window}", "sdpa_backward_ms": lib_ms,
-                   **{f"{n}_{w}_ms": [t[i] for t in times[n]] for n in times for i, w in enumerate(("dq", "dkv"))}}
-            print(f"  A/B [{row['shape']}] other dq {row['other_dq_ms']} dkv {row['other_dkv_ms']}; this dq "
-                  f"{row['this_dq_ms']} dkv {row['this_dkv_ms']}; SDPA backward {lib_ms:.4f} ms")
-            rows.append(row)
-            del q, k, v, dout, out, lse, args, plain, qt, kt, vt, o
-            torch.cuda.empty_cache()
-    finally:
-        _build._LIBS["flash_bwd"] = libs["this"]
-    print(json.dumps({"flash_bwd_ab": {"other": str(src), "rows": rows}}))
     return rows
 
 
@@ -2246,7 +2180,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9", help="comma list of phases to run")
-    ap.add_argument("--flash-bwd-ab", metavar="PATH", help="also time #17/#18 against those built from PATH")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -2275,12 +2208,6 @@ def main(argv=None) -> int:
         for line in (log.read_text().splitlines() if log.exists() else []):
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"    {name}: {line.strip()}")
-
-    if args.flash_bwd_ab:
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(args.seed + 6)
-        print(f"[1] flash backward A/B against {args.flash_bwd_ab}")
-        flash_bwd_ab(gen, args.flash_bwd_ab)
 
     kernels = {}
     if 2 in phases:
