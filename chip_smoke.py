@@ -16,12 +16,14 @@ Phases (each failure exits non-zero; nothing is swallowed):
    bf16 outputs within 2e-2 x max|plain|, the flash lse within 1e-3, the
    paged-attention kernels' idle row exactly 0, the grouped kernels'
    padding rows exactly 0 (bf16 #3/#4 and int8-weight #10/#11 at the decode
-   and prefill groups, an empty expert in each), the padded #1/#2 and the
-   padded int8-weight #8/#9 at C 4, 300 and 512 (#8/#9 also launched over
-   all but the last expert into a NaN-filled output: the last expert's
-   rows must stay NaN, so no block writes past C); prints kernel, plain
+   and prefill groups, an empty expert in each), the padded #1/#2 at C
+   4, 300, 512 and 100 and the padded int8-weight #8/#9 at C 4, 300 and
+   512 (#2, #8 and #9 also launched over all but the last expert into a
+   NaN-filled output: the last expert's rows must stay NaN, so no block
+   writes past C; #2 launched twice, bit-equal); prints kernel, plain
    and library times (CUDA events; for #8/#9 also the bf16 twin #1/#2)
-   beside the bound;
+   beside the bound, and for #2 its time over the library's and the
+   bound over its time;
 3. serve — llama3-e8t2 at full width, 4 layers (the only cut), sorted
    dispatcher, kernels on, random weights from ``--seed`` drawn on the card:
    ``ServingEngine`` (ring cache, max_batch 4) answers 8 requests of 16-300
@@ -57,10 +59,10 @@ Phases (each failure exits non-zero; nothing is swallowed):
    top-2 with skewed groups and an empty expert; flash #17-#18 at B 1, H 32,
    KV 8, d 128, S 2048 causal and S 1024 window 256, the ragged S 1000,
    d 64 at S 512 and G 8 (KV 4) at S 1024) against their plain versions
-   (2e-2 x max|plain|; padding rows and empty experts exactly 0; the flash
-   kernels write over NaN-filled outputs, which must come back finite, and
-   a second launch must be bit-equal), with kernel, plain and library times
-   beside the bound; (b) a dense
+   (2e-2 x max|plain|; padding rows and empty experts exactly 0; #6 and
+   the flash kernels write over NaN-filled outputs, which must come back
+   finite, and a second launch must be bit-equal), with kernel, plain and
+   library times beside the bound; (b) a dense
    llama3-8b cut to 2 layers, drawn from ``--seed`` on the card, is
    upcycled to llama3-e8t2 (8 experts, top-2, dropless sorted dispatch):
    with both parameter trees cast to fp32, the MoE's logits on the first
@@ -266,8 +268,13 @@ def check_grouped(gen, group_sizes, label: str, D=4096, F=14336, q8: bool = Fals
 
 def check_expert(gen, C: int, label: str, E=8, D=4096, F=14336):
     """The padded kernels #1/#2 on an (E, C, D) buffer against their plain
-    versions (GG_TOL x max|plain|); every slot is a computed row. Library
-    yardsticks: two torch.bmm for #1 (the SwiGLU not fused), one for #2."""
+    versions (GG_TOL x max|plain|); every slot is a computed row. #2 is
+    also launched a second time (the outputs must be bit-equal: no
+    atomics, fixed-order sums) and once over the first E - 1 experts into
+    a full (E, C, D) output filled with NaN: the last expert's rows, which
+    no block of that launch owns, must stay NaN, so no block writes past C.
+    Library yardsticks: two torch.bmm for #1 (the SwiGLU not fused), one
+    for #2."""
     import torch
     from repro_torch.kernels import expert_gemm as eg
     from repro_torch.kernels.ref import expert_down_ref, expert_gate_up_ref
@@ -279,30 +286,42 @@ def check_expert(gen, C: int, label: str, E=8, D=4096, F=14336):
     h = eg.expert_gate_up_cuda(xe, wg, wu)
     h_ref = expert_gate_up_ref(xe, wg, wu)
     y = eg.expert_down_cuda(h_ref, wd)
+    y_again = eg.expert_down_cuda(h_ref, wd)
+    y_part = torch.full((E, C, D), float("nan"), dtype=torch.bfloat16, device=dev)
+    eg.expert_down_cuda(h_ref[:E - 1], wd[:E - 1], out=y_part[:E - 1])
     y_ref = expert_down_ref(h_ref, wd)
     torch.cuda.synchronize()
+    same = torch.equal(y.view(torch.int16), y_again.view(torch.int16))
+    part_err = rel_err(y_part[:E - 1], y_ref[:E - 1])[1]
+    untouched = bool(torch.isnan(y_part[E - 1].float()).all())
+    print(f"  expert_down [{label}, C={C}] two launches bit-equal {same}; over E-1 experts into NaN: rel err "
+          f"{part_err:.3g}, last expert's rows untouched {untouched}")
     rows = []
-    for name, out, ref_out, nbytes, flops, fn, plain, lib, lib_name in (
+    for name, out, ref_out, nbytes, flops, fn, plain, lib, lib_name, side_ok in (
         ("expert_gate_up", h, h_ref, E * C * D * 2 + 2 * E * D * F * 2 + E * C * F * 2, 4 * E * C * D * F,
          lambda: eg.expert_gate_up_cuda(xe, wg, wu), lambda: expert_gate_up_ref(xe, wg, wu),
-         [lambda: torch.bmm(xe, wg), lambda: torch.bmm(xe, wu)], "sum of two torch.bmm (x Wg, x Wu)"),
+         [lambda: torch.bmm(xe, wg), lambda: torch.bmm(xe, wu)], "sum of two torch.bmm (x Wg, x Wu)", True),
         ("expert_down", y, y_ref, E * C * F * 2 + E * F * D * 2 + E * C * D * 2, 2 * E * C * F * D,
          lambda: eg.expert_down_cuda(h_ref, wd), lambda: expert_down_ref(h_ref, wd),
-         [lambda: torch.bmm(h_ref, wd)], "torch.bmm"),
+         [lambda: torch.bmm(h_ref, wd)], "torch.bmm", same and untouched and part_err <= GG_TOL),
     ):
         err, rel = rel_err(out, ref_out)
-        ok = rel <= GG_TOL and bool(torch.isfinite(out.float()).all())
+        ok = rel <= GG_TOL and side_ok and bool(torch.isfinite(out.float()).all())
         b_ms, b_by = bound(nbytes, flops)
         row = dict(name=name, max_abs_err=err, rel_err=rel, ok=ok, ms=time_ms(fn),
                    plain_ms=time_ms(plain, reps=3, warmup=1), bound_ms=b_ms, bound_by=b_by,
                    library_ms=sum(time_ms(f) for f in lib), library=lib_name,
                    shape=f"{label}: E={E} C={C} D={D} F={F}")
+        if name == "expert_down":
+            row.update(bit_equal=same, next_expert_untouched=untouched)
         rows.append(row)
         print(f"  {name} [{label}, C={C}] err {err:.4g} (rel {rel:.3g}, tol {GG_TOL}) kernel {row['ms']:.4f} ms "
               f"plain {row['plain_ms']:.4f} ms library ({lib_name}) {row['library_ms']:.4f} ms "
-              f"bound {b_ms:.4f} ms ({b_by})")
+              f"bound {b_ms:.4f} ms ({b_by}); kernel / library {row['ms'] / row['library_ms']:.3f}, "
+              f"bound / kernel {b_ms / row['ms']:.3f}")
         if not ok:
-            raise SystemExit(f"{name} [{label}, C={C}] disagrees with its plain version")
+            raise SystemExit(f"{name} [{label}, C={C}] disagrees with its plain version, differs between two "
+                             f"launches or wrote past C")
     return rows
 
 
@@ -639,6 +658,17 @@ def check_grouped_bwd(gen, group_sizes, label: str, D=4096, F=14336):
     tg, tr = eg.group_tiling(gs, N_pad // eg.ROW_TILE)
     _, errs, zeros = grouped_bwd_checked(xs, dy, wg, wu, wd, gs)
     h, dg, du = ref.grouped_bwd_dh_ref(xs, dy, wg, wu, wd, gs, eg.ROW_TILE)
+    # #6 written over NaN (every row must come back written: padding rows
+    # exactly 0), then again into a fresh output (bit-equal)
+    dx = eg.bwd_dx_cuda(dg, du, wg, wu, tg, tr, out=torch.full((N_pad, D), float("nan"), dtype=torch.bfloat16,
+                                                                 device=dg.device))
+    dx_again = eg.bwd_dx_cuda(dg, du, wg, wu, tg, tr)
+    torch.cuda.synchronize()
+    dx_ok = {"every row finite": bool(torch.isfinite(dx.float()).all()),
+             "padding rows 0": bool((dx[~valid] == 0).all()),
+             "two launches bit-equal": torch.equal(dx.view(torch.int16), dx_again.view(torch.int16))}
+    print(f"  grouped_bwd_dx [{label}] written over NaN: {dx_ok}")
+    del dx, dx_again
     torch.cuda.empty_cache()
     shape = f"{label}: N={N} N_pad={N_pad} D={D} F={F} E={E} groups={list(group_sizes)}"
     xv, dyv, hv, dgv, duv = (t[valid] for t in (xs, dy, h, dg, du))
@@ -659,9 +689,16 @@ def check_grouped_bwd(gen, group_sizes, label: str, D=4096, F=14336):
          2 * N * D * 2 + 3 * N * F * 2 + 3 * E * D * F * 2, 3 * 2 * N * D * F,
          [gmm(t(xv), dgv), gmm(t(xv), duv), gmm(t(hv), dyv)]),
     )
-    return [_bwd_row(name, errs[name], zeros, shape, fn, plain, nbytes, flops, library_sum_ms(lib), GMM_SUM,
-                     GG_TOL)
-            for name, fn, plain, nbytes, flops, lib in cases]
+    rows = []
+    for name, fn, plain, nbytes, flops, lib in cases:
+        side_ok = zeros and (all(dx_ok.values()) if name == "grouped_bwd_dx" else True)
+        row = _bwd_row(name, errs[name], side_ok, shape, fn, plain, nbytes, flops, library_sum_ms(lib), GMM_SUM,
+                       GG_TOL)
+        if row["library_ms"]:
+            print(f"  {name} [{label}] kernel / library {row['ms'] / row['library_ms']:.3f}, "
+                  f"bound / kernel {row['bound_ms'] / row['ms']:.3f}")
+        rows.append(row)
+    return rows
 
 
 def wgrad_errors(dws, xs, dy, h, dg, du, gs):
@@ -2226,6 +2263,7 @@ def main(argv=None) -> int:
         pad_dec = check_expert(gen, 4, "decode")
         check_expert(gen, 300, "prefill")
         check_expert(gen, 512, "train")
+        check_expert(gen, 100, "partial")  # one 128-row block, 36 rows past its first 64
         torch.cuda.empty_cache()
         # the int8-weight padded kernels at the same shapes (C 4 and 300
         # end inside a 64-row block, 512 on its edge)

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, at first use, into ``build/kernels``
 at the root of the checkout (listed in ``.gitignore``). The library's file
-name carries a hash of its source and flags, so an edited source builds
+name carries a hash of its source, of every shared header
+(``csrc/*.cuh``) and of the flags, so an edited source or header builds
 anew. :func:`build` starts one ``nvcc`` per missing library, all at once.
 Nothing here runs at import time; a failed build raises.
 """
@@ -42,6 +43,9 @@ def nvcc_path() -> str:
 
 def lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -62,7 +66,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     for n in todo:
         out = lib_path(n)
         tmp = out.with_suffix(f".tmp{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs.append((n, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     secs: Dict[str, float] = {}

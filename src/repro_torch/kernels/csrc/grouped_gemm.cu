@@ -1,6 +1,8 @@
-// Expert FFN GEMMs with fused SwiGLU for Hopper (sm_90a): one tile loop,
-// templated over the row mapping and the weight type, behind twelve entry
-// points with their own launch counters in kernels/expert_gemm.py.
+// Expert FFN GEMMs with fused SwiGLU for Hopper (sm_90a): eleven entry
+// points on one WMMA tile loop (ffn_kernel), templated over the row mapping
+// and the weight type, and the padded down GEMM expert_down (#2) on the
+// warp-specialised wgmma/TMA mainloop of sm90_gemm.cuh (its note below);
+// each entry point has its own launch counter in kernels/expert_gemm.py.
 //
 // Replaces the TPU kernels of src/repro/kernels/expert_gemm.py:
 //   grouped_gate_up           _grouped_gate_up_kernel     (#3)  sorted, bf16          :335
@@ -61,8 +63,8 @@
 // the combine writes k*T*D*2 bytes of partials in place of the sorted
 // buffer's N_pad rows.
 //
-// What this simple design does about it: one block per (64-row block, 128
-// output columns); blocks that share a weight column block are launched
+// What the tile loop does about it (every entry point but expert_down):
+// one block per (64-row block, 128 output columns); blocks that share a weight column block are launched
 // next to each other (the row block is the fastest grid dim) so the second
 // reads the weights from L2. The contraction loop streams 32-deep slabs of
 // x and of the weights through shared memory with a two-stage cp.async
@@ -73,11 +75,40 @@
 // shared-memory tile of repeated rows, so they line up the same way)
 // before one fp32 staging pass through shared memory masks the rows and
 // stores bf16. No wgmma, TMA or warp specialisation yet.
+//
+// expert_down (#2): y[e] = h[e] @ Wd[e], every slot r < C computed, fp32
+// sums rounded to bf16 once, rows past C never written. Bound at decode
+// (C 4) by the weight bytes (940 MB at llama3-e8t2 widths, 0.281 ms at
+// 3.35 TB/s), at C 300 by bytes (0.307 ms) with the operations close
+// behind, at C 512 (training at CF 1) by operations (481 GFLOP, 0.486 ms
+// at 989 TFLOP/s). The design: sm90_gemm.cuh's mainloop with h as the
+// K-major A (a 3D tensor map over (E, C, F), so a box past C arrives as
+// zeros and never reads the next expert) and Wd[e] as an N-major B read
+// through the descriptor's transpose bit (four 64-column boxes a slab).
+// C <= 64 runs one consumer warpgroup per block (64 rows x 256 columns,
+// 160 threads, 5 slots: up to 160 KB of weights in flight per SM; 8
+// experts x 16 column blocks = 128 blocks, one wave on 132 SMs) and
+// streams Wd at the byte bound; larger C runs two (128 rows, 288
+// threads, 4 slots of 48 KB). An expert's C rows split evenly over its
+// ceil(C / 128) blocks, and those blocks launch as a thread-block cluster
+// of up to 4, so they run at once on one GPC and share each weight slab
+// through L2. Per block (ptxas -v, build/kernels/grouped_gemm-*.log):
+// 154 registers at BN 256, 90 at BN 128, no spills; shared memory
+// 197,696 B (two warpgroups) or 205,904 B (one). Tried and dropped: TMA
+// multicast of the weight boxes across the cluster (as fast, not faster:
+// the L2 is not what bounds it), a 192-row tile (three consumer
+// warpgroups need ~154 registers each; a 13-warp block is held to 128),
+// BN 128 (slower at every C). Left for later: the padded decode computes
+// all 8 experts at C 4 (skip empty ones), a persistent grid whose
+// epilogue overlaps the next tile's loads, and a fixed-order split over F
+// for C 300, which runs three 100-row blocks per expert.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <cstdint>
 #include <type_traits>
+
+#include "sm90_gemm.cuh"
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
@@ -319,6 +350,99 @@ ffn_kernel(const bf16* __restrict__ A, const void* __restrict__ W0v, const void*
   }
 }
 
+// ---------------------------------------------------------------------------
+// #2 expert_down: y[e] = h[e] @ Wd[e] on the shared wgmma/TMA mainloop
+// ---------------------------------------------------------------------------
+
+// rows of an expert per block: its C rows split evenly over ceil(C / BM)
+// blocks (C 300: 100, 100, 100 rather than 128, 128, 44), so that no block
+// of a cluster streams the weights for a sliver of rows
+__host__ __device__ inline int down_rows(int c, int bm) {
+  const int nsub = (c + bm - 1) / bm;
+  return (c + nsub - 1) / nsub;
+}
+
+// h (E, C, F) read in boxes of 64 columns x down_rows rows of one expert;
+// Wd (E, F, D) in boxes of 64 output columns x 64 rows of F (N-major B)
+struct DownMaps {
+  CUtensorMap h, wd;
+};
+
+// blockIdx.x = e * ceil(C / BM) + row block (the fastest grid dimension),
+// blockIdx.y = output column block. The row blocks of one expert's weight
+// columns launch as thread-block clusters of up to 4 (launch_down), so
+// they run at once on SMs of one GPC and share the weights through L2.
+// Rows of the box past C arrive as zeros and are not stored; rows of the
+// slot past the box are never stored either; a warpgroup with no row of
+// its block neither computes nor stores.
+template <class T>
+__global__ void __launch_bounds__(T::THREADS, 1)
+expert_down_kernel(const __grid_constant__ DownMaps maps, bf16* __restrict__ Y, int C, int F, int D) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int nsub = (C + T::BM - 1) / T::BM, R = down_rows(C, T::BM);
+  const int e = blockIdx.x / nsub, r0 = (blockIdx.x % nsub) * R;
+  const int n0 = blockIdx.y * T::BN;
+  const int valid = min(R, C - r0);
+  const int active = (valid + 63) / 64;  // consumer warpgroups with a row below C
+  const sm90::Ring<T> ring = sm90::ring_at<T>(smem_raw);
+  if (tid == 0) ring.init(4 * active);
+  __syncthreads();
+  const int n_slabs = F / T::BK;
+  if (wg == T::NWG) {  // the producer warp: one thread issues every copy
+    if (tid == T::CONSUMERS)
+      sm90::produce(ring, n_slabs, [&](int i, uint32_t a, uint32_t b, uint32_t bar) {
+        const int k0 = i * T::BK;
+        sm90::tma_load_3d(a, &maps.h, k0, r0, e, bar);
+#pragma unroll
+        for (int c = 0; c < T::BN / 64; ++c)
+          sm90::tma_load_3d(b + c * (T::BK * 128), &maps.wd, n0 + 64 * c, k0, e, bar);
+      }, R * 128 + T::B_BYTES);
+    return;
+  }
+  if (wg >= active) return;
+  float acc[T::BN / 2];
+#pragma unroll
+  for (int i = 0; i < T::BN / 2; ++i) acc[i] = 0.f;
+  sm90::consume(ring, n_slabs, wg, acc);
+  sm90::store_rows<T, false>(acc, Y + ((size_t)e * C + r0 + wg * 64) * D + n0, D, valid - wg * 64);
+}
+
+// blocks of a cluster: the largest divisor of the row blocks per expert up
+// to 4 (a cluster's blocks must fit one GPC at once)
+int down_cluster(int nsub) {
+  for (int c = 4; c > 1; --c)
+    if (nsub % c == 0) return c;
+  return 1;
+}
+
+template <class T>
+int launch_down(const void* h, const void* w_down, void* y, int e, int c, int f, int d, cudaStream_t s) {
+  static const cudaError_t attr =  // once per process and tile shape
+      cudaFuncSetAttribute(expert_down_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  DownMaps maps;
+  if (reinterpret_cast<uintptr_t>(y) % 16 || !sm90::map_3d(&maps.h, h, f, c, e, down_rows(c, T::BM)) ||
+      !sm90::map_3d(&maps.wd, w_down, d, f, e, 64))
+    return (int)cudaErrorInvalidValue;
+  const int nsub = (c + T::BM - 1) / T::BM;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(e * nsub, d / T::BN);
+  cfg.blockDim = dim3(T::THREADS);
+  cfg.dynamicSmemBytes = T::SMEM;
+  cfg.stream = s;
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = down_cluster(nsub);
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, expert_down_kernel<T>, maps, (bf16*)y, c, f, d);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 int sorted_blocks(int n_pad) { return n_pad / BM; }
 int padded_blocks(int e, int c) { return e * ((c + BM - 1) / BM); }
 
@@ -349,12 +473,18 @@ extern "C" int expert_gate_up(const void* xe, const void* w_gate, const void* w_
   return (int)cudaGetLastError();
 }
 
+// h (E, c, f) -> y (E, c, d): the wgmma/TMA kernel above; c <= 64 (decode)
+// runs one consumer warpgroup per block, BN 256 where d allows it
 extern "C" int expert_down(const void* h, const void* w_down, void* y, int e, int c, int f, int d,
                            void* stream) {
-  dim3 grid(padded_blocks(e, c), d / BN);
-  ffn_kernel<1, PADDED, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)h, w_down, w_down, nullptr, nullptr, nullptr, nullptr, c, nullptr, nullptr, (bf16*)y, f, d);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (e < 1 || c < 1 || f % 64 || d % 128) return (int)cudaErrorInvalidValue;
+  const bool wide = d % 256 == 0;
+  if (c <= 64)
+    return wide ? launch_down<sm90::Tile<1, 256, true>>(h, w_down, y, e, c, f, d, s)
+                : launch_down<sm90::Tile<1, 128, true>>(h, w_down, y, e, c, f, d, s);
+  return wide ? launch_down<sm90::Tile<2, 256, true>>(h, w_down, y, e, c, f, d, s)
+              : launch_down<sm90::Tile<2, 128, true>>(h, w_down, y, e, c, f, d, s);
 }
 
 // xe (E, c, d) bf16; w_gate/w_up (E, d, f) int8; s_gate/s_up (E, f) bf16 -> h (E, c, f)

@@ -26,23 +26,43 @@
 // atomics, and an expert with no rows writes zeros. Rows past rows[e] in
 // the last 32-row slab are loaded as zeros.
 //
-// What bounds it on an H100: at training shapes (2048 tokens x top-2 =
+// What bounds them on an H100: at training shapes (2048 tokens x top-2 =
 // 4096 rows over 8 experts, D 4096, F 14336) every pass is a GEMM of
 // ~0.5-1 TFLOP against ~1 GB of weights and activations, far on the
 // tensor-core side of the ridge: bound by operations.
 //
-// What this simple design does about it: the tiles and the two-stage
-// cp.async pipeline of grouped_gemm.cu (64-row blocks, 128 output columns,
-// 32-deep slabs, 8 warps of 32 x 32, WMMA bf16 16x16x16 into fp32).
-// Weights read transposed (Wd in dh, Wg/Wu in dx) are staged as [columns]
-// [32-slab] and fed to WMMA as col-major B, so no transpose is ever
-// materialised. The SwiGLU backward runs elementwise on the three
-// accumulator fragments (same type, same element mapping) before three
-// masked fp32 staging passes store bf16. No wgmma, TMA or persistence yet.
+// dx (#6) runs on the warp-specialised wgmma/TMA mainloop of
+// sm90_gemm.cuh: one block per (128-row tile of the sorted buffer = BM,
+// 256 D columns), two consumer warpgroups of 64 rows and a producer warp,
+// 4 ring slots of 48 KB. The contraction is one accumulator over 2F: F/64
+// slabs of (dg, Wg[e]) and then F/64 of (du, Wu[e]), from four 3D tensor
+// maps; Wg[e] and Wu[e] are (D, F), so a row of the box is one output
+// column running along F: a K-major B, no transpose. A warpgroup whose 64
+// rows hold no valid row (tile_rows[t] <= 64) computes nothing and stores
+// zeros; a tile with no valid row stores zeros and loads nothing. Rows
+// past the valid count come out exactly 0; the fp32 sum is rounded to
+// bf16 once, and two launches are bit-equal (no atomics). At the training
+// shape (4096 rows in N_pad 5120, D 4096, F 14336) it is bound by
+// operations: 962 GFLOP, 0.973 ms at 989 TFLOP/s. Per block (ptxas -v,
+// build/kernels/grouped_gemm_bwd-*.log): 156 registers, no spills,
+// 197,696 B of shared memory. Left for later: a persistent grid and
+// thread-block clusters (tiles of one expert sharing Wg[e] through L2).
+//
+// dh (#5) and wgrad (#7), the simple design: the tiles and the two-stage
+// cp.async pipeline of grouped_gemm.cu's tile loop (64-row blocks, 128
+// output columns, 32-deep slabs, 8 warps of 32 x 32, WMMA bf16 16x16x16
+// into fp32). Wd, read transposed in dh, is staged as [columns][32-slab]
+// and fed to WMMA as col-major B, so no transpose is ever materialised.
+// The SwiGLU backward runs elementwise on the three accumulator fragments
+// (same type, same element mapping) before three masked fp32 staging
+// passes store bf16. No wgmma, TMA or persistence yet; both are to move
+// onto sm90_gemm.cuh's mainloop.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <cstdint>
+
+#include "sm90_gemm.cuh"
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
@@ -244,92 +264,78 @@ bwd_dh_kernel(const bf16* __restrict__ X, const bf16* __restrict__ DY, const bf1
 }
 
 // ---------------------------------------------------------------------------
-// #6 dx: one block per (64-row half tile, 128 D columns), contraction over F
+// #6 dx = dg @ Wg[e]^T + du @ Wu[e]^T on the shared wgmma/TMA mainloop: one
+// block per (128-row tile, BN D columns), contraction 2F in one accumulator
 // ---------------------------------------------------------------------------
 
-struct DxStage {
-  bf16 dg[BM * A_LD];
-  bf16 du[BM * A_LD];
-  bf16 wg[BN * T_LD];  // Wg[e][d0 + n][k0 + k]: col-major B of dg @ Wg^T
-  bf16 wu[BN * T_LD];
+// dg, du (N_pad, F) in boxes of 64 columns x 128 rows; Wg, Wu (E, D, F) in
+// boxes of 64 columns x BN rows (K-major B: a row is one output column)
+struct DxMaps {
+  CUtensorMap dg, du, wg, wu;
 };
-constexpr int DX_SMEM = 2 * (int)sizeof(DxStage) > BM * C_LD * 4 ? 2 * (int)sizeof(DxStage) : BM * C_LD * 4;
 
-__global__ void __launch_bounds__(THREADS)
-bwd_dx_kernel(const bf16* __restrict__ DGm, const bf16* __restrict__ DUm, const bf16* __restrict__ WG,
-              const bf16* __restrict__ WU, const int* __restrict__ tile_group,
+// The tile's first F / 64 slabs are (dg, Wg[e]), the next F / 64 (du,
+// Wu[e]). blockIdx.x = row tile (the fastest grid dimension, so the tiles
+// of one expert's weight columns run together), blockIdx.y = column block.
+template <class T>
+__global__ void __launch_bounds__(T::THREADS, 1)
+bwd_dx_kernel(const __grid_constant__ DxMaps maps, const int* __restrict__ tile_group,
               const int* __restrict__ tile_rows, bf16* __restrict__ DX, int D, int F) {
+  static_assert(T::BM == ROW_TILE, "one block per row tile of the sorted buffer");
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  DxStage* st = reinterpret_cast<DxStage*>(smem_raw);
-  float* ctile = reinterpret_cast<float*>(smem_raw);
-
-  const int tid = threadIdx.x;
-  const int sub = blockIdx.x;
-  const int row0 = sub * BM;
-  const int n0 = blockIdx.y * BN;
-  const int valid = half_tile_valid(tile_rows, sub);
-  if (valid == 0) {
-    store_zeros(DX, row0, n0, D);
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int tile = blockIdx.x, row0 = tile * T::BM, n0 = blockIdx.y * T::BN;
+  const int valid = min(max(tile_rows[tile], 0), T::BM);
+  const int active = (valid + 63) / 64;  // consumer warpgroups with a valid row
+  if (active == 0) {  // empty tile: zeros, no product
+    for (int c = tid; c < T::BM * T::BN / 8; c += T::THREADS) {
+      const int r = c / (T::BN / 8), col = (c % (T::BN / 8)) * 8;
+      *reinterpret_cast<uint4*>(DX + (size_t)(row0 + r) * D + n0 + col) = make_uint4(0, 0, 0, 0);
+    }
     return;
   }
-  const int e = tile_group[sub / (ROW_TILE / BM)];
-  const bf16* DGb = DGm + (size_t)row0 * F;
-  const bf16* DUb = DUm + (size_t)row0 * F;
-  const bf16* WGb = WG + ((size_t)e * D + n0) * F;
-  const bf16* WUb = WU + ((size_t)e * D + n0) * F;
-
-  auto load_stage = [&](int s, int k0) {
-    {
-      const int r = tid / (BK / 8), c = (tid % (BK / 8)) * 8;
-      cp_async16(&st[s].dg[r * A_LD + c], DGb + (size_t)r * F + k0 + c);
-      cp_async16(&st[s].du[r * A_LD + c], DUb + (size_t)r * F + k0 + c);
-    }
-#pragma unroll
-    for (int i = 0; i < BK * BN / 8 / THREADS; ++i) {
-      const int ch = tid + i * THREADS;
-      const int r = ch / (BK / 8), c = (ch % (BK / 8)) * 8;
-      cp_async16(&st[s].wg[r * T_LD + c], WGb + (size_t)r * F + k0 + c);
-      cp_async16(&st[s].wu[r * T_LD + c], WUb + (size_t)r * F + k0 + c);
-    }
-  };
-
-  const int warp = tid / 32, wm = warp / 4, wn = warp % 4;
-  Acc acc[2][2];
-  fill(acc);
-  const int nk = F / BK;
-  load_stage(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load_stage((kt + 1) & 1, (kt + 1) * BK);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const DxStage& S = st[kt & 1];
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ag[2], au[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        wmma::load_matrix_sync(ag[i], &S.dg[(wm * 32 + i * 16) * A_LD + kk], A_LD);
-        wmma::load_matrix_sync(au[i], &S.du[(wm * 32 + i * 16) * A_LD + kk], A_LD);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int n = wn * 32 + j * 16;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bg, bu;
-        wmma::load_matrix_sync(bg, &S.wg[n * T_LD + kk], T_LD);
-        wmma::load_matrix_sync(bu, &S.wu[n * T_LD + kk], T_LD);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          wmma::mma_sync(acc[i][j], ag[i], bg, acc[i][j]);
-          wmma::mma_sync(acc[i][j], au[i], bu, acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
+  const sm90::Ring<T> ring = sm90::ring_at<T>(smem_raw);
+  if (tid == 0) ring.init(4 * active);
+  __syncthreads();
+  const int e = tile_group[tile];
+  const int half = F / T::BK, n_slabs = 2 * half;
+  if (wg == T::NWG) {  // the producer warp: one thread issues every copy
+    if (tid == T::CONSUMERS)
+      sm90::produce(ring, n_slabs, [&](int i, uint32_t a, uint32_t b, uint32_t bar) {
+        const bool up = i >= half;
+        const int k0 = (up ? i - half : i) * T::BK;
+        sm90::tma_load_3d(a, up ? &maps.du : &maps.dg, k0, row0, 0, bar);
+        sm90::tma_load_3d(b, up ? &maps.wu : &maps.wg, k0, n0, e, bar);
+      });
+    return;
   }
-  cp_async_wait<0>();
-  store_tile(acc, ctile, DX, row0, n0, D, valid);
+  float acc[T::BN / 2];
+#pragma unroll
+  for (int i = 0; i < T::BN / 2; ++i) acc[i] = 0.f;
+  if (wg < active) sm90::consume(ring, n_slabs, wg, acc);
+  // rows past the valid count, all of an idle warpgroup's among them, store zeros
+  sm90::store_rows<T, true>(acc, DX + (size_t)(row0 + wg * 64) * D + n0, D, valid - wg * 64);
+}
+
+// The weights' expert count is not an argument: tile_group names the expert
+// of each tile, so the weight maps span MAX_EXPERTS experts and no box is
+// ever asked past the last real one.
+constexpr uint64_t MAX_EXPERTS = 1 << 16;
+
+template <class T>
+int launch_dx(const void* dg, const void* du, const void* w_gate, const void* w_up, const int* tile_group,
+              const int* tile_rows, void* dx, int n_pad, int d, int f, cudaStream_t s) {
+  static const cudaError_t attr =  // once per process and tile shape
+      cudaFuncSetAttribute(bwd_dx_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  DxMaps maps;
+  if (reinterpret_cast<uintptr_t>(dx) % 16 || !sm90::map_3d(&maps.dg, dg, f, n_pad, 1, T::BM) ||
+      !sm90::map_3d(&maps.du, du, f, n_pad, 1, T::BM) || !sm90::map_3d(&maps.wg, w_gate, f, d, MAX_EXPERTS, T::BN) ||
+      !sm90::map_3d(&maps.wu, w_up, f, d, MAX_EXPERTS, T::BN))
+    return (int)cudaErrorInvalidValue;
+  bwd_dx_kernel<T><<<dim3(n_pad / T::BM, d / T::BN), T::THREADS, T::SMEM, s>>>(maps, tile_group, tile_rows,
+                                                                                 (bf16*)dx, d, f);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -455,13 +461,11 @@ extern "C" int grouped_bwd_dh(const void* xs, const void* dy, const void* w_gate
 extern "C" int grouped_bwd_dx(const void* dg, const void* du, const void* w_gate, const void* w_up,
                               const int* tile_group, const int* tile_rows, void* dx, int n_pad, int d,
                               int f, void* stream) {
-  int err = set_smem(bwd_dx_kernel, DX_SMEM);
-  if (err) return err;
-  dim3 grid(n_pad / BM, d / BN);
-  bwd_dx_kernel<<<grid, THREADS, DX_SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)dg, (const bf16*)du, (const bf16*)w_gate, (const bf16*)w_up, tile_group, tile_rows,
-      (bf16*)dx, d, f);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_pad % ROW_TILE || f % 64 || d % 128) return (int)cudaErrorInvalidValue;
+  return d % 256 == 0
+             ? launch_dx<sm90::Tile<2, 256, false>>(dg, du, w_gate, w_up, tile_group, tile_rows, dx, n_pad, d, f, s)
+             : launch_dx<sm90::Tile<2, 128, false>>(dg, du, w_gate, w_up, tile_group, tile_rows, dx, n_pad, d, f, s);
 }
 
 // Both wgrad grids on the stream: (dWg, dWu) then dWd. row_start/rows (E,)

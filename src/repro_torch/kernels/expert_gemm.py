@@ -216,11 +216,41 @@ def expert_gate_up_cuda(xe, w_gate, w_up) -> torch.Tensor:
     return h
 
 
-def expert_down_cuda(h, w_down) -> torch.Tensor:
-    """Launch ``expert_down`` on the current stream: (E, C, F) -> y (E, C, D)."""
+def _check_out(what, out, shape, like):
+    """``out`` must be a contiguous tensor of ``shape`` in ``like``'s dtype
+    and on its device."""
+    if out is not None and (tuple(out.shape) != tuple(shape) or out.dtype != like.dtype
+                            or out.device != like.device or not out.is_contiguous()):
+        raise ValueError(f"{what}: out must be a contiguous {like.dtype} tensor of shape {tuple(shape)} on "
+                         f"{like.device}, got {out.dtype} {tuple(out.shape)} on {out.device}")
+
+
+def _check_bf16(what, device, **tensors):
+    for name, t in tensors.items():
+        if t.device != device or t.dtype != torch.bfloat16 or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous bf16 tensor on {device}")
+
+
+def _check_tma(what, **tensors):
+    """The wgmma/TMA kernels read and write through 16-byte aligned bases."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must start on a 16-byte boundary (TMA), got {t.data_ptr():#x}")
+
+
+def expert_down_cuda(h, w_down, out=None) -> torch.Tensor:
+    """Launch ``expert_down`` on the current stream: (E, C, F) -> y (E, C, D),
+    into ``out`` if it is given. Every check runs before the library is
+    loaded."""
     E, C, F = h.shape
     D = w_down.shape[2]
-    y = torch.empty((E, C, D), dtype=h.dtype, device=h.device)
+    _check_bf16("expert_down", h.device, h=h, w_down=w_down)
+    if w_down.shape != (E, F, D) or F % COL_TILE or D % COL_TILE:
+        raise ValueError(f"expert_down: w_down {tuple(w_down.shape)} for h {tuple(h.shape)}; F and D must be "
+                         f"multiples of {COL_TILE}")
+    _check_out("expert_down", out, (E, C, D), h)
+    y = torch.empty((E, C, D), dtype=h.dtype, device=h.device) if out is None else out
+    _check_tma("expert_down", h=h, w_down=w_down, out=y)
     lib = _build.load("grouped_gemm", _SIGS)
     _build.check(lib.expert_down(
         h.data_ptr(), w_down.data_ptr(), y.data_ptr(), E, C, F, D,
@@ -325,11 +355,19 @@ def bwd_dh_cuda(xs, dy, w_gate, w_up, w_down, tile_group, tile_rows):
     return h, dg, du
 
 
-def bwd_dx_cuda(dg, du, w_gate, w_up, tile_group, tile_rows) -> torch.Tensor:
-    """Launch ``grouped_bwd_dx`` -> dx (N_pad, D)."""
+def bwd_dx_cuda(dg, du, w_gate, w_up, tile_group, tile_rows, out=None) -> torch.Tensor:
+    """Launch ``grouped_bwd_dx`` -> dx (N_pad, D), into ``out`` if it is
+    given. Every check runs before the library is loaded."""
     N_pad, F = dg.shape
-    D = w_gate.shape[1]
-    dx = torch.empty((N_pad, D), dtype=dg.dtype, device=dg.device)
+    E, D = w_gate.shape[:2]
+    _check_bf16("grouped_bwd_dx", dg.device, dg=dg, du=du, w_gate=w_gate, w_up=w_up)
+    if (du.shape != dg.shape or w_gate.shape != (E, D, F) or w_up.shape != (E, D, F) or N_pad % ROW_TILE
+            or F % COL_TILE or D % COL_TILE):
+        raise ValueError(f"grouped_bwd_dx: shapes dg {tuple(dg.shape)} du {tuple(du.shape)} w_gate "
+                         f"{tuple(w_gate.shape)} w_up {tuple(w_up.shape)}")
+    _check_out("grouped_bwd_dx", out, (N_pad, D), dg)
+    dx = torch.empty((N_pad, D), dtype=dg.dtype, device=dg.device) if out is None else out
+    _check_tma("grouped_bwd_dx", dg=dg, du=du, w_gate=w_gate, w_up=w_up, out=dx)
     lib = _build.load("grouped_gemm_bwd", _BWD_SIGS)
     _build.check(lib.grouped_bwd_dx(
         dg.data_ptr(), du.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), tile_group.data_ptr(),

@@ -269,3 +269,50 @@ def test_train_cli_at_default_cf(capsys):
     assert "final held-out CE" in out and "int8-expert held-out CE" in out
     assert tr.state.step == 2 and np.isfinite(tr.history[0]["loss"])
     assert not tq.is_quantized(tr.params["stack"]["slot0"]["ffn"]["experts"])
+
+
+def _misaligned(shape, dtype=torch.bfloat16):
+    """A contiguous tensor whose data starts 2 bytes past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+
+
+def _bad(shape, fault):
+    if fault == "shape":
+        return torch.zeros(shape[:-1] + (shape[-1] + 128,), dtype=torch.bfloat16)
+    if fault == "dtype":
+        return torch.zeros(shape, dtype=torch.float32)
+    if fault == "layout":
+        return torch.zeros(shape[:-1] + (2 * shape[-1],), dtype=torch.bfloat16)[..., ::2]
+    if fault == "align":
+        return _misaligned(shape)
+    return torch.zeros(shape, dtype=torch.bfloat16, device="meta")
+
+
+@pytest.mark.parametrize("fault", ["shape", "dtype", "layout", "device", "align"])
+@pytest.mark.parametrize("arg", ["out", "h"])
+def test_expert_down_args_checked_before_any_library(monkeypatch, arg, fault):
+    """A wrong ``out=`` (or input) of the padded down kernel #2's wrapper
+    raises ValueError from the argument checks, before a library is loaded
+    or a stream looked up."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import expert_gemm as teg
+
+    def forbidden(*_a, **_k):
+        raise AssertionError("reached past the argument checks")
+
+    monkeypatch.setattr(_build, "load", forbidden)
+    monkeypatch.setattr(torch.cuda, "current_stream", forbidden)
+    E, C, F, D = 2, 5, 128, 256
+    h = torch.zeros((E, C, F), dtype=torch.bfloat16)
+    w_down = torch.zeros((E, F, D), dtype=torch.bfloat16)
+    if arg == "h":
+        if fault == "shape":  # F not a multiple of the column tile
+            h, w_down = torch.zeros((E, C, 96), dtype=torch.bfloat16), torch.zeros((E, 96, D), dtype=torch.bfloat16)
+        else:
+            h = _bad((E, C, F), fault)
+        with pytest.raises(ValueError, match="expert_down"):
+            teg.expert_down_cuda(h, w_down)
+    else:
+        with pytest.raises(ValueError, match="expert_down: out" if fault != "align" else "16-byte"):
+            teg.expert_down_cuda(h, w_down, out=_bad((E, C, D), fault))

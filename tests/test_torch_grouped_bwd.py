@@ -148,3 +148,46 @@ def test_backward_on_a_cuda_tensor_never_falls_back():
     x = torch.zeros((8, 32), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         teg.grouped_gemm_bwd(x, x, x, x, x, x, 8)
+
+
+def _misaligned(shape, dtype=torch.bfloat16):
+    """A contiguous tensor whose data starts 2 bytes past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+
+
+def _bad(shape, fault):
+    if fault == "shape":
+        return torch.zeros(shape[:-1] + (shape[-1] + 128,), dtype=torch.bfloat16)
+    if fault == "dtype":
+        return torch.zeros(shape, dtype=torch.float32)
+    if fault == "layout":
+        return torch.zeros(shape[:-1] + (2 * shape[-1],), dtype=torch.bfloat16)[..., ::2]
+    if fault == "align":
+        return _misaligned(shape)
+    return torch.zeros(shape, dtype=torch.bfloat16, device="meta")
+
+
+@pytest.mark.parametrize("fault", ["shape", "dtype", "layout", "device", "align"])
+@pytest.mark.parametrize("arg", ["out", "du"])
+def test_bwd_dx_args_checked_before_any_library(monkeypatch, arg, fault):
+    """A wrong ``out=`` (or input) of the dx kernel #6's wrapper raises
+    ValueError from the argument checks, before a library is loaded or a
+    stream looked up."""
+    from repro_torch.kernels import _build
+
+    def forbidden(*_a, **_k):
+        raise AssertionError("reached past the argument checks")
+
+    monkeypatch.setattr(_build, "load", forbidden)
+    monkeypatch.setattr(torch.cuda, "current_stream", forbidden)
+    E, N_pad, D, F = 2, 256, 256, 128
+    dg = torch.zeros((N_pad, F), dtype=torch.bfloat16)
+    w = torch.zeros((E, D, F), dtype=torch.bfloat16)
+    tg, tr = torch.zeros(2, dtype=torch.int32), torch.full((2,), 128, dtype=torch.int32)
+    if arg == "du":
+        with pytest.raises(ValueError, match="grouped_bwd_dx"):
+            teg.bwd_dx_cuda(dg, _bad((N_pad, F), fault), w, w, tg, tr)
+    else:
+        with pytest.raises(ValueError, match="grouped_bwd_dx: out" if fault != "align" else "16-byte"):
+            teg.bwd_dx_cuda(dg, dg, w, w, tg, tr, out=_bad((N_pad, D), fault))
