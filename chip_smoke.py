@@ -59,10 +59,12 @@ Phases (each failure exits non-zero; nothing is swallowed):
    top-2 with skewed groups and an empty expert; flash #17-#18 at B 1, H 32,
    KV 8, d 128, S 2048 causal and S 1024 window 256, the ragged S 1000,
    d 64 at S 512 and G 8 (KV 4) at S 1024) against their plain versions
-   (2e-2 x max|plain|; padding rows and empty experts exactly 0; #6 and
+   (2e-2 x max|plain|; padding rows and empty experts exactly 0; #5-#7 and
    the flash kernels write over NaN-filled outputs, which must come back
-   finite, and a second launch must be bit-equal), with kernel, plain and
-   library times beside the bound; (b) a dense
+   finite, and a second launch must be bit-equal; #5-#7 again, untimed,
+   with NaN in place of 7.5 in the padding rows of xs and dy, which must
+   reach no output), with kernel, plain and library times beside the
+   bound and, for #5-#7, kernel over library and bound over kernel; (b) a dense
    llama3-8b cut to 2 layers, drawn from ``--seed`` on the card, is
    upcycled to llama3-e8t2 (8 experts, top-2, dropless sorted dispatch):
    with both parameter trees cast to fp32, the MoE's logits on the first
@@ -72,8 +74,7 @@ Phases (each failure exits non-zero; nothing is swallowed):
    1 x 2048 tokens with kernels on and remat: losses, steady ms/step,
    tok/s, model TFLOP/s, MFU, peak memory and launches per step are
    printed; the loss must fall, each kernel must launch the expected
-   number of times per step (a count is of wrapper calls: one call of
-   ``grouped_bwd_wgrad`` runs two grids, dWg/dWu and then dWd), and a
+   number of times per step (a count is of wrapper calls), and a
    profiled step gives the device's busy share; (d) every kernel call of one
    more step, forward and backward, is held against its plain version,
    every parameter must get a finite nonzero gradient, and on the one-layer
@@ -647,7 +648,9 @@ def grouped_bwd_checked(xs, dy, wg, wu, wd, gs):
 
 def check_grouped_bwd(gen, group_sizes, label: str, D=4096, F=14336):
     """Kernels #5-#7 against their plain versions (grouped_bwd_checked),
-    then kernel, plain and library times and the bound of each."""
+    again with NaN padding rows in xs and dy, each written over NaN and
+    launched twice (bit-equal), then kernel, plain and library times and
+    the bound of each."""
     import torch
     from repro_torch.kernels import expert_gemm as eg
     from repro_torch.kernels import ref
@@ -655,20 +658,49 @@ def check_grouped_bwd(gen, group_sizes, label: str, D=4096, F=14336):
     xs, dy, (wg, wu, wd), gs, valid, N, N_pad = grouped_bwd_case(gen, group_sizes, D, F)
     E = len(group_sizes)
     touched = sum(1 for g in group_sizes if g)
+    empty = [e for e, g in enumerate(group_sizes) if not g]
     tg, tr = eg.group_tiling(gs, N_pad // eg.ROW_TILE)
+    nan = lambda *shape: torch.full(shape, float("nan"), dtype=torch.bfloat16, device=xs.device)
+    bits = lambda a, b: all(torch.equal(x.view(torch.int16), y.view(torch.int16)) for x, y in zip(a, b))
+    finite = lambda outs: all(bool(torch.isfinite(o.float()).all()) for o in outs)
     _, errs, zeros = grouped_bwd_checked(xs, dy, wg, wu, wd, gs)
+    # untimed: NaN, not 7.5, in the padding rows of xs and dy (7.5 x 0 = 0
+    # would hide a padding row entering #7's sums): each kernel within
+    # GG_TOL with padding rows and empty experts 0, #7's outputs finite
+    nan_pad = lambda t: t.masked_fill(~valid[:, None], float("nan"))
+    (_, *dws), errs_n, zeros_n = grouped_bwd_checked(nan_pad(xs), nan_pad(dy), wg, wu, wd, gs)
+    nan_case = {name: all(e[1] <= GG_TOL for e in v) and zeros_n for name, v in errs_n.items()}
+    nan_case["grouped_bwd_wgrad"] &= finite(dws)
+    print(f"  grouped backward [{label}] with NaN padding rows in xs and dy: {nan_case} (worst rel "
+          f"{max(e[1] for v in errs_n.values() for e in v):.4g}, tol {GG_TOL})")
+    del dws
     h, dg, du = ref.grouped_bwd_dh_ref(xs, dy, wg, wu, wd, gs, eg.ROW_TILE)
-    # #6 written over NaN (every row must come back written: padding rows
-    # exactly 0), then again into a fresh output (bit-equal)
-    dx = eg.bwd_dx_cuda(dg, du, wg, wu, tg, tr, out=torch.full((N_pad, D), float("nan"), dtype=torch.bfloat16,
-                                                                 device=dg.device))
+    # each written over NaN (every row or element must come back written:
+    # padding rows and empty experts exactly 0), then again into fresh
+    # outputs (bit-equal)
+    outs = eg.bwd_dh_cuda(xs, dy, wg, wu, wd, tg, tr, out=tuple(nan(N_pad, F) for _ in range(3)))
+    again = eg.bwd_dh_cuda(xs, dy, wg, wu, wd, tg, tr)
+    torch.cuda.synchronize()
+    over_nan = {"grouped_bwd_dh": {"every row finite": finite(outs),
+                                   "padding rows 0": all(bool((o[~valid] == 0).all()) for o in outs),
+                                   "two launches bit-equal": bits(outs, again)}}
+    del outs, again
+    dx = eg.bwd_dx_cuda(dg, du, wg, wu, tg, tr, out=nan(N_pad, D))
     dx_again = eg.bwd_dx_cuda(dg, du, wg, wu, tg, tr)
     torch.cuda.synchronize()
-    dx_ok = {"every row finite": bool(torch.isfinite(dx.float()).all()),
-             "padding rows 0": bool((dx[~valid] == 0).all()),
-             "two launches bit-equal": torch.equal(dx.view(torch.int16), dx_again.view(torch.int16))}
-    print(f"  grouped_bwd_dx [{label}] written over NaN: {dx_ok}")
+    over_nan["grouped_bwd_dx"] = {"every row finite": finite([dx]), "padding rows 0": bool((dx[~valid] == 0).all()),
+                                  "two launches bit-equal": bits([dx], [dx_again])}
     del dx, dx_again
+    outs = eg.bwd_wgrad_cuda(xs, dy, h, dg, du, gs, out=(nan(E, D, F), nan(E, D, F), nan(E, F, D)))
+    again = eg.bwd_wgrad_cuda(xs, dy, h, dg, du, gs)
+    torch.cuda.synchronize()
+    over_nan["grouped_bwd_wgrad"] = {"every element finite": finite(outs),
+                                     f"empty experts {empty} 0": all(bool((o[e] == 0).all()) for o in outs
+                                                                    for e in empty),
+                                     "two launches bit-equal": bits(outs, again)}
+    del outs, again
+    for name, flags in over_nan.items():
+        print(f"  {name} [{label}] written over NaN: {flags}")
     torch.cuda.empty_cache()
     shape = f"{label}: N={N} N_pad={N_pad} D={D} F={F} E={E} groups={list(group_sizes)}"
     xv, dyv, hv, dgv, duv = (t[valid] for t in (xs, dy, h, dg, du))
@@ -691,7 +723,7 @@ def check_grouped_bwd(gen, group_sizes, label: str, D=4096, F=14336):
     )
     rows = []
     for name, fn, plain, nbytes, flops, lib in cases:
-        side_ok = zeros and (all(dx_ok.values()) if name == "grouped_bwd_dx" else True)
+        side_ok = zeros and nan_case[name] and all(over_nan[name].values())
         row = _bwd_row(name, errs[name], side_ok, shape, fn, plain, nbytes, flops, library_sum_ms(lib), GMM_SUM,
                        GG_TOL)
         if row["library_ms"]:
@@ -699,6 +731,34 @@ def check_grouped_bwd(gen, group_sizes, label: str, D=4096, F=14336):
                   f"bound / kernel {row['bound_ms'] / row['ms']:.3f}")
         rows.append(row)
     return rows
+
+
+def digests(seed: int) -> dict:
+    """SHA-256 (first 16 hex digits) of the outputs of the wgmma/TMA GEMM
+    kernels (#2, #5-#7) at llama3-e8t2 widths on inputs drawn from
+    ``seed``, each kernel fed its own random inputs. Two trees whose
+    digests agree compute bit-equal outputs (``--digest``)."""
+    import hashlib
+
+    import torch
+    from repro_torch.kernels import expert_gemm as eg
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    sha = lambda *ts: hashlib.sha256(b"".join(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+                                              for t in ts)).hexdigest()[:16]
+    rand = lambda *shape, scale=1.0: (torch.randn(shape, generator=gen, device="cuda") * scale).bfloat16()
+    out = {}
+    for C in (4, 300, 512):
+        wd = rand(8, 14336, 4096, scale=14336 ** -0.5)
+        out[f"expert_down C={C}"] = sha(eg.expert_down_cuda(rand(8, C, 14336), wd))
+    xs, dy, (wg, wu, wd), gs, _, _, N_pad = grouped_bwd_case(gen, (1100, 0, 517, 803, 64, 700, 431, 481))
+    tg, tr = eg.group_tiling(gs, N_pad // eg.ROW_TILE)
+    out["grouped_bwd_dh"] = sha(*eg.bwd_dh_cuda(xs, dy, wg, wu, wd, tg, tr))
+    h, dg, du = (rand(N_pad, 14336) for _ in range(3))
+    out["grouped_bwd_dx"] = sha(eg.bwd_dx_cuda(dg, du, wg, wu, tg, tr))
+    out["grouped_bwd_wgrad"] = sha(*eg.bwd_wgrad_cuda(xs, dy, h, dg, du, gs))
+    return out
 
 
 def wgrad_errors(dws, xs, dy, h, dg, du, gs):
@@ -2217,6 +2277,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9", help="comma list of phases to run")
+    ap.add_argument("--digest", metavar="SRC", help="only print digests() of the port under SRC (a tree's src "
+                                                      "directory) and exit: run it on two trees to compare outputs")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -2228,7 +2290,10 @@ def main(argv=None) -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {ROOT / 'chip_smoke.py'}", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(Path(args.digest).resolve() if args.digest else ROOT / "src"))
+    if args.digest:
+        print(json.dumps({"digests": digests(args.seed), "src": args.digest}))
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import _build

@@ -53,11 +53,13 @@ through the grouped forward (#3/#4) and backward (#5-#7) kernels.
 The backward (``_grouped_bwd_impl``: ``_grouped_bwd_dh_kernel``,
 ``_grouped_bwd_dx_kernel``, ``_grouped_bwd_wgrad_kernel``) is three more
 CUDA kernels (``csrc/grouped_gemm_bwd.cu``): ``grouped_bwd_dh`` recomputes
-g and u and emits (h, dg, du), ``grouped_bwd_dx`` gives dx and
-``grouped_bwd_wgrad`` the three weight gradients, summed in fp32 per
-expert and cast once. :class:`GroupedGemm` ties forward and backward
-together for autograd on both devices; like the JAX ``custom_vjp`` it saves
-only its inputs, never an ``(N_pad, F)`` intermediate.
+g and u and emits (h, dg, du) in two launches (dy Wd^T into an fp32
+scratch the wrapper allocates, then the gate/up products with the SwiGLU
+backward), ``grouped_bwd_dx`` gives dx and ``grouped_bwd_wgrad`` the three
+weight gradients, summed in fp32 per expert and cast once.
+:class:`GroupedGemm` ties forward and backward together for autograd on
+both devices; like the JAX ``custom_vjp`` it saves only its inputs, never
+an ``(N_pad, F)`` intermediate.
 """
 from __future__ import annotations
 
@@ -117,12 +119,12 @@ _SIGS = {
     "grouped_down_fused_q8": [_P] * 8 + [_I] * 3 + [_P],
 }
 _BWD_SIGS = {
-    # xs, dy, w_gate, w_up, w_down, tile_group, tile_rows, h, dg, du, n_pad, d, f, stream
-    "grouped_bwd_dh": [_P] * 10 + [_I] * 3 + [_P],
+    # xs, dy, w_gate, w_up, w_down, tile_group, tile_rows, h, dg, du, dh32 scratch, n_pad, d, f, stream
+    "grouped_bwd_dh": [_P] * 11 + [_I] * 3 + [_P],
     # dg, du, w_gate, w_up, tile_group, tile_rows, dx, n_pad, d, f, stream
     "grouped_bwd_dx": [_P] * 7 + [_I] * 3 + [_P],
-    # xs, dy, h, dg, du, row_start, rows, dwg, dwu, dwd, e, d, f, stream
-    "grouped_bwd_wgrad": [_P] * 10 + [_I] * 3 + [_P],
+    # xs, dy, h, dg, du, row_start, rows, dwg, dwu, dwd, n_pad, e, d, f, stream
+    "grouped_bwd_wgrad": [_P] * 10 + [_I] * 4 + [_P],
 }
 
 
@@ -341,15 +343,43 @@ def expert_gemm_q8_cuda(xe, w_gate, w_up, w_down, s_gate, s_up, s_down) -> torch
     return expert_down_q8_cuda(expert_gate_up_q8_cuda(xe, w_gate, w_up, s_gate, s_up), w_down, s_down)
 
 
-def bwd_dh_cuda(xs, dy, w_gate, w_up, w_down, tile_group, tile_rows):
-    """Launch ``grouped_bwd_dh`` -> (h, dg, du), each (N_pad, F)."""
+def _check_outs(what, out, shapes, like):
+    """``out``, where given, is one tensor per output, each checked as
+    :func:`_check_out` checks it. Returns the outputs to launch into."""
+    if out is not None and len(out) != len(shapes):
+        raise ValueError(f"{what}: out must hold {len(shapes)} tensors, got {len(out)}")
+    for o, shape in zip(out or (), shapes):
+        _check_out(what, o, shape, like)
+    return tuple(out) if out is not None else tuple(
+        torch.empty(shape, dtype=like.dtype, device=like.device) for shape in shapes)
+
+
+def _check_tiles(what, n_tiles, device, **tensors):
+    """Per-row-tile metadata: contiguous int32 (n_tiles,) on the device."""
+    for name, t in tensors.items():
+        if t.shape != (n_tiles,) or t.dtype != torch.int32 or t.device != device or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous int32 ({n_tiles},) tensor on {device}")
+
+
+def bwd_dh_cuda(xs, dy, w_gate, w_up, w_down, tile_group, tile_rows, out=None):
+    """Launch ``grouped_bwd_dh`` -> (h, dg, du), each (N_pad, F), into the
+    three tensors of ``out`` if it is given. Every check runs before the
+    library is loaded."""
     N_pad, D = xs.shape
-    F = w_gate.shape[2]
-    h, dg, du = (torch.empty((N_pad, F), dtype=xs.dtype, device=xs.device) for _ in range(3))
+    E, _, F = w_gate.shape
+    _check_bf16("grouped_bwd_dh", xs.device, xs=xs, dy=dy, w_gate=w_gate, w_up=w_up, w_down=w_down)
+    if (dy.shape != xs.shape or w_gate.shape != (E, D, F) or w_up.shape != (E, D, F)
+            or w_down.shape != (E, F, D) or N_pad % ROW_TILE or F % COL_TILE or D % COL_TILE):
+        raise ValueError(f"grouped_bwd_dh: shapes xs {tuple(xs.shape)} dy {tuple(dy.shape)} w_gate "
+                         f"{tuple(w_gate.shape)} w_up {tuple(w_up.shape)} w_down {tuple(w_down.shape)}")
+    _check_tiles("grouped_bwd_dh", N_pad // ROW_TILE, xs.device, tile_group=tile_group, tile_rows=tile_rows)
+    h, dg, du = _check_outs("grouped_bwd_dh", out, [(N_pad, F)] * 3, xs)
+    _check_tma("grouped_bwd_dh", xs=xs, dy=dy, w_gate=w_gate, w_up=w_up, w_down=w_down, h=h, dg=dg, du=du)
+    dh32 = torch.empty((N_pad, F), dtype=torch.float32, device=xs.device)  # dy Wd^T between the two launches
     lib = _build.load("grouped_gemm_bwd", _BWD_SIGS)
     _build.check(lib.grouped_bwd_dh(
         xs.data_ptr(), dy.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
-        tile_group.data_ptr(), tile_rows.data_ptr(), h.data_ptr(), dg.data_ptr(), du.data_ptr(),
+        tile_group.data_ptr(), tile_rows.data_ptr(), h.data_ptr(), dg.data_ptr(), du.data_ptr(), dh32.data_ptr(),
         N_pad, D, F, torch.cuda.current_stream(xs.device).cuda_stream), "grouped_bwd_dh")
     LAUNCHES["grouped_bwd_dh"] += 1
     return h, dg, du
@@ -365,6 +395,7 @@ def bwd_dx_cuda(dg, du, w_gate, w_up, tile_group, tile_rows, out=None) -> torch.
             or F % COL_TILE or D % COL_TILE):
         raise ValueError(f"grouped_bwd_dx: shapes dg {tuple(dg.shape)} du {tuple(du.shape)} w_gate "
                          f"{tuple(w_gate.shape)} w_up {tuple(w_up.shape)}")
+    _check_tiles("grouped_bwd_dx", N_pad // ROW_TILE, dg.device, tile_group=tile_group, tile_rows=tile_rows)
     _check_out("grouped_bwd_dx", out, (N_pad, D), dg)
     dx = torch.empty((N_pad, D), dtype=dg.dtype, device=dg.device) if out is None else out
     _check_tma("grouped_bwd_dx", dg=dg, du=du, w_gate=w_gate, w_up=w_up, out=dx)
@@ -385,21 +416,29 @@ def expert_rows(group_sizes: torch.Tensor, bc: int = ROW_TILE):
     return (torch.cumsum(padded, 0) - padded).int().contiguous(), gs.contiguous()
 
 
-def bwd_wgrad_cuda(xs, dy, h, dg, du, group_sizes):
+def bwd_wgrad_cuda(xs, dy, h, dg, du, group_sizes, out=None):
     """Launch ``grouped_bwd_wgrad`` -> (dWg, dWu (E, D, F), dWd (E, F, D))
-    in xs's dtype. The one entry point runs two grids (dWg/dWu, then dWd);
-    its count is of calls, one per call."""
+    in xs's dtype, into the three tensors of ``out`` if it is given. Every
+    check runs before the library is loaded."""
     N_pad, D = xs.shape
     F = h.shape[1]
     E = group_sizes.shape[0]
+    _check_bf16("grouped_bwd_wgrad", xs.device, xs=xs, dy=dy, h=h, dg=dg, du=du)
+    if (dy.shape != xs.shape or h.shape != (N_pad, F) or dg.shape != h.shape or du.shape != h.shape
+            or group_sizes.dim() != 1 or E < 1 or N_pad % ROW_TILE or F % COL_TILE or D % COL_TILE):
+        raise ValueError(f"grouped_bwd_wgrad: shapes xs {tuple(xs.shape)} dy {tuple(dy.shape)} h "
+                         f"{tuple(h.shape)} dg {tuple(dg.shape)} du {tuple(du.shape)} group_sizes "
+                         f"{tuple(group_sizes.shape)}")
+    if group_sizes.device != xs.device or group_sizes.is_floating_point():
+        raise ValueError(f"grouped_bwd_wgrad: group_sizes must be an integer tensor on {xs.device}")
+    dwg, dwu, dwd = _check_outs("grouped_bwd_wgrad", out, [(E, D, F), (E, D, F), (E, F, D)], xs)
+    _check_tma("grouped_bwd_wgrad", xs=xs, dy=dy, h=h, dg=dg, du=du, dwg=dwg, dwu=dwu, dwd=dwd)
     row_start, rows = expert_rows(group_sizes)
-    dwg, dwu = (torch.empty((E, D, F), dtype=xs.dtype, device=xs.device) for _ in range(2))
-    dwd = torch.empty((E, F, D), dtype=xs.dtype, device=xs.device)
     lib = _build.load("grouped_gemm_bwd", _BWD_SIGS)
     _build.check(lib.grouped_bwd_wgrad(
         xs.data_ptr(), dy.data_ptr(), h.data_ptr(), dg.data_ptr(), du.data_ptr(),
         row_start.data_ptr(), rows.data_ptr(), dwg.data_ptr(), dwu.data_ptr(), dwd.data_ptr(),
-        E, D, F, torch.cuda.current_stream(xs.device).cuda_stream), "grouped_bwd_wgrad")
+        N_pad, E, D, F, torch.cuda.current_stream(xs.device).cuda_stream), "grouped_bwd_wgrad")
     LAUNCHES["grouped_bwd_wgrad"] += 1
     return dwg, dwu, dwd
 

@@ -191,3 +191,55 @@ def test_bwd_dx_args_checked_before_any_library(monkeypatch, arg, fault):
     else:
         with pytest.raises(ValueError, match="grouped_bwd_dx: out" if fault != "align" else "16-byte"):
             teg.bwd_dx_cuda(dg, dg, w, w, tg, tr, out=_bad((N_pad, D), fault))
+
+
+@pytest.mark.parametrize("fault", ["shape", "dtype", "layout", "device", "align"])
+@pytest.mark.parametrize("arg", ["out", "dy"])
+def test_bwd_dh_args_checked_before_any_library(monkeypatch, arg, fault):
+    """A wrong ``out=`` (one of its three tensors) or input of the dh
+    kernel #5's wrapper raises ValueError from the argument checks, before
+    a library is loaded or a stream looked up."""
+    from repro_torch.kernels import _build
+
+    def forbidden(*_a, **_k):
+        raise AssertionError("reached past the argument checks")
+
+    monkeypatch.setattr(_build, "load", forbidden)
+    monkeypatch.setattr(torch.cuda, "current_stream", forbidden)
+    E, N_pad, D, F = 2, 256, 256, 128
+    xs = torch.zeros((N_pad, D), dtype=torch.bfloat16)
+    w, wd = torch.zeros((E, D, F), dtype=torch.bfloat16), torch.zeros((E, F, D), dtype=torch.bfloat16)
+    tg, tr = torch.zeros(2, dtype=torch.int32), torch.full((2,), 128, dtype=torch.int32)
+    if arg == "dy":
+        with pytest.raises(ValueError, match="grouped_bwd_dh"):
+            teg.bwd_dh_cuda(xs, _bad((N_pad, D), fault), w, w, wd, tg, tr)
+    else:
+        ok = torch.zeros((N_pad, F), dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="grouped_bwd_dh: out" if fault != "align" else "16-byte"):
+            teg.bwd_dh_cuda(xs, xs, w, w, wd, tg, tr, out=(ok, _bad((N_pad, F), fault), ok))
+
+
+@pytest.mark.parametrize("fault", ["shape", "dtype", "layout", "device", "align"])
+@pytest.mark.parametrize("arg", ["out", "dg"])
+def test_bwd_wgrad_args_checked_before_any_library(monkeypatch, arg, fault):
+    """A wrong ``out=`` (one of its three tensors) or input of the wgrad
+    kernel #7's wrapper raises ValueError from the argument checks, before
+    a library is loaded or a stream looked up."""
+    from repro_torch.kernels import _build
+
+    def forbidden(*_a, **_k):
+        raise AssertionError("reached past the argument checks")
+
+    monkeypatch.setattr(_build, "load", forbidden)
+    monkeypatch.setattr(torch.cuda, "current_stream", forbidden)
+    E, N_pad, D, F = 2, 256, 256, 128
+    xs = torch.zeros((N_pad, D), dtype=torch.bfloat16)
+    h = torch.zeros((N_pad, F), dtype=torch.bfloat16)
+    gs = torch.tensor([100, 28], dtype=torch.int32)
+    if arg == "dg":
+        with pytest.raises(ValueError, match="grouped_bwd_wgrad"):
+            teg.bwd_wgrad_cuda(xs, xs, h, _bad((N_pad, F), fault), h, gs)
+    else:
+        dw = torch.zeros((E, D, F), dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="grouped_bwd_wgrad: out" if fault != "align" else "16-byte"):
+            teg.bwd_wgrad_cuda(xs, xs, h, h, h, gs, out=(dw, dw, _bad((E, F, D), fault)))
