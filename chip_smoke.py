@@ -15,15 +15,19 @@ Phases (each failure exits non-zero; nothing is swallowed):
    against its plain PyTorch version (``kernels/ref.py``):
    bf16 outputs within 2e-2 x max|plain|, the flash lse within 1e-3, the
    paged-attention kernels' idle row exactly 0, the grouped kernels'
-   padding rows exactly 0 (bf16 #3/#4 and int8-weight #10/#11 at the decode
-   and prefill groups, an empty expert in each), the padded #1/#2 at C
+   padding rows exactly 0 (bf16 #3/#4 at the decode, prefill and
+   training groups and int8-weight #10/#11 at the decode and prefill
+   groups, an empty expert in each; #4 also launched into a NaN-filled
+   output, where padding rows and empty tiles must come back 0, twice,
+   bit-equal, and on h with NaN in its padding rows), the padded #1/#2 at C
    4, 300, 512 and 100 and the padded int8-weight #8/#9 at C 4, 300 and
-   512 (#2, #8 and #9 also launched over all but the last expert into a
+   512 (#1, #2, #8 and #9 also launched over all but the last expert into a
    NaN-filled output: the last expert's rows must stay NaN, so no block
-   writes past C; #2 launched twice, bit-equal); prints kernel, plain
+   writes past C; #1 and #2 launched twice, bit-equal, #1's second launch
+   into NaN coming back finite); prints kernel, plain
    and library times (CUDA events; for #8/#9 also the bf16 twin #1/#2)
-   beside the bound, and for #2 its time over the library's and the
-   bound over its time;
+   beside the bound, and for #1, #2 and #4 the time over the library's
+   and the bound over the time;
 3. serve — llama3-e8t2 at full width, 4 layers (the only cut), sorted
    dispatcher, kernels on, random weights from ``--seed`` drawn on the card:
    ``ServingEngine`` (ring cache, max_batch 4) answers 8 requests of 16-300
@@ -192,7 +196,12 @@ def rel_err(out, ref) -> tuple:
 def check_grouped(gen, group_sizes, label: str, D=4096, F=14336, q8: bool = False):
     """The sorted gate/up and down kernels (bf16 #3/#4, or with ``q8`` the
     int8-weight #10/#11) against their plain versions on the same inputs:
-    within GG_TOL x max|plain| on the valid rows, padding rows exactly 0."""
+    within GG_TOL x max|plain| on the valid rows, padding rows exactly 0.
+    The bf16 down kernel #4 is also launched into a NaN-filled output
+    (padding rows and empty tiles must come back exactly 0, every element
+    finite), a second time (bit-equal) and, untimed, on h with NaN in its
+    padding rows (valid rows within GG_TOL, padding rows 0), and its time
+    is printed over ``torch._grouped_mm``'s and its bound over its time."""
     import torch
     from repro_torch.core.dispatch import aligned_rows
     from repro_torch.core.quant import quantize_weight
@@ -236,6 +245,21 @@ def check_grouped(gen, group_sizes, label: str, D=4096, F=14336, q8: bool = Fals
     y = down(h_ref)
     y_ref = down_plain(h_ref)
     torch.cuda.synchronize()
+    down_ok = True
+    if not q8:
+        nan = torch.full((N_pad, D), float("nan"), dtype=torch.bfloat16, device=dev)
+        y_nan = eg.down_cuda(h_ref, w["w_down"], tg, tr, out=nan)
+        y_pad_nan = down(h_ref.masked_fill(~valid[:, None], float("nan")))
+        torch.cuda.synchronize()
+        flags = {"into NaN: every element finite": bool(torch.isfinite(y_nan.float()).all()),
+                 "into NaN: padding rows 0": bool((y_nan[~valid] == 0).all()),
+                 "two launches bit-equal": torch.equal(y.view(torch.int16), y_nan.view(torch.int16)),
+                 "NaN padding rows in h: valid rows within tol":
+                     rel_err(y_pad_nan[valid], y_ref[valid])[1] <= GG_TOL,
+                 "NaN padding rows in h: padding rows 0": bool((y_pad_nan[~valid] == 0).all())}
+        print(f"  grouped_down [{label}] {flags}")
+        down_ok = all(flags.values())
+        del nan, y_nan, y_pad_nan
     rows = []
     touched = sum(1 for g in gs_host if g)
     for name, out, ref_out, k_in, n_out, flops_per_row, fn, plain in (
@@ -245,6 +269,7 @@ def check_grouped(gen, group_sizes, label: str, D=4096, F=14336, q8: bool = Fals
         err, rel = rel_err(out[valid], ref_out[valid])
         pad_zero = bool((out[~valid] == 0).all())
         ok = rel <= GG_TOL and pad_zero and bool(torch.isfinite(out.float()).all())
+        ok &= down_ok or name != "grouped_down"
         n_w = 2 if name.startswith("grouped_gate_up") else 1
         # x rows read once, each touched expert's weights (and int8 scales), all N_pad rows written
         nbytes = (N * k_in * 2 + touched * n_w * k_in * n_out * w_bytes + N_pad * n_out * 2
@@ -261,7 +286,9 @@ def check_grouped(gen, group_sizes, label: str, D=4096, F=14336, q8: bool = Fals
         rows.append(row)
         print(f"  {name} [{label}] err {err:.4g} (rel {rel:.3g}, tol {GG_TOL}) pad-zero {pad_zero} "
               f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
-              f"library {row['library_ms']} ms bound {b_ms:.4f} ms ({b_by})")
+              f"library {row['library_ms']} ms bound {b_ms:.4f} ms ({b_by}); bound / kernel "
+              f"{b_ms / row['ms']:.3f}"
+              + (f", kernel / library {row['ms'] / row['library_ms']:.3f}" if row["library_ms"] else ""))
         if not ok:
             raise SystemExit(f"{name} [{label}] disagrees with its plain version")
     return rows
@@ -269,13 +296,14 @@ def check_grouped(gen, group_sizes, label: str, D=4096, F=14336, q8: bool = Fals
 
 def check_expert(gen, C: int, label: str, E=8, D=4096, F=14336):
     """The padded kernels #1/#2 on an (E, C, D) buffer against their plain
-    versions (GG_TOL x max|plain|); every slot is a computed row. #2 is
+    versions (GG_TOL x max|plain|); every slot is a computed row. Each is
     also launched a second time (the outputs must be bit-equal: no
     atomics, fixed-order sums) and once over the first E - 1 experts into
-    a full (E, C, D) output filled with NaN: the last expert's rows, which
-    no block of that launch owns, must stay NaN, so no block writes past C.
-    Library yardsticks: two torch.bmm for #1 (the SwiGLU not fused), one
-    for #2."""
+    a full (E, C, .) output filled with NaN: the last expert's rows, which
+    no block of that launch owns, must stay NaN, so no block writes past C;
+    #1's second launch writes into a NaN-filled output, which must come
+    back finite. Library yardsticks: two torch.bmm for #1 (the SwiGLU not
+    fused), one for #2."""
     import torch
     from repro_torch.kernels import expert_gemm as eg
     from repro_torch.kernels.ref import expert_down_ref, expert_gate_up_ref
@@ -285,6 +313,9 @@ def check_expert(gen, C: int, label: str, E=8, D=4096, F=14336):
     wg, wu, wd = ((torch.randn(shape, generator=gen, device=dev) * shape[1] ** -0.5).bfloat16()
                   for shape in ((E, D, F), (E, D, F), (E, F, D)))
     h = eg.expert_gate_up_cuda(xe, wg, wu)
+    h_again = eg.expert_gate_up_cuda(xe, wg, wu, out=torch.full_like(h, float("nan")))
+    h_part = torch.full((E, C, F), float("nan"), dtype=torch.bfloat16, device=dev)
+    eg.expert_gate_up_cuda(xe[:E - 1], wg[:E - 1], wu[:E - 1], out=h_part[:E - 1])
     h_ref = expert_gate_up_ref(xe, wg, wu)
     y = eg.expert_down_cuda(h_ref, wd)
     y_again = eg.expert_down_cuda(h_ref, wd)
@@ -297,11 +328,19 @@ def check_expert(gen, C: int, label: str, E=8, D=4096, F=14336):
     untouched = bool(torch.isnan(y_part[E - 1].float()).all())
     print(f"  expert_down [{label}, C={C}] two launches bit-equal {same}; over E-1 experts into NaN: rel err "
           f"{part_err:.3g}, last expert's rows untouched {untouched}")
+    gu_flags = {"two launches bit-equal": torch.equal(h.view(torch.int16), h_again.view(torch.int16)),
+                "into NaN: every element finite": bool(torch.isfinite(h_again.float()).all()),
+                "over E-1 experts into NaN: within tol": rel_err(h_part[:E - 1], h_ref[:E - 1])[1] <= GG_TOL,
+                "over E-1 experts into NaN: last expert's rows untouched":
+                    bool(torch.isnan(h_part[E - 1].float()).all())}
+    print(f"  expert_gate_up [{label}, C={C}] {gu_flags}")
+    del h_again, h_part
     rows = []
     for name, out, ref_out, nbytes, flops, fn, plain, lib, lib_name, side_ok in (
         ("expert_gate_up", h, h_ref, E * C * D * 2 + 2 * E * D * F * 2 + E * C * F * 2, 4 * E * C * D * F,
          lambda: eg.expert_gate_up_cuda(xe, wg, wu), lambda: expert_gate_up_ref(xe, wg, wu),
-         [lambda: torch.bmm(xe, wg), lambda: torch.bmm(xe, wu)], "sum of two torch.bmm (x Wg, x Wu)", True),
+         [lambda: torch.bmm(xe, wg), lambda: torch.bmm(xe, wu)], "sum of two torch.bmm (x Wg, x Wu)",
+         all(gu_flags.values())),
         ("expert_down", y, y_ref, E * C * F * 2 + E * F * D * 2 + E * C * D * 2, 2 * E * C * F * D,
          lambda: eg.expert_down_cuda(h_ref, wd), lambda: expert_down_ref(h_ref, wd),
          [lambda: torch.bmm(h_ref, wd)], "torch.bmm", same and untouched and part_err <= GG_TOL),
@@ -315,6 +354,8 @@ def check_expert(gen, C: int, label: str, E=8, D=4096, F=14336):
                    shape=f"{label}: E={E} C={C} D={D} F={F}")
         if name == "expert_down":
             row.update(bit_equal=same, next_expert_untouched=untouched)
+        else:
+            row["checks"] = gu_flags
         rows.append(row)
         print(f"  {name} [{label}, C={C}] err {err:.4g} (rel {rel:.3g}, tol {GG_TOL}) kernel {row['ms']:.4f} ms "
               f"plain {row['plain_ms']:.4f} ms library ({lib_name}) {row['library_ms']:.4f} ms "
@@ -734,13 +775,14 @@ def check_grouped_bwd(gen, group_sizes, label: str, D=4096, F=14336):
 
 
 def digests(seed: int) -> dict:
-    """SHA-256 (first 16 hex digits) of the outputs of the wgmma/TMA GEMM
-    kernels (#2, #5-#7) at llama3-e8t2 widths on inputs drawn from
+    """SHA-256 (first 16 hex digits) of the outputs of the expert GEMM
+    kernels (#1-#7, #10, #11) at llama3-e8t2 widths on inputs drawn from
     ``seed``, each kernel fed its own random inputs. Two trees whose
     digests agree compute bit-equal outputs (``--digest``)."""
     import hashlib
 
     import torch
+    from repro_torch.core.quant import quantize_weight
     from repro_torch.kernels import expert_gemm as eg
 
     gen = torch.Generator(device="cuda")
@@ -758,6 +800,21 @@ def digests(seed: int) -> dict:
     h, dg, du = (rand(N_pad, 14336) for _ in range(3))
     out["grouped_bwd_dx"] = sha(eg.bwd_dx_cuda(dg, du, wg, wu, tg, tr))
     out["grouped_bwd_wgrad"] = sha(*eg.bwd_wgrad_cuda(xs, dy, h, dg, du, gs))
+    out["grouped_gate_up train"] = sha(eg.gate_up_cuda(xs, wg, wu, tg, tr))
+    out["grouped_down train"] = sha(eg.down_cuda(h, wd, tg, tr))
+    del xs, dy, wg, wu, wd, h, dg, du
+    for C in (4, 300, 512):
+        wg, wu = (rand(8, 4096, 14336, scale=4096 ** -0.5) for _ in range(2))
+        out[f"expert_gate_up C={C}"] = sha(eg.expert_gate_up_cuda(rand(8, C, 4096), wg, wu))
+    del wg, wu
+    xs, _, (wg, wu, wd), gs, _, _, N_pad = grouped_bwd_case(gen, (3, 0, 2, 1, 0, 1, 1, 0))
+    tg, tr = eg.group_tiling(gs, N_pad // eg.ROW_TILE)
+    out["grouped_down decode"] = sha(eg.down_cuda(rand(N_pad, 14336), wd, tg, tr))
+    (qg, sg), (qu, su), (qd, sd) = (quantize_weight(w) for w in (wg, wu, wd))
+    del wg, wu, wd
+    h = eg.gate_up_q8_cuda(xs, qg, qu, sg, su, tg, tr)
+    out["grouped_gate_up_q8 decode"] = sha(h)
+    out["grouped_down_q8 decode"] = sha(eg.down_q8_cuda(h, qd, sd, tg, tr))
     return out
 
 
@@ -2320,6 +2377,9 @@ def main(argv=None) -> int:
         # skewed, with an empty expert and groups that are not multiples of 128
         dec = check_grouped(gen, (3, 0, 2, 1, 0, 1, 1, 0), "decode")
         check_grouped(gen, (200, 0, 131, 77, 64, 50, 40, 38), "prefill")
+        # training: 2048 tokens x top-2, phase 6's groups
+        check_grouped(gen, (1100, 0, 517, 803, 64, 700, 431, 481), "train")
+        torch.cuda.empty_cache()
         dec_q8 = check_grouped(gen, (3, 0, 2, 1, 0, 1, 1, 0), "decode", q8=True)
         check_grouped(gen, (200, 0, 131, 77, 64, 50, 40, 38), "prefill", q8=True)
         torch.cuda.empty_cache()

@@ -1,8 +1,10 @@
-// Expert FFN GEMMs with fused SwiGLU for Hopper (sm_90a): eleven entry
-// points on one WMMA tile loop (ffn_kernel), templated over the row mapping
-// and the weight type, and the padded down GEMM expert_down (#2) on the
-// warp-specialised wgmma/TMA mainloop of sm90_gemm.cuh (its note below);
-// each entry point has its own launch counter in kernels/expert_gemm.py.
+// Expert FFN GEMMs with fused SwiGLU for Hopper (sm_90a): twelve entry
+// points. Three run on the warp-specialised wgmma/TMA mainloop of
+// sm90_gemm.cuh: expert_gate_up (#1), expert_down (#2) and grouped_down
+// (#4), each with its note below. The other nine (#3 and #8-#15) run on
+// one WMMA tile loop (ffn_kernel), templated over the row mapping and the
+// weight type. Each entry point has its own launch counter in
+// kernels/expert_gemm.py.
 //
 // Replaces the TPU kernels of src/repro/kernels/expert_gemm.py:
 //   grouped_gate_up           _grouped_gate_up_kernel     (#3)  sorted, bf16          :335
@@ -17,41 +19,34 @@
 //   grouped_down_fused        _fused_down_kernel          (#13) fused combine, bf16   :1112
 //   grouped_gate_up_fused_q8  _fused_gate_up_kernel_q8    (#14) fused gather, int8    :1251
 //   grouped_down_fused_q8     _fused_down_kernel_q8       (#15) fused combine, int8   :1280
-// gate/up: h = silu(x@Wg[e]) * (x@Wu[e]); down: y = h@Wd[e]; fp32 sums.
+// gate/up: h = silu(x@Wg[e]) * (x@Wu[e]); down: y = h@Wd[e]; fp32 sums,
+// rounded to bf16 once.
 //
 // Row mapping. Sorted: an expert-sorted (N_pad, D) buffer whose expert
 // regions are aligned to 128 rows; per 128-row tile, tile_group[t] is its
 // expert and tile_rows[t] its valid rows (computed on the device by the
 // wrapper, as group_tiling does). Rows past the valid count come out zero;
-// a 64-row half tile with no valid row writes zeros and does no product.
-// Padded: the dense (E, C, D) buffer read in place, expert = the block's
-// row-block index / ceil(C/64), row e*C + r; every slot r < C is computed
-// (empty slots hold token 0's row and are zeroed by the combine's gate), a
-// block that straddles C reads its last valid row in place of the rows
-// past it and writes only rows < C, so it never touches the next expert.
-// The int8 padded kernels (#8/#9) read the scale row of that same padded
-// expert e, and their A tile stays bf16, so the clamp is the bf16 one.
-// Fused (the sorted dispatcher's dispatch-in-kernel path): the sorted
-// mapping's tiles, but the (N_pad, D) buffer never exists. The gate/up
-// kernel gathers row r of its block from the token-major x (T, D) at
-// tok_pad[row0 + r] (padding rows hold token 0 and are masked like the
-// sorted kernel's: they re-read the last valid row and store zeros), and
-// writes h (N_pad, F) as the sorted kernel does. The down kernel reads h
-// in the sorted mapping and stores valid row r, times its fp32 gate
-// gate_pad[row0 + r], rounded to bf16 once, at row row_out[row0 + r] =
-// slot*T + token of a (k*T, D) slot-partials buffer; padding rows and
-// empty half tiles store nothing. Each (slot, token) pair is one row of
-// the buffer, so every row is written exactly once, with no atomics; the
-// wrapper sums the k planes in fp32.
+// a tile (#4) or 64-row half tile (ffn_kernel) with no valid row writes
+// zeros and does no product. Padded: the dense (E, C, D) buffer read in
+// place; every slot r < C is computed (empty slots hold token 0's row and
+// are zeroed by the combine's gate), and no row at or past C is written,
+// so a launch never touches the next expert's rows. The int8 padded
+// kernels (#8/#9) read the scale row of that same padded expert e, and
+// their A tile stays bf16, so the clamp is the bf16 one. Fused (the sorted
+// dispatcher's dispatch-in-kernel path): the sorted mapping's tiles, but
+// the (N_pad, D) buffer never exists. The gate/up kernel gathers row r of
+// its block from the token-major x (T, D) at tok_pad[row0 + r] (padding
+// rows hold token 0 and are masked like the sorted kernel's: they re-read
+// the last valid row and store zeros), and writes h (N_pad, F) as the
+// sorted kernel does. The down kernel reads h in the sorted mapping and
+// stores valid row r, times its fp32 gate gate_pad[row0 + r], rounded to
+// bf16 once, at row row_out[row0 + r] = slot*T + token of a (k*T, D)
+// slot-partials buffer; padding rows and empty half tiles store nothing.
+// Each (slot, token) pair is one row of the buffer, so every row is
+// written exactly once, with no atomics; the wrapper sums the k planes in
+// fp32.
 //
-// int8 weights (per-output-channel bf16 scales): WMMA has no bf16 x int8
-// product, so each 32 x 128 int8 slab is staged by cp.async (16 weights per
-// 16-byte copy) and widened to bf16 in shared memory before the fragment
-// loads (|q| <= 127: exact). The scale multiplies the fp32 accumulator in
-// the epilogue, before silu for gate and up (each its own scale) and before
-// the store for down, as the TPU epilogue does.
-//
-// What bounds it on an H100: at decode (a few rows per expert) the kernel
+// What bounds them on an H100: at decode (a few rows per expert) a kernel
 // must stream each computed expert's weights once: 3*D*F*2 bytes (352 MB
 // at llama3-e8t2 widths) per expert in bf16, half that in int8: bound by
 // bytes, ~105 us (bf16) or ~53 us (int8) per expert at 3.35 TB/s. The
@@ -63,45 +58,95 @@
 // the combine writes k*T*D*2 bytes of partials in place of the sorted
 // buffer's N_pad rows.
 //
-// What the tile loop does about it (every entry point but expert_down):
-// one block per (64-row block, 128 output columns); blocks that share a weight column block are launched
-// next to each other (the row block is the fastest grid dim) so the second
-// reads the weights from L2. The contraction loop streams 32-deep slabs of
-// x and of the weights through shared memory with a two-stage cp.async
+// ffn_kernel (#3, #8-#15): one block per (64-row block, 128 output
+// columns); blocks that share a weight column block are launched next to
+// each other (the row block is the fastest grid dim) so the second reads
+// the weights from L2. The contraction loop streams 32-deep slabs of x
+// and of the weights through shared memory with a two-stage cp.async
 // pipeline and multiplies them with WMMA bf16 16x16x16 into fp32
-// accumulators. The gate/up kernel keeps both accumulators and applies
-// silu(g)*u elementwise on the fragments (same fragment type, same element
-// mapping; the int8 scales are loaded into accumulator fragments from a
-// shared-memory tile of repeated rows, so they line up the same way)
-// before one fp32 staging pass through shared memory masks the rows and
-// stores bf16. No wgmma, TMA or warp specialisation yet.
+// accumulators. The gate/up kernels keep both accumulators and apply
+// silu(g)*u elementwise on the fragments before one fp32 staging pass
+// through shared memory masks the rows and stores bf16. int8 weights
+// (per-output-channel bf16 scales): WMMA has no bf16 x int8 product, so
+// each 32 x 128 int8 slab is staged by cp.async (16 weights per 16-byte
+// copy) and widened to bf16 in shared memory before the fragment loads
+// (|q| <= 127: exact); the scales multiply the fp32 accumulators in the
+// epilogue, before silu for gate and up, before the store for down, as
+// the TPU epilogue does (loaded into accumulator fragments from a
+// shared-memory tile of repeated rows, so they line up). No wgmma, TMA
+// or warp specialisation: its entry points are ROADMAP queue 2's next
+// redesigns.
 //
-// expert_down (#2): y[e] = h[e] @ Wd[e], every slot r < C computed, fp32
-// sums rounded to bf16 once, rows past C never written. Bound at decode
-// (C 4) by the weight bytes (940 MB at llama3-e8t2 widths, 0.281 ms at
-// 3.35 TB/s), at C 300 by bytes (0.307 ms) with the operations close
-// behind, at C 512 (training at CF 1) by operations (481 GFLOP, 0.486 ms
-// at 989 TFLOP/s). The design: sm90_gemm.cuh's mainloop with h as the
-// K-major A (a 3D tensor map over (E, C, F), so a box past C arrives as
-// zeros and never reads the next expert) and Wd[e] as an N-major B read
-// through the descriptor's transpose bit (four 64-column boxes a slab).
-// C <= 64 runs one consumer warpgroup per block (64 rows x 256 columns,
-// 160 threads, 5 slots: up to 160 KB of weights in flight per SM; 8
-// experts x 16 column blocks = 128 blocks, one wave on 132 SMs) and
-// streams Wd at the byte bound; larger C runs two (128 rows, 288
-// threads, 4 slots of 48 KB). An expert's C rows split evenly over its
-// ceil(C / 128) blocks, and those blocks launch as a thread-block cluster
-// of up to 4, so they run at once on one GPC and share each weight slab
-// through L2. Per block (ptxas -v, build/kernels/grouped_gemm-*.log):
-// 154 registers at BN 256, 90 at BN 128, no spills; shared memory
-// 197,696 B (two warpgroups) or 205,904 B (one). Tried and dropped: TMA
-// multicast of the weight boxes across the cluster (as fast, not faster:
-// the L2 is not what bounds it), a 192-row tile (three consumer
-// warpgroups need ~154 registers each; a 13-warp block is held to 128),
-// BN 128 (slower at every C). Left for later: the padded decode computes
-// all 8 experts at C 4 (skip empty ones), a persistent grid whose
-// epilogue overlaps the next tile's loads, and a fixed-order split over F
-// for C 300, which runs three 100-row blocks per expert.
+// expert_down (#2): y[e] = h[e] @ Wd[e]. Bound at decode (C 4) by the
+// weight bytes (940 MB at llama3-e8t2 widths, 0.281 ms at 3.35 TB/s), at
+// C 300 by bytes (0.307 ms) with the operations close behind, at C 512
+// (training at CF 1) by operations (481 GFLOP, 0.486 ms at 989 TFLOP/s).
+// The design: sm90_gemm.cuh's mainloop with h as the K-major A (a 3D
+// tensor map over (E, C, F), so a box past C arrives as zeros and never
+// reads the next expert) and Wd[e] as an N-major B read through the
+// descriptor's transpose bit (four 64-column boxes a slab). C <= 64 runs
+// one consumer warpgroup per block (64 rows x 256 columns, 160 threads, 5
+// slots: up to 160 KB of weights in flight per SM; 8 experts x 16 column
+// blocks = 128 blocks, one wave on 132 SMs) and streams Wd at the byte
+// bound; larger C runs two (128 rows, 288 threads, 4 slots of 48 KB). An
+// expert's C rows split evenly over its ceil(C / 128) blocks (down_rows),
+// and those blocks launch as a thread-block cluster of up to 4
+// (down_cluster), so they run at once on one GPC and share each weight
+// slab through L2. Per block (ptxas -v, build/kernels/grouped_gemm-*.log):
+// 154 registers at BN 256, 90 at BN 128, no spills; shared memory 197,696
+// B (two warpgroups) or 205,904 B (one). Tried and dropped: TMA multicast
+// of the weight boxes across the cluster (as fast, not faster: the L2 is
+// not what bounds it), a 192-row tile (three consumer warpgroups need ~154
+// registers each; a 13-warp block is held to 128), BN 128 (slower at every
+// C).
+//
+// expert_gate_up (#1): h[e] = silu(x[e] Wg[e]) * (x[e] Wu[e]). Bound at C
+// 4 by the weight bytes (1.88 GB, 0.561 ms), at C 300 by bytes (0.587 ms)
+// with the operations close behind (564 GFLOP, 0.570 ms), at C 512 by
+// operations (962 GFLOP, 0.973 ms). The design is #2's grid, row split,
+// clusters and one-warpgroup C <= 64 path, with #5's g | u product (the
+// second launch of grouped_bwd_dh): x[e] is the K-major A through a 3D map
+// over (E, C, D), and B is four N-major boxes a slab, Wg[e][k, n0:n0+128]
+// then Wu[e][k, n0:n0+128], so one m64n256 accumulator holds g in columns
+// 0-127 and u in 128-255 of a block's 128 h columns. The SwiGLU runs pair
+// by pair in registers (element 4j + e of g and 4(j + 16) + e of u sit at
+// the same row and column) and each pair is stored as bf16 straight from
+// them: no fp32 staging pass and no block barrier after the K loop. At C
+// 4 that is 8 x F / 128 = 896 blocks of 64 rows, each streaming 2 MB of
+// weights, in ~7 waves of plain (not persistent) blocks: 92-94% of the
+// byte bound (PERF.md), so a persistent walk was not tried. Per block:
+// 168 registers with two consumer warpgroups (ptxas's ceiling for 288
+// threads) and 204 with one (160 threads), no spills; shared memory
+// 197,696 B and 205,904 B. At C 300 a block computes 128 rows for 100
+// valid ones (78%), which is what holds it to ~55% of its bound.
+//
+// grouped_down (#4): y = h @ Wd[e] over the sorted row tiles. Bound by
+// bytes at decode (5 experts with rows stream 587 MB, 0.178 ms) and
+// prefill (7, 0.255 ms), by operations in training (4096 rows in N_pad
+// 5120: 481 GFLOP, 0.486 ms). The design is #2's product on #5's and #6's
+// sorted layout: one block per (128-row tile, 256 D columns; 128 where D
+// is not a multiple of 256), h the K-major A through a map over (N_pad,
+// F), Wd[e] the N-major B (four 64-column boxes a slab, through a map
+// over (E, F, D)), the blocks in grouped_tile order (8 row tiles at a
+// time, column block by column block) launched as clusters of 2. A tile
+// with no valid row stores zeros and loads nothing; a warpgroup with no
+// valid row runs no product and stores zeros; a tile whose valid rows fit
+// its first warpgroup loads only those 64 rows of h (a second map with
+// 64-row boxes), which is every tile at decode, where N <= N_pad - E*127.
+// At decode that is 5 x 16 = 80 busy blocks on 132 SMs, each with 128 KB
+// of weights in flight: 86-89% of the byte bound, faster than
+// torch._grouped_mm, so neither BN 128 at decode (160 blocks, a second
+// wave) nor a split of F over a cluster was needed. Per block: 154
+// registers at BN 256, 90 at BN 128, no spills; 197,696 B of shared
+// memory at BN 256, 230,512 B at BN 128. Tried and dropped for #1 and
+// #4: nothing; each kept its first design.
+//
+// Left for later: #1 at C 300 (a block of 100 rows on a 128-row tile) and
+// the mainloop's ~60-67% of the tensor-core peak at C 512 and in training
+// (sm90_gemm.cuh); the padded decode computes all 8 experts at C 4 (#1,
+// #2: skip empty ones); a fixed-order split over F for #2 at C 300; the
+// nine ffn_kernel entry points onto the mainloop (int8 weights need a
+// widening stage before wgmma).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -416,6 +461,15 @@ int down_cluster(int nsub) {
   return 1;
 }
 
+// the padded grid of #1 and #2: (e * ceil(c / BM) row blocks, `cols`
+// column blocks), an expert's row blocks as one cluster
+template <class T, class K, class Maps>
+int launch_padded(K kernel, const Maps& maps, void* out, int e, int c, int cols, int k, int n, cudaStream_t s) {
+  const int nsub = (c + T::BM - 1) / T::BM;
+  return sm90::launch_cluster(kernel, dim3(e * nsub, cols), down_cluster(nsub), T::THREADS, T::SMEM, s, maps,
+                              (bf16*)out, c, k, n);
+}
+
 template <class T>
 int launch_down(const void* h, const void* w_down, void* y, int e, int c, int f, int d, cudaStream_t s) {
   static const cudaError_t attr =  // once per process and tile shape
@@ -425,22 +479,162 @@ int launch_down(const void* h, const void* w_down, void* y, int e, int c, int f,
   if (reinterpret_cast<uintptr_t>(y) % 16 || !sm90::map_3d(&maps.h, h, f, c, e, down_rows(c, T::BM)) ||
       !sm90::map_3d(&maps.wd, w_down, d, f, e, 64))
     return (int)cudaErrorInvalidValue;
-  const int nsub = (c + T::BM - 1) / T::BM;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(e * nsub, d / T::BN);
-  cfg.blockDim = dim3(T::THREADS);
-  cfg.dynamicSmemBytes = T::SMEM;
-  cfg.stream = s;
-  cudaLaunchAttribute attrs[1];
-  attrs[0].id = cudaLaunchAttributeClusterDimension;
-  attrs[0].val.clusterDim.x = down_cluster(nsub);
-  attrs[0].val.clusterDim.y = 1;
-  attrs[0].val.clusterDim.z = 1;
-  cfg.attrs = attrs;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, expert_down_kernel<T>, maps, (bf16*)y, c, f, d);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch_padded<T>(expert_down_kernel<T>, maps, y, e, c, d / T::BN, f, d, s);
+}
+
+// ---------------------------------------------------------------------------
+// #1 expert_gate_up: h[e] = silu(x[e] Wg[e]) * (x[e] Wu[e]) on the shared
+// mainloop, g | u in one m64n256 accumulator
+// ---------------------------------------------------------------------------
+
+constexpr int GU_BN = 128;  // h columns per block: g and u, 128 each, side by side
+
+// x (E, C, D) in boxes of 64 columns x down_rows rows of one expert; Wg,
+// Wu (E, D, F) in boxes of 64 F columns x 64 D rows (N-major B)
+struct GateUpMaps {
+  CUtensorMap x, wg, wu;
+};
+
+// expert_down's grid and row split, h's 128 columns per block: D / 64
+// slabs of (x[e]; Wg[e] | Wu[e]) into one accumulator whose columns 0-127
+// are g and 128-255 u, then h = silu(g) * u pair by pair from registers
+// (element 4j + e of g and 4(j + 16) + e sit at the same row and column).
+// Rows past C arrive as zeros and are not stored.
+template <class T>
+__global__ void __launch_bounds__(T::THREADS, 1)
+expert_gate_up_kernel(const __grid_constant__ GateUpMaps maps, bf16* __restrict__ H, int C, int D, int F) {
+  static_assert(T::BN == 2 * GU_BN && T::B_MN, "g | u side by side, an N-major B");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int nsub = (C + T::BM - 1) / T::BM, R = down_rows(C, T::BM);
+  const int e = blockIdx.x / nsub, r0 = (blockIdx.x % nsub) * R;
+  const int n0 = blockIdx.y * GU_BN;
+  const int valid = min(R, C - r0);
+  const int active = (valid + 63) / 64;  // consumer warpgroups with a row below C
+  const sm90::Ring<T> ring = sm90::ring_at<T>(smem_raw);
+  if (tid == 0) ring.init(4 * active);
+  __syncthreads();
+  const int n_slabs = D / T::BK;
+  constexpr int BOX = T::BK * 128;
+  if (wg == T::NWG) {  // the producer warp: one thread issues every copy
+    if (tid == T::CONSUMERS)
+      sm90::produce(ring, n_slabs, [&](int i, uint32_t a, uint32_t b, uint32_t bar) {
+        const int k0 = i * T::BK;
+        sm90::tma_load_3d(a, &maps.x, k0, r0, e, bar);
+        sm90::tma_load_3d(b, &maps.wg, n0, k0, e, bar);
+        sm90::tma_load_3d(b + BOX, &maps.wg, n0 + 64, k0, e, bar);
+        sm90::tma_load_3d(b + 2 * BOX, &maps.wu, n0, k0, e, bar);
+        sm90::tma_load_3d(b + 3 * BOX, &maps.wu, n0 + 64, k0, e, bar);
+      }, R * 128 + T::B_BYTES);
+    return;
+  }
+  if (wg >= active) return;
+  float gu[T::BN / 2];
+#pragma unroll
+  for (int i = 0; i < T::BN / 2; ++i) gu[i] = 0.f;
+  sm90::consume(ring, n_slabs, wg, gu);
+  const int rows = valid - wg * 64;  // this warpgroup's rows below C
+  const int warp = (tid % 128) / 32, g8 = (tid % 32) / 4, t = tid % 4;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = warp * 16 + g8 + 8 * hh;
+    if (r >= rows) continue;
+    uint32_t* h = reinterpret_cast<uint32_t*>(H + ((size_t)e * C + r0 + wg * 64 + r) * F + n0 + 2 * t);
+#pragma unroll
+    for (int j = 0; j < GU_BN / 8; ++j) {
+      float o[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float gv = gu[4 * j + 2 * hh + q], uv = gu[GU_BN / 2 + 4 * j + 2 * hh + q];
+        o[q] = gv * __fdividef(1.0f, 1.0f + expf(-gv)) * uv;  // silu(g) * u in fp32
+      }
+      h[4 * j] = sm90::pack_bf16(o[0], o[1]);
+    }
+  }
+}
+
+template <class T>
+int launch_gate_up(const void* xe, const void* w_gate, const void* w_up, void* h, int e, int c, int d, int f,
+                   cudaStream_t s) {
+  static const cudaError_t attr =  // once per process and tile shape
+      cudaFuncSetAttribute(expert_gate_up_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  GateUpMaps maps;
+  if (reinterpret_cast<uintptr_t>(h) % 16 || !sm90::map_3d(&maps.x, xe, d, c, e, down_rows(c, T::BM)) ||
+      !sm90::map_3d(&maps.wg, w_gate, f, d, e, 64) || !sm90::map_3d(&maps.wu, w_up, f, d, e, 64))
+    return (int)cudaErrorInvalidValue;
+  return launch_padded<T>(expert_gate_up_kernel<T>, maps, h, e, c, f / GU_BN, d, f, s);
+}
+
+// ---------------------------------------------------------------------------
+// #4 grouped_down: y = h @ Wd[e] over the sorted row tiles on the shared mainloop
+// ---------------------------------------------------------------------------
+
+// h (N_pad, F) in boxes of 64 columns x 128 rows, or x 64 rows for a tile
+// whose valid rows fit the first warpgroup (the idle one's rows are not
+// loaded); Wd (E, F, D) in boxes of 64 D columns x 64 F rows (N-major B)
+struct GroupedDownMaps {
+  CUtensorMap h, h64, wd;
+};
+
+// One block per (128-row tile, BN D columns) in grouped_tile order. A
+// tile with no valid row stores zeros and loads nothing; a warpgroup with
+// no valid row runs no product and stores zeros; rows past the valid
+// count store zeros.
+template <class T>
+__global__ void __launch_bounds__(T::THREADS, 1)
+grouped_down_kernel(const __grid_constant__ GroupedDownMaps maps, const int* __restrict__ tile_group,
+                    const int* __restrict__ tile_rows, bf16* __restrict__ Y, int F, int D) {
+  static_assert(T::BM == ROW_TILE && T::B_MN, "one block per row tile, an N-major B");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int tid = threadIdx.x, wg = tid / 128;
+  int tile, cb;
+  sm90::grouped_tile(D / T::BN, tile, cb);
+  const int row0 = tile * T::BM, n0 = cb * T::BN;
+  const int valid = min(max(tile_rows[tile], 0), T::BM);
+  const int active = (valid + 63) / 64;  // consumer warpgroups with a valid row
+  if (active == 0) {  // empty tile: zeros, no product
+    sm90::store_zeros<T::BM, T::BN>(Y + (size_t)row0 * D + n0, D, T::THREADS);
+    return;
+  }
+  const sm90::Ring<T> ring = sm90::ring_at<T>(smem_raw);
+  if (tid == 0) ring.init(4 * active);
+  __syncthreads();
+  const int n_slabs = F / T::BK;
+  if (wg == T::NWG) {  // the producer warp: one thread issues every copy
+    if (tid == T::CONSUMERS) {
+      const int e = tile_group[tile];
+      const CUtensorMap* a_map = active == 1 ? &maps.h64 : &maps.h;
+      sm90::produce(ring, n_slabs, [&](int i, uint32_t a, uint32_t b, uint32_t bar) {
+        const int k0 = i * T::BK;
+        sm90::tma_load_3d(a, a_map, k0, row0, 0, bar);
+#pragma unroll
+        for (int c = 0; c < T::BN / 64; ++c)
+          sm90::tma_load_3d(b + c * (T::BK * 128), &maps.wd, n0 + 64 * c, k0, e, bar);
+      }, active * 64 * 128 + T::B_BYTES);
+    }
+    return;
+  }
+  float acc[T::BN / 2];
+#pragma unroll
+  for (int i = 0; i < T::BN / 2; ++i) acc[i] = 0.f;
+  if (wg < active) sm90::consume(ring, n_slabs, wg, acc);
+  // rows past the valid count, all of an idle warpgroup's among them, store zeros
+  sm90::store_rows<T, true>(acc, Y + (size_t)(row0 + wg * 64) * D + n0, D, valid - wg * 64);
+}
+
+template <class T>
+int launch_grouped_down(const void* h, const void* w_down, const int* tile_group, const int* tile_rows, void* y,
+                        int n_pad, int f, int d, cudaStream_t s) {
+  static const cudaError_t attr =  // once per process and tile shape
+      cudaFuncSetAttribute(grouped_down_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  GroupedDownMaps maps;
+  if (reinterpret_cast<uintptr_t>(y) % 16 || !sm90::map_3d(&maps.h, h, f, n_pad, 1, T::BM) ||
+      !sm90::map_3d(&maps.h64, h, f, n_pad, 1, 64) || !sm90::map_3d(&maps.wd, w_down, d, f, sm90::MAX_EXPERTS, 64))
+    return (int)cudaErrorInvalidValue;
+  return sm90::launch_grouped(grouped_down_kernel<T>, (n_pad / T::BM) * (d / T::BN), T::THREADS, T::SMEM, s, maps,
+                              tile_group, tile_rows, (bf16*)y, f, d);
 }
 
 int sorted_blocks(int n_pad) { return n_pad / BM; }
@@ -457,20 +651,24 @@ extern "C" int grouped_gate_up(const void* xs, const void* w_gate, const void* w
   return (int)cudaGetLastError();
 }
 
+// h (n_pad, f) -> y (n_pad, d): the wgmma/TMA kernel above, BN 256 where d allows it
 extern "C" int grouped_down(const void* h, const void* w_down, const int* tile_group,
                             const int* tile_rows, void* y, int n_pad, int f, int d, void* stream) {
-  dim3 grid(sorted_blocks(n_pad), d / BN);
-  ffn_kernel<1, SORTED, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)h, w_down, w_down, nullptr, nullptr, tile_group, tile_rows, 0, nullptr, nullptr, (bf16*)y, f, d);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_pad % ROW_TILE || f % 64 || d % 128) return (int)cudaErrorInvalidValue;
+  return d % 256 == 0
+             ? launch_grouped_down<sm90::Tile<2, 256, true>>(h, w_down, tile_group, tile_rows, y, n_pad, f, d, s)
+             : launch_grouped_down<sm90::Tile<2, 128, true>>(h, w_down, tile_group, tile_rows, y, n_pad, f, d, s);
 }
 
+// xe (E, c, d) -> h (E, c, f): the wgmma/TMA kernel above; c <= 64 (decode)
+// runs one consumer warpgroup per block
 extern "C" int expert_gate_up(const void* xe, const void* w_gate, const void* w_up, void* h,
                               int e, int c, int d, int f, void* stream) {
-  dim3 grid(padded_blocks(e, c), f / BN);
-  ffn_kernel<2, PADDED, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)xe, w_gate, w_up, nullptr, nullptr, nullptr, nullptr, c, nullptr, nullptr, (bf16*)h, d, f);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (e < 1 || c < 1 || d % 64 || f % GU_BN) return (int)cudaErrorInvalidValue;
+  return c <= 64 ? launch_gate_up<sm90::Tile<1, 2 * GU_BN, true>>(xe, w_gate, w_up, h, e, c, d, f, s)
+                 : launch_gate_up<sm90::Tile<2, 2 * GU_BN, true>>(xe, w_gate, w_up, h, e, c, d, f, s);
 }
 
 // h (E, c, f) -> y (E, c, d): the wgmma/TMA kernel above; c <= 64 (decode)

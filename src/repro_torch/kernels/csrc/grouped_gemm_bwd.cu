@@ -114,33 +114,6 @@ namespace {
 
 constexpr int ROW_TILE = 128;  // metadata granularity (sorted-buffer alignment)
 
-// The weights' expert count is not an argument of dh and dx: tile_group
-// names the expert of each tile, so the weight maps span MAX_EXPERTS
-// experts and no box is ever asked past the last real one.
-constexpr uint64_t MAX_EXPERTS = 1 << 16;
-
-// BM x W bf16 zeros at out (row stride ld), by `threads` threads
-template <int BM, int W>
-__device__ __forceinline__ void store_zeros(bf16* out, size_t ld, int threads) {
-  for (int c = threadIdx.x; c < BM * W / 8; c += threads)
-    *reinterpret_cast<uint4*>(out + (c / (W / 8)) * ld + (c % (W / 8)) * 8) = make_uint4(0, 0, 0, 0);
-}
-
-// Both launches of #5 run a 1D grid of nr x nc blocks in groups of
-// DH_GROUP row tiles, each group's blocks column block by column block,
-// its row tiles fastest: the group's activations (x or dy) and each column
-// block's weights are read by blocks that run together, so both come from
-// L2 more often than in a grid whose row tiles run fastest over all nr
-// (faster at the training shape, and alike for groups of 6 to 12; PERF.md).
-constexpr int DH_GROUP = 8;
-
-__device__ __forceinline__ void grouped_tile(int nc, int& row, int& col) {
-  const int nr = gridDim.x / nc, g = blockIdx.x / (DH_GROUP * nc), r = blockIdx.x % (DH_GROUP * nc);
-  const int rows = min(DH_GROUP, nr - g * DH_GROUP);
-  row = g * DH_GROUP + r % rows;
-  col = r / rows;
-}
-
 // ---------------------------------------------------------------------------
 // #5 dh, in two launches: dh = dy Wd[e]^T into an fp32 scratch, then x (Wg | Wu)
 // with the SwiGLU backward reading dh back through the ring
@@ -165,7 +138,7 @@ bwd_dh_down_kernel(const __grid_constant__ DhDownMaps maps, const int* __restric
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int tid = threadIdx.x, wg = tid / 128;
   int tile, cb;
-  grouped_tile(F / T::BN, tile, cb);
+  sm90::grouped_tile(F / T::BN, tile, cb);
   const int row0 = tile * T::BM, n0 = cb * T::BN;
   const int valid = min(max(tile_rows[tile], 0), T::BM);
   const int active = (valid + 63) / 64;
@@ -210,15 +183,15 @@ bwd_dh_kernel(const __grid_constant__ DhMaps maps, const int* __restrict__ tile_
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int tid = threadIdx.x, wg = tid / 128;
   int tile, cb;
-  grouped_tile(F / DH_BN, tile, cb);
+  sm90::grouped_tile(F / DH_BN, tile, cb);
   const int row0 = tile * T::BM, n0 = cb * DH_BN;
   const int valid = min(max(tile_rows[tile], 0), T::BM);
   const int active = (valid + 63) / 64;  // consumer warpgroups with a valid row
   if (active == 0) {  // empty tile: zeros, no product
     const size_t at = (size_t)row0 * F + n0;
-    store_zeros<T::BM, DH_BN>(H + at, F, T::THREADS);
-    store_zeros<T::BM, DH_BN>(DG + at, F, T::THREADS);
-    store_zeros<T::BM, DH_BN>(DU + at, F, T::THREADS);
+    sm90::store_zeros<T::BM, DH_BN>(H + at, F, T::THREADS);
+    sm90::store_zeros<T::BM, DH_BN>(DG + at, F, T::THREADS);
+    sm90::store_zeros<T::BM, DH_BN>(DU + at, F, T::THREADS);
     return;
   }
   const sm90::Ring<T> ring = sm90::ring_at<T>(smem_raw);
@@ -299,31 +272,6 @@ bwd_dh_kernel(const __grid_constant__ DhMaps maps, const int* __restrict__ tile_
   }
 }
 
-// Launch a 1D grid of `blocks` as thread-block clusters of DH_CLUSTER
-// (where that divides it): two neighbours of the grouped order, which read
-// the same weight boxes, run at once on one GPC (no multicast). Both of
-// #5's launches ran faster so at the training shape; clusters of 4 did not
-// (PERF.md).
-constexpr int DH_CLUSTER = 2;
-
-template <class K, class... Args>
-int launch_clustered(K kernel, int blocks, int threads, int smem, cudaStream_t s, Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attrs[1];
-  attrs[0].id = cudaLaunchAttributeClusterDimension;
-  attrs[0].val.clusterDim.x = blocks % DH_CLUSTER ? 1 : DH_CLUSTER;
-  attrs[0].val.clusterDim.y = 1;
-  attrs[0].val.clusterDim.z = 1;
-  cfg.attrs = attrs;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
-}
-
 template <class TD>
 int launch_dh_down(const void* dy, const void* w_down, const int* tile_group, const int* tile_rows, void* dh32,
                    int n_pad, int d, int f, cudaStream_t s) {
@@ -332,10 +280,10 @@ int launch_dh_down(const void* dy, const void* w_down, const int* tile_group, co
   if (attr != cudaSuccess) return (int)attr;
   DhDownMaps maps;
   if (reinterpret_cast<uintptr_t>(dh32) % 16 || !sm90::map_3d(&maps.dy, dy, d, n_pad, 1, TD::BM) ||
-      !sm90::map_3d(&maps.wd, w_down, d, f, MAX_EXPERTS, TD::BN))
+      !sm90::map_3d(&maps.wd, w_down, d, f, sm90::MAX_EXPERTS, TD::BN))
     return (int)cudaErrorInvalidValue;
-  return launch_clustered(bwd_dh_down_kernel<TD>, (n_pad / TD::BM) * (f / TD::BN), TD::THREADS, TD::SMEM, s, maps,
-                          tile_group, tile_rows, (float*)dh32, d, f);
+  return sm90::launch_grouped(bwd_dh_down_kernel<TD>, (n_pad / TD::BM) * (f / TD::BN), TD::THREADS, TD::SMEM, s,
+                              maps, tile_group, tile_rows, (float*)dh32, d, f);
 }
 
 int launch_dh(const void* xs, const void* w_gate, const void* w_up, const int* tile_group, const int* tile_rows,
@@ -347,11 +295,12 @@ int launch_dh(const void* xs, const void* w_gate, const void* w_up, const int* t
   DhMaps maps;
   if (reinterpret_cast<uintptr_t>(h) % 16 || reinterpret_cast<uintptr_t>(dg) % 16 ||
       reinterpret_cast<uintptr_t>(du) % 16 || !sm90::map_3d(&maps.x, xs, d, n_pad, 1, T::BM) ||
-      !sm90::map_3d(&maps.wg, w_gate, f, d, MAX_EXPERTS, 64) || !sm90::map_3d(&maps.wu, w_up, f, d, MAX_EXPERTS, 64) ||
+      !sm90::map_3d(&maps.wg, w_gate, f, d, sm90::MAX_EXPERTS, 64) ||
+      !sm90::map_3d(&maps.wu, w_up, f, d, sm90::MAX_EXPERTS, 64) ||
       !sm90::map_3d(&maps.dh, dh32, f, n_pad, 1, 64, 4))
     return (int)cudaErrorInvalidValue;
-  return launch_clustered(bwd_dh_kernel<T>, (n_pad / T::BM) * (f / DH_BN), T::THREADS, T::SMEM, s, maps, tile_group,
-                          tile_rows, (bf16*)h, (bf16*)dg, (bf16*)du, d, f);
+  return sm90::launch_grouped(bwd_dh_kernel<T>, (n_pad / T::BM) * (f / DH_BN), T::THREADS, T::SMEM, s, maps,
+                              tile_group, tile_rows, (bf16*)h, (bf16*)dg, (bf16*)du, d, f);
 }
 
 // ---------------------------------------------------------------------------
@@ -416,8 +365,9 @@ int launch_dx(const void* dg, const void* du, const void* w_gate, const void* w_
   if (attr != cudaSuccess) return (int)attr;
   DxMaps maps;
   if (reinterpret_cast<uintptr_t>(dx) % 16 || !sm90::map_3d(&maps.dg, dg, f, n_pad, 1, T::BM) ||
-      !sm90::map_3d(&maps.du, du, f, n_pad, 1, T::BM) || !sm90::map_3d(&maps.wg, w_gate, f, d, MAX_EXPERTS, T::BN) ||
-      !sm90::map_3d(&maps.wu, w_up, f, d, MAX_EXPERTS, T::BN))
+      !sm90::map_3d(&maps.du, du, f, n_pad, 1, T::BM) ||
+      !sm90::map_3d(&maps.wg, w_gate, f, d, sm90::MAX_EXPERTS, T::BN) ||
+      !sm90::map_3d(&maps.wu, w_up, f, d, sm90::MAX_EXPERTS, T::BN))
     return (int)cudaErrorInvalidValue;
   bwd_dx_kernel<T><<<dim3(n_pad / T::BM, d / T::BN), T::THREADS, T::SMEM, s>>>(maps, tile_group, tile_rows,
                                                                                  (bf16*)dx, d, f);
@@ -574,8 +524,6 @@ int launch_wgrad(const void* xs, const void* dy, const void* h, const void* dg, 
 
 // xs, dy (N_pad, D); w_gate, w_up (E, D, F); w_down (E, F, D) -> h, dg, du
 // (N_pad, F) bf16, through dh32 (N_pad, F) fp32 scratch: two launches
-// xs, dy (N_pad, D); w_gate, w_up (E, D, F); w_down (E, F, D) -> h, dg, du
-// (N_pad, F) bf16, through dh32 (N_pad, F) fp32 scratch: two launches
 extern "C" int grouped_bwd_dh(const void* xs, const void* dy, const void* w_gate, const void* w_up,
                               const void* w_down, const int* tile_group, const int* tile_rows, void* h,
                               void* dg, void* du, void* dh32, int n_pad, int d, int f, void* stream) {
@@ -606,5 +554,3 @@ extern "C" int grouped_bwd_wgrad(const void* xs, const void* dy, const void* h, 
   return launch_wgrad<sm90::Tile<2, 256, true, WG_STAGE_BYTES>>(xs, dy, h, dg, du, row_start, rows, dwg, dwu, dwd,
                                                                     e, n_pad, d, f, (cudaStream_t)stream);
 }
-
-

@@ -1,9 +1,11 @@
 // A warp-specialised wgmma + TMA GEMM mainloop for Hopper (sm_90a), shared
-// by the bf16 expert GEMMs on it: expert_down (#2) in grouped_gemm.cu and
-// grouped_bwd_dh (#5), grouped_bwd_dx (#6) and grouped_bwd_wgrad (#7) in
-// grouped_gemm_bwd.cu. Header only: each .cu that includes it instantiates
-// the tiles it needs; each caller's note gives its design and ptxas's
-// counts.
+// by the bf16 expert GEMMs on it: expert_gate_up (#1), expert_down (#2)
+// and grouped_down (#4) in grouped_gemm.cu, and grouped_bwd_dh (#5),
+// grouped_bwd_dx (#6) and grouped_bwd_wgrad (#7) in grouped_gemm_bwd.cu.
+// Header only: each .cu that includes it instantiates the tiles it needs;
+// each caller's note gives its design and ptxas's counts. Besides the
+// mainloop it holds what the sorted kernels share (grouped_tile's block
+// order, store_zeros, MAX_EXPERTS) and the cluster launch (launch_cluster).
 //
 // What it computes: per consumer warpgroup, a 64 x N fp32 accumulator (N
 // 128 or 256) += A (64 rows, K) @ B over a run of BK-deep slabs of a ring
@@ -12,13 +14,13 @@
 // running along the output rows: x and h read as x^T, h^T in #7, through
 // wgmma's transpose-A bit). B is K-major (a row is one output column,
 // running along K: Wg[e] read as Wg[e]^T in #6, Wd[e] in #5) or N-major (a
-// row is one K index, running along the output columns: Wd[e] in #2, Wg[e]
-// and Wu[e] in #5, dg, du, dy in #7). What it serves on an H100: at
-// training and prefill widths (hundreds of rows per expert, K 4096 to
-// 28672, or K = an expert's rows in #7) these products sit far on the
-// tensor-core side of the ridge (bound by operations, 989 TFLOP/s); at
-// decode (C 4) the same loop must stream the weights at the byte bound
-// (3.35 TB/s).
+// row is one K index, running along the output columns: Wd[e] in #2 and
+// #4, Wg[e] and Wu[e] in #1 and #5, dg, du, dy in #7). What it serves on an
+// H100: at training and prefill widths (hundreds of rows per expert, K
+// 4096 to 28672, or K = an expert's rows in #7) these products sit far on
+// the tensor-core side of the ridge (bound by operations, 989 TFLOP/s); at
+// decode (C 4, or #4's few rows per expert) the same loop must stream the
+// weights at the byte bound (3.35 TB/s).
 //
 // The design:
 // * Products are warpgroup MMAs, wgmma.m64nNk16 with both operands in
@@ -412,9 +414,67 @@ __device__ __forceinline__ void store_rows(const float (&acc)[T::BN / 2], Out* o
   }
 }
 
+// BM x W bf16 zeros at out (row stride ld), by `threads` threads
+template <int BM, int W>
+__device__ __forceinline__ void store_zeros(bf16* out, size_t ld, int threads) {
+  for (int c = threadIdx.x; c < BM * W / 8; c += threads)
+    *reinterpret_cast<uint4*>(out + (c / (W / 8)) * ld + (c % (W / 8)) * 8) = make_uint4(0, 0, 0, 0);
+}
+
+// A 1D grid of nr x nc blocks over the sorted buffer's row tiles, in groups
+// of GROUP_TILES row tiles, each group's blocks column block by column
+// block, its row tiles fastest: the group's activations and each column
+// block's weights are read by blocks that run together, so both come from
+// L2 more often than in a grid whose row tiles run fastest over all nr
+// (#4, #5; faster at the training shape, and alike for groups of 6 to 12;
+// PERF.md).
+constexpr int GROUP_TILES = 8;
+
+__device__ __forceinline__ void grouped_tile(int nc, int& row, int& col) {
+  const int nr = gridDim.x / nc, g = blockIdx.x / (GROUP_TILES * nc), r = blockIdx.x % (GROUP_TILES * nc);
+  const int rows = min(GROUP_TILES, nr - g * GROUP_TILES);
+  row = g * GROUP_TILES + r % rows;
+  col = r / rows;
+}
+
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
+
+// The sorted kernels take no expert count: tile_group names the expert of
+// each tile, so their weight maps span MAX_EXPERTS experts and no box is
+// ever asked past the last real one.
+constexpr uint64_t MAX_EXPERTS = 1 << 16;
+
+// Launch `kernel` on `grid` as thread-block clusters of `cluster` blocks
+// along x (which must divide grid.x): the blocks of a cluster run at once
+// on SMs of one GPC. Returns the launch's cudaError_t.
+template <class K, class... Args>
+int launch_cluster(K kernel, dim3 grid, int cluster, int threads, int smem, cudaStream_t s, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = cluster;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// A 1D grid of `blocks` in grouped_tile order, as clusters of two
+// neighbours (where 2 divides it), which read the same weight boxes and so
+// run at once on one GPC (no multicast): faster for #5's two launches at
+// the training shape; clusters of 4 were not (PERF.md).
+template <class K, class... Args>
+int launch_grouped(K kernel, int blocks, int threads, int smem, cudaStream_t s, Args... args) {
+  return launch_cluster(kernel, dim3(blocks), blocks % 2 ? 1 : 2, threads, smem, s, args...);
+}
 
 // cuTensorMapEncodeTiled (a libcuda entry point), looked up once through the runtime
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,

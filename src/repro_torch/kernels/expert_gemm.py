@@ -3,7 +3,9 @@ for the sorted layout in bf16 (``grouped_gemm``) and int8
 (``grouped_gemm_q8``), the padded layout in bf16 (``expert_gemm``) and int8
 (``expert_gemm_q8``) and the fused dispatch-in-kernel path in bf16
 (``grouped_gemm_fused``) and int8 (``grouped_gemm_fused_q8``). All twelve
-forward kernels live in ``csrc/grouped_gemm.cu``, one templated tile loop.
+forward kernels live in ``csrc/grouped_gemm.cu``: #1, #2 and #4 on the
+wgmma/TMA mainloop of ``csrc/sm90_gemm.cuh``, the other nine on one
+templated WMMA tile loop.
 
 Sorted, bf16 (``_grouped_fwd_impl``: ``_grouped_gate_up_kernel`` and
 ``_grouped_down_kernel``):
@@ -184,11 +186,23 @@ def gate_up_cuda(xs, w_gate, w_up, tile_group, tile_rows) -> torch.Tensor:
     return h
 
 
-def down_cuda(h, w_down, tile_group, tile_rows) -> torch.Tensor:
-    """Launch ``grouped_down`` on the current stream -> y (N_pad, D)."""
+def down_cuda(h, w_down, tile_group, tile_rows, out=None) -> torch.Tensor:
+    """Launch ``grouped_down`` (#4) on the current stream -> y (N_pad, D),
+    into ``out`` if it is given. Every check runs before the library is
+    loaded."""
+    _check_bf16("grouped_down", h.device, h=h, w_down=w_down)
+    if h.dim() != 2 or w_down.dim() != 3 or w_down.shape[1] != h.shape[1]:
+        raise ValueError(f"grouped_down: h {tuple(h.shape)} must be (N_pad, F) and w_down "
+                         f"{tuple(w_down.shape)} (E, F, D)")
     N_pad, F = h.shape
     D = w_down.shape[2]
-    y = torch.empty((N_pad, D), dtype=h.dtype, device=h.device)
+    if N_pad % ROW_TILE or F % COL_TILE or D % COL_TILE:
+        raise ValueError(f"grouped_down: N_pad={N_pad} must be a multiple of {ROW_TILE}, F={F} and D={D} of "
+                         f"{COL_TILE}")
+    _check_tiles("grouped_down", N_pad // ROW_TILE, h.device, tile_group=tile_group, tile_rows=tile_rows)
+    _check_out("grouped_down", out, (N_pad, D), h)
+    y = torch.empty((N_pad, D), dtype=h.dtype, device=h.device) if out is None else out
+    _check_tma("grouped_down", h=h, w_down=w_down, out=y)
     lib = _build.load("grouped_gemm", _SIGS)
     _build.check(lib.grouped_down(
         h.data_ptr(), w_down.data_ptr(), tile_group.data_ptr(), tile_rows.data_ptr(),
@@ -205,11 +219,22 @@ def grouped_gemm_cuda(xs, w_gate, w_up, w_down, group_sizes, row_block: int = RO
     return down_cuda(gate_up_cuda(xs, w_gate, w_up, tg, tr), w_down, tg, tr)
 
 
-def expert_gate_up_cuda(xe, w_gate, w_up) -> torch.Tensor:
-    """Launch ``expert_gate_up`` on the current stream: (E, C, D) -> h (E, C, F)."""
+def expert_gate_up_cuda(xe, w_gate, w_up, out=None) -> torch.Tensor:
+    """Launch ``expert_gate_up`` (#1) on the current stream: (E, C, D) -> h
+    (E, C, F), into ``out`` if it is given. Every check runs before the
+    library is loaded."""
+    _check_bf16("expert_gate_up", xe.device, xe=xe, w_gate=w_gate, w_up=w_up)
+    if xe.dim() != 3 or w_gate.dim() != 3 or xe.shape[1] < 1:
+        raise ValueError(f"expert_gate_up: xe {tuple(xe.shape)} must be (E, C>=1, D) and w_gate "
+                         f"{tuple(w_gate.shape)} (E, D, F)")
     E, C, D = xe.shape
     F = w_gate.shape[2]
-    h = torch.empty((E, C, F), dtype=xe.dtype, device=xe.device)
+    if w_gate.shape != (E, D, F) or w_up.shape != (E, D, F) or D % COL_TILE or F % COL_TILE:
+        raise ValueError(f"expert_gate_up: w_gate {tuple(w_gate.shape)} and w_up {tuple(w_up.shape)} for xe "
+                         f"{tuple(xe.shape)}; D and F must be multiples of {COL_TILE}")
+    _check_out("expert_gate_up", out, (E, C, F), xe)
+    h = torch.empty((E, C, F), dtype=xe.dtype, device=xe.device) if out is None else out
+    _check_tma("expert_gate_up", xe=xe, w_gate=w_gate, w_up=w_up, out=h)
     lib = _build.load("grouped_gemm", _SIGS)
     _build.check(lib.expert_gate_up(
         xe.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), h.data_ptr(), E, C, D, F,

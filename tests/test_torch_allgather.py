@@ -316,3 +316,28 @@ def test_expert_down_args_checked_before_any_library(monkeypatch, arg, fault):
     else:
         with pytest.raises(ValueError, match="expert_down: out" if fault != "align" else "16-byte"):
             teg.expert_down_cuda(h, w_down, out=_bad((E, C, D), fault))
+
+
+@pytest.mark.parametrize("fault", ["shape", "dtype", "layout", "device", "align"])
+@pytest.mark.parametrize("arg", ["out", "xe"])
+def test_expert_gate_up_args_checked_before_any_library(monkeypatch, arg, fault):
+    """A wrong ``out=`` (or input) of the padded gate/up kernel #1's
+    wrapper raises ValueError from the argument checks, before a library
+    is loaded or a stream looked up."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import expert_gemm as teg
+
+    def forbidden(*_a, **_k):
+        raise AssertionError("reached past the argument checks")
+
+    monkeypatch.setattr(_build, "load", forbidden)
+    monkeypatch.setattr(torch.cuda, "current_stream", forbidden)
+    E, C, D, F = 2, 5, 256, 128
+    xe = torch.zeros((E, C, D), dtype=torch.bfloat16)
+    w = torch.zeros((E, D, F), dtype=torch.bfloat16)
+    if arg == "xe":
+        with pytest.raises(ValueError, match="expert_gate_up"):
+            teg.expert_gate_up_cuda(_bad((E, C, D), fault), w, w)
+    else:
+        with pytest.raises(ValueError, match="expert_gate_up: out" if fault != "align" else "16-byte"):
+            teg.expert_gate_up_cuda(xe, w, w, out=_bad((E, C, F), fault))

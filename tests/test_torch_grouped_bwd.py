@@ -194,6 +194,52 @@ def test_bwd_dx_args_checked_before_any_library(monkeypatch, arg, fault):
 
 
 @pytest.mark.parametrize("fault", ["shape", "dtype", "layout", "device", "align"])
+@pytest.mark.parametrize("arg", ["out", "h"])
+def test_grouped_down_args_checked_before_any_library(monkeypatch, arg, fault):
+    """A wrong ``out=`` (or input) of the sorted down kernel #4's wrapper
+    raises ValueError from the argument checks, before a library is loaded
+    or a stream looked up."""
+    from repro_torch.kernels import _build
+
+    def forbidden(*_a, **_k):
+        raise AssertionError("reached past the argument checks")
+
+    monkeypatch.setattr(_build, "load", forbidden)
+    monkeypatch.setattr(torch.cuda, "current_stream", forbidden)
+    E, N_pad, D, F = 2, 256, 256, 128
+    h = torch.zeros((N_pad, F), dtype=torch.bfloat16)
+    wd = torch.zeros((E, F, D), dtype=torch.bfloat16)
+    tg, tr = torch.zeros(2, dtype=torch.int32), torch.full((2,), 128, dtype=torch.int32)
+    if arg == "h":
+        with pytest.raises(ValueError, match="grouped_down"):
+            teg.down_cuda(_bad((N_pad, F), fault), wd, tg, tr)
+    else:
+        with pytest.raises(ValueError, match="grouped_down: out" if fault != "align" else "16-byte"):
+            teg.down_cuda(h, wd, tg, tr, out=_bad((N_pad, D), fault))
+
+
+@pytest.mark.parametrize("fault", ["shape", "dtype", "device"])
+def test_grouped_down_tiles_checked_before_any_library(monkeypatch, fault):
+    """Per-tile metadata of #4 that is not a contiguous int32 (N_pad / 128,)
+    tensor on h's device raises ValueError before any library loads."""
+    from repro_torch.kernels import _build
+
+    def forbidden(*_a, **_k):
+        raise AssertionError("reached past the argument checks")
+
+    monkeypatch.setattr(_build, "load", forbidden)
+    monkeypatch.setattr(torch.cuda, "current_stream", forbidden)
+    E, N_pad, D, F = 2, 256, 256, 128
+    h = torch.zeros((N_pad, F), dtype=torch.bfloat16)
+    wd = torch.zeros((E, F, D), dtype=torch.bfloat16)
+    tg = torch.zeros(2, dtype=torch.int32)
+    tr = {"shape": torch.full((3,), 128, dtype=torch.int32), "dtype": torch.full((2,), 128, dtype=torch.int64),
+          "device": torch.full((2,), 128, dtype=torch.int32, device="meta")}[fault]
+    with pytest.raises(ValueError, match="grouped_down: tile_rows"):
+        teg.down_cuda(h, wd, tg, tr)
+
+
+@pytest.mark.parametrize("fault", ["shape", "dtype", "layout", "device", "align"])
 @pytest.mark.parametrize("arg", ["out", "dy"])
 def test_bwd_dh_args_checked_before_any_library(monkeypatch, arg, fault):
     """A wrong ``out=`` (one of its three tensors) or input of the dh
