@@ -24,10 +24,17 @@ Phases (each failure exits non-zero; nothing is swallowed):
    512 (#1, #2, #8 and #9 also launched over all but the last expert into a
    NaN-filled output: the last expert's rows must stay NaN, so no block
    writes past C; #1 and #2 launched twice, bit-equal, #1's second launch
-   into NaN coming back finite); prints kernel, plain
-   and library times (CUDA events; for #8/#9 also the bf16 twin #1/#2)
-   beside the bound, and for #1, #2 and #4 the time over the library's
-   and the bound over the time;
+   into NaN coming back finite), the paged-attention kernels #19/#20 at
+   B 4 (rows of 332, 300, 17 and 0 keys), the same with window 128, and
+   the long case ``LONG_LENS`` (B 16, rows up to 8192 keys) and the
+   shapes of ``PAGED_EDGE_CASES`` (other page sizes, d 64, G 1 and 8, a
+   short window), each with NaN
+   (int8: NaN scales) in every pool row outside the rows' live ranges,
+   launched twice into NaN-filled outputs (finite, bit-equal, the idle
+   row 0); prints kernel, plain and library times (CUDA events; for
+   #8/#9 also the bf16 twin #1/#2; for #19/#20 also CUDA-graph replay,
+   kernel and SDPA) beside the bound, and for #1, #2, #4, #19 and #20 the
+   time over the library's and the bound over the time;
 3. serve — llama3-e8t2 at full width, 4 layers (the only cut), sorted
    dispatcher, kernels on, random weights from ``--seed`` drawn on the card:
    ``ServingEngine`` (ring cache, max_batch 4) answers 8 requests of 16-300
@@ -186,6 +193,17 @@ def rel_err(out, ref) -> tuple:
     out, ref = out.detach().float(), ref.detach().float()
     err = float((out - ref).abs().max())
     return err, err / max(float(ref.abs().max()), 1e-30)
+
+
+def row_rel_err(out, ref, rows) -> float:
+    """Worst over ``rows`` of max|out[b] - ref[b]| / max|ref[b]|: each row
+    held to its own scale, so that a row of small values is not judged
+    against the largest value of another row (0.0 for no rows)."""
+    if not rows:
+        return 0.0
+    out, ref = out.detach().float()[rows].flatten(1), ref.detach().float()[rows].flatten(1)
+    err = (out - ref).abs().amax(1) / ref.abs().amax(1).clamp_min(1e-30)
+    return float(err.max())
 
 
 # ---------------------------------------------------------------------------
@@ -504,6 +522,17 @@ def check_flash(gen, S: int, window=None, B=1, H=32, KV=8, d=128):
 # ---------------------------------------------------------------------------
 
 
+# the long case: 16 rows up to Llama-3-8B's 8192-token context (2,943 table pages; paged_case makes one
+# page of row 1 a -1 hole, so the kernel reads 47,017 live keys from 2,942 pages)
+LONG_LENS = (8192, 8000, 6500, 5000, 4096, 4096, 3000, 2048, 2048, 1500, 1024, 700, 512, 300, 17, 0)
+# shapes the wrappers take that the serving path does not send: pages of 1, 4, 24 and 64 keys
+# (a 16-key unit holding several pages, or a page split into units), d 64 with G 8, G 1, window 7
+PAGED_EDGE_CASES = (dict(label="ps 1", ps=1, maxP=340, lens=(332, 3, 1, 0)), dict(label="ps 4", ps=4, maxP=90),
+                    dict(label="ps 24", ps=24, maxP=16), dict(label="ps 64", ps=64, maxP=6),
+                    dict(label="d 64, G 8", d=64, KV=4), dict(label="G 1", H=8, KV=8),
+                    dict(label="window 7", window=7))
+
+
 def paged_case(gen, lens=(332, 300, 17, 0), H=32, KV=8, d=128, ps=16, maxP=22, hole_row=1):
     """Random bf16 pools, a shuffled page per logical page of each row, the
     idle row (length 0) with no pages, and one -1 page in the middle of row
@@ -537,35 +566,108 @@ def live_keys(bt, lens, ps: int, window=None) -> int:
     return n
 
 
-def check_paged(gen, q8: bool, window=None):
+def dead_rows(bt, lens, ps: int, num_pages: int, window=None):
+    """(num_pages * ps,) bool: the pool rows that hold no live key of any
+    row (unassigned pages, rows past a row's length or below its window)."""
+    import torch
+
+    pos = torch.arange(bt.shape[1] * ps, device=bt.device)
+    live = (pos[None] < lens[:, None].long()) & (bt >= 0)[:, pos // ps]
+    if window:
+        live &= pos[None] > lens[:, None].long() - 1 - window
+    rows = bt.long()[:, pos // ps] * ps + pos % ps
+    dead = torch.ones(num_pages * ps, dtype=torch.bool, device=bt.device)
+    dead[rows[live]] = False
+    return dead
+
+
+def poisoned(t, dead, value):
+    """A copy of a pool (num_pages, ps, KV, x) with ``value`` in its dead rows."""
+    out = t.clone()
+    out.view(dead.numel(), *t.shape[2:])[dead] = value
+    return out
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device time of one call: ``calls`` calls captured in a CUDA graph,
+    the graph replayed ``replays`` times between two events (no host work
+    inside the timed span)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del graph
+    return ms
+
+
+def check_paged(gen, q8: bool, window=None, label: str = "phase 2", **case):
+    """#19 (bf16 pages) or #20 (int8) against its plain version on one
+    case of ``paged_case``: the kernel reads pools whose dead rows (see
+    ``dead_rows``) hold NaN (bf16) or NaN scales (int8), the plain version
+    and the yardstick the finite pools. Each live row must come within
+    PA_TOL of its own max|plain| (``row_rel_err``; the error over max|plain|
+    of the whole output is reported beside it), the idle row must be exact
+    zeros, and the output must come back finite when launched into a
+    NaN-filled ``out=``, and twice bit-equal. Times: CUDA
+    events around back-to-back wrapper calls (``ms``, host work included)
+    and CUDA-graph replay (``device_ms``), for the kernel and for SDPA on
+    KV gathered beforehand."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.quant import dequantize_kv, quantize_kv
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels.ref import paged_attention_q8_ref, paged_attention_ref
 
-    q, k, v, bt, sl = paged_case(gen)
+    q, k, v, bt, sl = paged_case(gen, **case)
     B, H, d = q.shape
-    ps, KV = k.shape[1], k.shape[2]
+    num_pages, ps, KV = k.shape[:3]
     scale = d ** -0.5
+    dead = dead_rows(bt, sl, ps, num_pages, window)
     name = "paged_attention_q8" if q8 else "paged_attention"
     if q8:
         (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
-        fn = lambda: pa.paged_attention_q8_cuda(q, kq, vq, ks, vs, bt, sl, window, scale)
+        kp, vp = poisoned(kq, dead, 127), poisoned(vq, dead, -127)
+        ksp, vsp = poisoned(ks, dead, float("nan")), poisoned(vs, dead, float("nan"))
+        fn = lambda out=None: pa.paged_attention_q8_cuda(q, kp, vp, ksp, vsp, bt, sl, window, scale, out=out)
         plain = lambda: paged_attention_q8_ref(q, kq, vq, ks, vs, bt, sl, window, scale)
         kg_src, vg_src = dequantize_kv(kq, ks, torch.bfloat16), dequantize_kv(vq, vs, torch.bfloat16)
         elem = 1 + 4 / d  # int8 payload plus the fp32 scale per (token, head)
     else:
-        fn = lambda: pa.paged_attention_cuda(q, k, v, bt, sl, window, scale)
+        kp, vp = poisoned(k, dead, float("nan")), poisoned(v, dead, float("nan"))
+        fn = lambda out=None: pa.paged_attention_cuda(q, kp, vp, bt, sl, window, scale, out=out)
         plain = lambda: paged_attention_ref(q, k, v, bt, sl, window, scale)
         kg_src, vg_src = k, v
         elem = 2
-    out, ref = fn(), plain()
+    ref = plain()
+    outs = [fn(out=torch.full_like(q, float("nan"))) for _ in range(2)]
     torch.cuda.synchronize()
+    out = outs[0]
     err, rel = rel_err(out, ref)
     idle = [b for b, n in enumerate(sl.tolist()) if n == 0]
+    row_rel = row_rel_err(out, ref, [b for b, n in enumerate(sl.tolist()) if n > 0])
     idle_max = float(out[idle].float().abs().max()) if idle else 0.0
-    ok = rel <= PA_TOL and idle_max == 0.0 and bool(torch.isfinite(out.float()).all())
+    flags = {"finite into NaN, NaN in dead rows": bool(torch.isfinite(out.float()).all()),
+             "two launches bit-equal": torch.equal(outs[0].view(torch.int16), outs[1].view(torch.int16)),
+             "idle row 0": idle_max == 0.0}
+    ok = row_rel <= PA_TOL and all(flags.values())
     keys = live_keys(bt, sl, ps, window)
     # k and v of each live key (with its scales), q and out, the table and lengths
     nbytes = 2 * keys * KV * d * elem + 2 * q.numel() * 2 + 4 * (bt.numel() + sl.numel())
@@ -582,16 +684,22 @@ def check_paged(gen, q8: bool, window=None):
     mask = mask[:, None, None, :]
     qt = q[:, :, None, :]
     lib = lambda: F.scaled_dot_product_attention(qt, kg, vg, attn_mask=mask, enable_gqa=True)
-    row = dict(name=name, max_abs_err=err, rel_err=rel, idle_row_max=idle_max, ok=ok,
-               ms=time_ms(fn, reps=50, warmup=5), plain_ms=time_ms(plain, reps=5, warmup=1),
-               bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, reps=50, warmup=5),
+    dst = torch.empty_like(q)
+    row = dict(name=name, max_abs_err=err, rel_err=rel, row_rel_err=row_rel, idle_row_max=idle_max, ok=ok,
+               **flags,
+               ms=time_ms(fn, reps=50, warmup=5), device_ms=graph_ms(lambda: fn(out=dst)),
+               plain_ms=time_ms(plain, reps=5, warmup=1), bound_ms=b_ms, bound_by=b_by,
+               library_ms=time_ms(lib, reps=50, warmup=5), library_device_ms=graph_ms(lib),
                shape=f"B={B} H={H} KV={KV} d={d} ps={ps} maxP={bt.shape[1]} seq_lens={sl.tolist()} "
                      f"window={window} live keys={keys}")
-    print(f"  {name} [window={window}] err {err:.4g} (rel {rel:.3g}, tol {PA_TOL}) idle row max|out| "
-          f"{idle_max} kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms sdpa on gathered KV "
-          f"{row['library_ms']:.4f} ms bound {b_ms:.5f} ms ({b_by}, {nbytes / 1e6:.3f} MB)")
+    print(f"  {name} [{label}, window={window}] err {err:.4g} (rel {rel:.3g}; worst row {row_rel:.3g}, "
+          f"tol {PA_TOL}) {flags} "
+          f"kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}) plain {row['plain_ms']:.4f} ms "
+          f"sdpa on gathered KV {row['library_ms']:.4f} ms (device {row['library_device_ms']:.4f}) "
+          f"bound {b_ms:.5f} ms ({b_by}, {nbytes / 1e6:.3f} MB); device: kernel / sdpa "
+          f"{row['device_ms'] / row['library_device_ms']:.3f}, bound / kernel {b_ms / row['device_ms']:.3f}")
     if not ok:
-        raise SystemExit(f"{name} [window={window}] disagrees with its plain version")
+        raise SystemExit(f"{name} [{label}, window={window}] disagrees with its plain version")
     return row
 
 
@@ -2405,7 +2513,10 @@ def main(argv=None) -> int:
         for q8 in (False, True):
             kernels["paged_attention_q8" if q8 else "paged_attention"] = check_paged(gen, q8)
             check_paged(gen, q8, window=128)
-        torch.cuda.empty_cache()
+            check_paged(gen, q8, label="long", lens=LONG_LENS, maxP=512)
+            torch.cuda.empty_cache()
+            for case in PAGED_EDGE_CASES:
+                check_paged(gen, q8, **case)
 
     launches, stats = {}, {}
     if 3 in phases:
@@ -2521,6 +2632,7 @@ def main(argv=None) -> int:
             "max_abs_err": k.get("max_abs_err"),
             "ms": k.get("ms"), "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
             "bound_by": k.get("bound_by"), "library_ms": k.get("library_ms"), "library": k.get("library"),
+            "device_ms": k.get("device_ms"), "library_device_ms": k.get("library_device_ms"),
             "shape": k.get("shape"),
         })
     print(json.dumps({"launches_by_path": {"ring": {k: v for k, v in launches.items()

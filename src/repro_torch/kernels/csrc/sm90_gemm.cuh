@@ -6,6 +6,10 @@
 // each caller's note gives its design and ptxas's counts. Besides the
 // mainloop it holds what the sorted kernels share (grouped_tile's block
 // order, store_zeros, MAX_EXPERTS) and the cluster launch (launch_cluster).
+// The paged-attention decode kernels #19/#20 (paged_attention.cu) use its
+// TMA, mbarrier, cluster-launch and tensor-map helpers, and the warp-level
+// helpers kept here for them (ldmatrix, movmatrix, mma.sync m16n8k16, a
+// 4-byte cp.async that arrives on an mbarrier).
 //
 // What it computes: per consumer warpgroup, a 64 x N fp32 accumulator (N
 // 128 or 256) += A (64 rows, K) @ B over a run of BK-deep slabs of a ring
@@ -169,6 +173,49 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 }
 // make this thread's generic writes to shared memory visible to the async proxy (wgmma, TMA)
 __device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+// make mbarrier inits visible to the async proxy and the cluster (after the inits, before their first use)
+__device__ __forceinline__ void fence_mbar_init() { asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory"); }
+
+// Non-bulk copy of 4 bytes into shared memory, and an arrival on an
+// mbarrier once every such copy this thread has started has landed (noinc:
+// the arrival counts against the count the barrier was initialised with).
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Warp-level MMA (paged_attention.cu): four 8x8 b16 matrices from shared
+// memory, lanes 8j..8j+7 giving the row addresses of matrix j; thread
+// 4g + t gets elements (g, 2t..2t+1) of each, or of its transpose (TRANS).
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  if constexpr (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr)
+                 : "memory");
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr)
+                 : "memory");
+}
+// the transpose of an 8x8 b16 matrix held one row pair per thread, as ldsm_x4 gives it
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+// d (16 x 8 fp32) += a (16 x 16 bf16, row-major fragments) b (16 x 8 bf16, column-major fragments)
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 // keep the compiler from moving accesses to wgmma accumulators across the async MMA
 template <int N>
@@ -286,7 +333,7 @@ struct Ring {
       mbar_init(full(s), 1);
       mbar_init(empty(s), warps);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_mbar_init();
   }
 };
 

@@ -188,3 +188,185 @@ def test_paged_forward_chunk_then_decode(rng, quant_kv, use_kernel):
             np.testing.assert_allclose(t.astype(np.float32), j.astype(np.float32), atol=FP32_ATOL)
     untouched = [p for p in range(num_pages - 1) if p not in live]
     assert all(not t[:, untouched].any() for t in tree_leaves(tpool))
+
+
+# ---------------------------------------------------------------------------
+# The CUDA wrappers' host side: argument checks, the cluster split, the call
+# ---------------------------------------------------------------------------
+
+def _args(B=3, H=8, KV=2, d=64, ps=4, maxP=5, num_pages=16, pool_dtype=torch.bfloat16):
+    """CPU tensors of the shapes the kernel takes (values unused)."""
+    q = torch.zeros((B, H, d), dtype=torch.bfloat16)
+    k = torch.zeros((num_pages, ps, KV, d), dtype=pool_dtype)
+    v = torch.zeros((num_pages, ps, KV, d), dtype=pool_dtype)
+    bt = torch.zeros((B, maxP), dtype=torch.int32)
+    sl = torch.ones((B,), dtype=torch.int32)
+    return dict(q=q, k_pool=k, v_pool=v, block_table=bt, seq_lens=sl)
+
+
+def _misaligned(shape, dtype):
+    """A contiguous tensor whose data starts 2 bytes past a 16-byte boundary."""
+    return torch.zeros(int(np.prod(shape)) + 8, dtype=dtype)[1:int(np.prod(shape)) + 1].view(shape)
+
+
+def _fault(a, fault):
+    """The arguments of ``_args`` with one of them wrong; also returns ``out``."""
+    B, H, d = a["q"].shape
+    out = None
+    if fault == "q dtype":
+        a["q"] = a["q"].float()
+    elif fault == "q shape":
+        a["q"] = a["q"][0]
+    elif fault == "q layout":
+        a["q"] = torch.zeros((B, H, 2 * d), dtype=torch.bfloat16)[..., ::2]
+    elif fault == "q align":
+        a["q"] = _misaligned((B, H, d), torch.bfloat16)
+    elif fault == "pool dtype":
+        a["k_pool"] = a["k_pool"].float()
+    elif fault == "pool device":
+        a["v_pool"] = a["v_pool"].to("meta")
+    elif fault == "pool layout":
+        a["k_pool"] = a["k_pool"].transpose(0, 1).contiguous().transpose(0, 1)
+    elif fault == "pool shape":
+        a["v_pool"] = a["v_pool"][:-1].contiguous()
+    elif fault == "pool align":
+        a["k_pool"] = _misaligned(tuple(a["k_pool"].shape), a["k_pool"].dtype)
+    elif fault == "G > 8":
+        a["q"] = torch.zeros((B, 9 * a["k_pool"].shape[2], d), dtype=torch.bfloat16)
+    elif fault == "head dim":
+        a["q"] = torch.zeros((B, H, 96), dtype=torch.bfloat16)
+        a["k_pool"] = torch.zeros(a["k_pool"].shape[:3] + (96,), dtype=a["k_pool"].dtype)
+        a["v_pool"] = torch.zeros(a["v_pool"].shape[:3] + (96,), dtype=a["v_pool"].dtype)
+    elif fault == "table shape":
+        a["block_table"] = a["block_table"][:-1]
+    elif fault == "table dtype":
+        a["block_table"] = a["block_table"].float()
+    elif fault == "table device":
+        a["seq_lens"] = a["seq_lens"].to("meta")
+    elif fault == "window":
+        return a, None, 0
+    elif fault == "out dtype":
+        out = torch.zeros((B, H, d), dtype=torch.float32)
+    elif fault == "out shape":
+        out = torch.zeros((B, H + 1, d), dtype=torch.bfloat16)
+    elif fault == "out device":
+        out = torch.zeros((B, H, d), dtype=torch.bfloat16, device="meta")
+    elif fault == "out layout":
+        out = torch.zeros((B, H, 2 * d), dtype=torch.bfloat16)[..., ::2]
+    return a, out, None
+
+
+FAULTS = ["q dtype", "q shape", "q layout", "q align", "pool dtype", "pool device", "pool layout",
+          "pool shape", "pool align", "G > 8", "head dim", "table shape", "table dtype", "table device",
+          "window", "out dtype", "out shape", "out device", "out layout"]
+
+
+@pytest.fixture
+def no_library(monkeypatch):
+    """Fail the test if a wrapper gets past its checks: no library load, no stream."""
+    from repro_torch.kernels import _build
+
+    def forbidden(*_a, **_k):
+        raise AssertionError("reached past the argument checks")
+
+    monkeypatch.setattr(_build, "load", forbidden)
+    monkeypatch.setattr(torch.cuda, "current_stream", forbidden)
+
+
+@pytest.mark.parametrize("fault", FAULTS)
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+def test_cuda_wrapper_args_checked_before_any_library(no_library, q8, fault):
+    """A wrong input or ``out=`` of either paged-attention wrapper raises
+    ValueError from the argument checks, before a library is loaded or a
+    stream looked up."""
+    from repro_torch.kernels import paged_attention as tpa
+
+    a, out, window = _fault(_args(pool_dtype=torch.int8 if q8 else torch.bfloat16), fault)
+    with pytest.raises(ValueError, match="paged_attention"):
+        if q8:
+            num_pages, ps, KV = a["k_pool"].shape[:3]
+            sc = torch.ones((num_pages, ps, KV, 1), dtype=torch.float32)
+            tpa.paged_attention_q8_cuda(a["q"], a["k_pool"], a["v_pool"], sc, sc, a["block_table"],
+                                        a["seq_lens"], window, 0.125, out=out)
+        else:
+            tpa.paged_attention_cuda(a["q"], a["k_pool"], a["v_pool"], a["block_table"], a["seq_lens"],
+                                     window, 0.125, out=out)
+
+
+@pytest.mark.parametrize("fault", ["shape", "dtype", "device", "layout"])
+@pytest.mark.parametrize("which", ["k_scale", "v_scale"])
+def test_cuda_wrapper_q8_scales_checked_before_any_library(no_library, which, fault):
+    """The int8 wrapper's scale sidecars must be contiguous fp32
+    (num_pages, ps, KV, 1) tensors on the device of q."""
+    from repro_torch.kernels import paged_attention as tpa
+
+    a = _args(pool_dtype=torch.int8)
+    shape = tuple(a["k_pool"].shape[:3]) + (1,)
+    good = torch.ones(shape, dtype=torch.float32)
+    bad = {"shape": torch.ones(shape[:3] + (2,)), "dtype": torch.ones(shape, dtype=torch.bfloat16),
+           "device": torch.ones(shape, device="meta"),
+           "layout": torch.ones(shape[:3] + (2,))[..., :1]}[fault]
+    scales = {"k_scale": good, "v_scale": good, which: bad}
+    with pytest.raises(ValueError, match="paged_attention_q8"):
+        tpa.paged_attention_q8_cuda(a["q"], a["k_pool"], a["v_pool"], scales["k_scale"], scales["v_scale"],
+                                    a["block_table"], a["seq_lens"], None, 0.125)
+
+
+@pytest.mark.parametrize("ps", [1, 2, 4, 8, 16, 24, 32, 64, 128])
+def test_cluster_size_from_the_table_width(ps):
+    """The host picks the cluster from maxP (and the page size) alone: a
+    power of two up to the portable 8, never more blocks than a full row
+    has units but for the power of two, and 8 once a row can hold 8 units."""
+    from repro_torch.kernels import paged_attention as tpa
+
+    for maxP in range(1, 601):
+        cl = tpa.cluster_size(maxP, ps)
+        units = maxP * -(-ps // tpa.UNIT)
+        assert cl in (1, 2, 4, 8) and (cl == 8 or cl >= units) and (cl == 1 or cl // 2 < units)
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("window", [None, 7])
+def test_cuda_wrapper_calls_the_kernel_with_its_arguments(monkeypatch, q8, window):
+    """Past the checks, a wrapper loads the library once and calls its entry
+    point with every argument its signature declares: the pool's page
+    count, the cluster the host chose from maxP, the window (0 for none),
+    and ``out`` when given, which it returns; the launch is counted."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import paged_attention as tpa
+
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            def entry(*args):
+                calls.append((name, args))
+                return 0
+            return entry
+
+    class Stream:
+        cuda_stream = 1234
+
+    monkeypatch.setattr(_build, "load", lambda name, sigs: Lib() if name == "paged_attention" and sigs is tpa._SIGS
+                        else None)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: Stream())
+    a = _args(pool_dtype=torch.int8 if q8 else torch.bfloat16, B=2, H=8, KV=2, d=64, ps=16, maxP=40, num_pages=9)
+    out = torch.empty_like(a["q"])
+    before = dict(tpa.LAUNCHES)
+    if q8:
+        sc = torch.ones((9, 16, 2, 1), dtype=torch.float32)
+        got = tpa.paged_attention_q8_cuda(a["q"], a["k_pool"], a["v_pool"], sc, sc, a["block_table"].long(),
+                                          a["seq_lens"], window, 0.125, out=out)
+        name = "paged_attention_q8"
+    else:
+        got = tpa.paged_attention_cuda(a["q"], a["k_pool"], a["v_pool"], a["block_table"].long(), a["seq_lens"],
+                                       window, 0.125, out=out)
+        name = "paged_attention"
+    assert got is out
+    (entry, args), = calls
+    assert entry == ("paged_attention_q8" if q8 else "paged_attention_bf16")
+    assert len(args) == len(tpa._SIGS[entry])
+    assert list(args[-11:-3]) == [2, 8, 2, 64, 9, 16, 40, tpa.cluster_size(40, 16)] and tpa.cluster_size(40, 16) == 8
+    assert args[-3] == 0.125 and args[-2] == (window or 0) and args[-1] == 1234
+    assert args[(7 if q8 else 5)] == out.data_ptr()
+    assert tpa.LAUNCHES[name] == before[name] + 1
