@@ -24,7 +24,12 @@ Phases (each failure exits non-zero; nothing is swallowed):
    512 (#1, #2, #8 and #9 also launched over all but the last expert into a
    NaN-filled output: the last expert's rows must stay NaN, so no block
    writes past C; #1 and #2 launched twice, bit-equal, #1's second launch
-   into NaN coming back finite), the paged-attention kernels #19/#20 at
+   into NaN coming back finite), the flash forward #16 (B 1, H 32, KV 8,
+   causal) at S 16, 340, 512, 512 with window 128, 2048 (the training
+   length) and 1000 with d 64, launched twice into NaN-filled ``out=`` and
+   ``lse=`` (finite, bit-equal), each (batch, query, head) row of the
+   output within 2e-2 of its own max|plain| (``row_rel_err``; the global
+   figure printed beside it), the paged-attention kernels #19/#20 at
    B 4 (rows of 332, 300, 17 and 0 keys), the same with window 128, and
    the long case ``LONG_LENS`` (B 16, rows up to 8192 keys) and the
    shapes of ``PAGED_EDGE_CASES`` (other page sizes, d 64, G 1 and 8, a
@@ -32,9 +37,9 @@ Phases (each failure exits non-zero; nothing is swallowed):
    (int8: NaN scales) in every pool row outside the rows' live ranges,
    launched twice into NaN-filled outputs (finite, bit-equal, the idle
    row 0); prints kernel, plain and library times (CUDA events; for
-   #8/#9 also the bf16 twin #1/#2; for #19/#20 also CUDA-graph replay,
-   kernel and SDPA) beside the bound, and for #1, #2, #4, #19 and #20 the
-   time over the library's and the bound over the time;
+   #8/#9 also the bf16 twin #1/#2; for #16, #19 and #20 also CUDA-graph
+   replay, kernel and SDPA) beside the bound, and for #1, #2, #4, #16, #19
+   and #20 the time over the library's and the bound over the time;
 3. serve — llama3-e8t2 at full width, 4 layers (the only cut), sorted
    dispatcher, kernels on, random weights from ``--seed`` drawn on the card:
    ``ServingEngine`` (ring cache, max_batch 4) answers 8 requests of 16-300
@@ -122,8 +127,10 @@ Phases (each failure exits non-zero; nothing is swallowed):
    of phase 2 and #12/#13 at phase 6's training routing (2048 tokens)
    against their plain versions (2e-2 x max|plain|; h's padding rows
    exactly 0; the partials buffer filled with NaN before the down launch
-   comes back finite), with kernel, plain and bound times and the whole
-   fused path beside the port's unfused path on the same routing; (b)
+   comes back finite, twice bit-equal), with kernel, plain and bound times
+   (for #15 also the bf16 #4 on the same h and weights, and CUDA-graph
+   device times of #15, #11 and #4) and the whole fused path beside the
+   port's unfused path on the same routing; (b)
    phase 3's model and requests through the ring engine with
    ``fused_dispatch=True``: #12/#13 launch and #3/#4 do not, every kernel
    call of a short serve is checked, greedy tokens against the unfused
@@ -141,7 +148,12 @@ Phases (each failure exits non-zero; nothing is swallowed):
 
 ``--phases 1,2`` stops after the build and the kernel checks; ``--phases
 1,6`` is the quick look at training, ``--phases 1,8`` at full-depth int8
-serving, ``--phases 1,9`` at fused dispatch. The last two lines are the card's
+serving, ``--phases 1,9`` at fused dispatch. ``--digest SRC`` prints a
+SHA-256 of every expert GEMM's and the flash forward's outputs on seeded
+inputs for the kernels of the tree whose ``src`` is SRC; ``--times SRC``
+prints the device and host-inclusive times of #16 at phase 2's lengths
+and of #15, #11 and #4 at phase 9a's routings for that tree's kernels:
+run either on two trees in one call to compare them. The last two lines are the card's
 ``nvidia-smi`` name and power limit and the result JSON; the lines before
 them list the launches by path, the serve and train figures and the
 kernels. Imports nothing of JAX or of the JAX package.
@@ -477,6 +489,14 @@ def grouped_mm_ms(x_compact, w, gs):
 
 
 def check_flash(gen, S: int, window=None, B=1, H=32, KV=8, d=128):
+    """#16 against its plain version at one shape (causal, Sq = Sk = S):
+    launched twice into NaN-filled ``out=``/``lse=`` (finite, bit-equal),
+    each (batch, query, head) row of the output held to FA_TOL of its own
+    max|plain| (``row_rel_err``; the error over the global max|plain| is
+    reported beside it: in a causal output long rows average toward 0), the
+    lse to LSE_TOL. Times: CUDA events around back-to-back wrapper calls
+    (``ms``, host work included) and CUDA-graph replay (``device_ms``), for
+    the kernel and for SDPA (``library_ms``, ``library_device_ms``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -486,34 +506,44 @@ def check_flash(gen, S: int, window=None, B=1, H=32, KV=8, d=128):
     q = torch.randn((B, S, H, d), generator=gen, device=dev).bfloat16()
     k = torch.randn((B, S, KV, d), generator=gen, device=dev).bfloat16()
     v = torch.randn((B, S, KV, d), generator=gen, device=dev).bfloat16()
-    out, lse = fa.flash_fwd_cuda(q, k, v, True, window, d ** -0.5)
-    ref, lse_ref = flash_attention_ref(q, k, v, True, window, d ** -0.5, return_lse=True)
+    scale = d ** -0.5
+    fn = lambda out=None, lse=None: fa.flash_fwd_cuda(q, k, v, True, window, scale, out=out, lse=lse)
+    ref, lse_ref = flash_attention_ref(q, k, v, True, window, scale, return_lse=True)
+    outs = [fn(out=torch.full_like(q, float("nan")), lse=torch.full_like(lse_ref, float("nan"))) for _ in range(2)]
     torch.cuda.synchronize()
+    out, lse = outs[0]
     err, rel = rel_err(out, ref)
+    row_rel = row_rel_err(out.reshape(-1, d), ref.reshape(-1, d), range(B * S * H))
     lse_err = float((lse - lse_ref).abs().max())
-    ok = rel <= FA_TOL and lse_err <= LSE_TOL and bool(torch.isfinite(out.float()).all())
-    pos = torch.arange(S, device=dev)
-    mask = pos[None, :] <= pos[:, None]
-    if window is not None:
-        mask &= pos[None, :] > pos[:, None] - window
-    pairs = int(mask.sum())
+    flags = {"finite into NaN": bool(torch.isfinite(out.float()).all() and torch.isfinite(lse).all()),
+             "two launches bit-equal": torch.equal(outs[0][0].view(torch.int16), outs[1][0].view(torch.int16))
+             and torch.equal(outs[0][1].view(torch.int32), outs[1][1].view(torch.int32))}
+    ok = row_rel <= FA_TOL and lse_err <= LSE_TOL and all(flags.values())
+    pairs = live_pairs(S, S, window)
     b_ms, b_by = bound((q.numel() * 2 + k.numel() * 2 + v.numel() * 2 + out.numel() * 2 + lse.numel() * 4),
                        4 * B * H * d * pairs)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if window is None:
         lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
     else:
+        pos = torch.arange(S, device=dev)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
         lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
-    row = dict(name="flash_fwd", max_abs_err=err, rel_err=rel, lse_err=lse_err, ok=ok,
-               ms=time_ms(lambda: fa.flash_fwd_cuda(q, k, v, True, window, d ** -0.5)),
-               plain_ms=time_ms(lambda: flash_attention_ref(q, k, v, True, window, d ** -0.5, return_lse=True)),
-               bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib),
+    dst, dst_lse = torch.empty_like(q), torch.empty_like(lse)
+    row = dict(name="flash_fwd", max_abs_err=err, rel_err=rel, row_rel_err=row_rel, lse_err=lse_err, ok=ok, **flags,
+               ms=time_ms(fn, reps=20, warmup=3), device_ms=graph_ms(lambda: fn(out=dst, lse=dst_lse)),
+               plain_ms=time_ms(lambda: flash_attention_ref(q, k, v, True, window, scale, return_lse=True), reps=3,
+                                warmup=1),
+               bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, reps=20, warmup=3),
+               library_device_ms=graph_ms(lib),
                shape=f"B={B} S={S} H={H} KV={KV} d={d} causal window={window}")
-    print(f"  flash_fwd [S={S} window={window}] err {err:.4g} (rel {rel:.3g}, tol {FA_TOL}) "
-          f"lse err {lse_err:.3g} (tol {LSE_TOL}) kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
-          f"sdpa {row['library_ms']:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+    print(f"  flash_fwd [S={S} d={d} window={window}] err {err:.4g} (rel {rel:.3g}; worst row {row_rel:.3g}, "
+          f"tol {FA_TOL}) lse err {lse_err:.3g} (tol {LSE_TOL}) {flags} kernel {row['ms']:.4f} ms "
+          f"(device {row['device_ms']:.4f}) plain {row['plain_ms']:.4f} ms sdpa {row['library_ms']:.4f} ms "
+          f"(device {row['library_device_ms']:.4f}) bound {b_ms:.4f} ms ({b_by}); device: kernel / sdpa "
+          f"{row['device_ms'] / row['library_device_ms']:.3f}, bound / kernel {b_ms / row['device_ms']:.3f}")
     if not ok:
-        raise SystemExit(f"flash_fwd [S={S} window={window}] disagrees with its plain version")
+        raise SystemExit(f"flash_fwd [S={S} d={d} window={window}] disagrees with its plain version")
     return row
 
 
@@ -884,14 +914,15 @@ def check_grouped_bwd(gen, group_sizes, label: str, D=4096, F=14336):
 
 def digests(seed: int) -> dict:
     """SHA-256 (first 16 hex digits) of the outputs of the expert GEMM
-    kernels (#1-#7, #10, #11) at llama3-e8t2 widths on inputs drawn from
-    ``seed``, each kernel fed its own random inputs. Two trees whose
-    digests agree compute bit-equal outputs (``--digest``)."""
+    kernels (#1-#15) and the flash forward (#16) at llama3-e8t2 widths on
+    inputs drawn from ``seed``, each kernel fed its own random inputs. Two
+    trees whose digests agree compute bit-equal outputs (``--digest``)."""
     import hashlib
 
     import torch
     from repro_torch.core.quant import quantize_weight
     from repro_torch.kernels import expert_gemm as eg
+    from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
@@ -923,6 +954,67 @@ def digests(seed: int) -> dict:
     h = eg.gate_up_q8_cuda(xs, qg, qu, sg, su, tg, tr)
     out["grouped_gate_up_q8 decode"] = sha(h)
     out["grouped_down_q8 decode"] = sha(eg.down_q8_cuda(h, qd, sd, tg, tr))
+    for C in (4, 300):
+        xe = rand(8, C, 4096)
+        he = eg.expert_gate_up_q8_cuda(xe, qg, qu, sg, su)
+        out[f"expert_gate_up_q8 C={C}"] = sha(he)
+        out[f"expert_down_q8 C={C}"] = sha(eg.expert_down_q8_cuda(he, qd, sd))
+    for groups, T in (((3, 0, 2, 1, 0, 1, 1, 0), 4), ((200, 0, 131, 77, 64, 50, 40, 38), 300)):
+        label = "decode" if T == 4 else "prefill"
+        token, slot, dest, gate_sorted, gs = fused_routing(gen, groups, T)
+        tok_pad, row_out, gate_pad, tg, tr, k = eg.fused_tables(qg, gs, token, dest, slot, gate_sorted, T)
+        x = rand(T, 4096)
+        h = eg.fused_gate_up_q8_cuda(x, qg, qu, sg, su, tok_pad, tg, tr)
+        out[f"grouped_gate_up_fused_q8 {label}"] = sha(h)
+        out[f"grouped_down_fused_q8 {label}"] = sha(eg.fused_down_q8_cuda(h, qd, sd, row_out, gate_pad, tg, tr, k, T))
+    del qg, qu, qd
+    wg, wu = (rand(8, 4096, 14336, scale=4096 ** -0.5) for _ in range(2))
+    wd = rand(8, 14336, 4096, scale=14336 ** -0.5)
+    token, slot, dest, gate_sorted, gs = fused_routing(gen, (3, 0, 2, 1, 0, 1, 1, 0), 4)
+    tok_pad, row_out, gate_pad, tg, tr, k = eg.fused_tables(wg, gs, token, dest, slot, gate_sorted, 4)
+    h = eg.fused_gate_up_cuda(rand(4, 4096), wg, wu, tok_pad, tg, tr)
+    out["grouped_gate_up_fused decode"] = sha(h)
+    out["grouped_down_fused decode"] = sha(eg.fused_down_cuda(h, wd, row_out, gate_pad, tg, tr, k, 4))
+    del wg, wu, wd
+    for S, window, d in ((340, None, 128), (2048, None, 128), (512, 128, 128), (1000, None, 64)):
+        q, kk, v = rand(1, S, 32, d), rand(1, S, 8, d), rand(1, S, 8, d)
+        out[f"flash_fwd S={S} window={window} d={d}"] = sha(*fa.flash_fwd_cuda(q, kk, v, True, window, d ** -0.5))
+    return out
+
+
+def kernel_times(seed: int) -> dict:
+    """Times (ms) of the kernels this slice redesigned, #16 and #15, and of
+    #15's yardsticks #11 and #4, at phase 2's flash shapes and phase 9a's
+    decode and prefill routings, for the kernels of the tree whose ``src``
+    is on the path (``--times``; the calls are ones every tree since the
+    fused slice takes): CUDA-graph device time and CUDA events around
+    back-to-back wrapper calls (host work included)."""
+    import torch
+    from repro_torch.core.quant import quantize_weight
+    from repro_torch.kernels import expert_gemm as eg
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    rand = lambda *shape, scale=1.0: (torch.randn(shape, generator=gen, device="cuda") * scale).bfloat16()
+    out = {}
+    for S, window in ((16, None), (340, None), (512, None), (512, 128), (2048, None)):
+        q, k, v = rand(1, S, 32, 128), rand(1, S, 8, 128), rand(1, S, 8, 128)
+        fn = lambda: fa.flash_fwd_cuda(q, k, v, True, window, 128 ** -0.5)
+        out[f"flash_fwd S={S} window={window}"] = {"device_ms": graph_ms(fn), "ms": time_ms(fn, reps=20, warmup=3)}
+    wd = rand(8, 14336, 4096, scale=14336 ** -0.5)
+    qd, sd = quantize_weight(wd)
+    for groups, T in (((3, 0, 2, 1, 0, 1, 1, 0), 4), ((200, 0, 131, 77, 64, 50, 40, 38), 300)):
+        label = "decode" if T == 4 else "prefill"
+        token, slot, dest, gate_sorted, gs = fused_routing(gen, groups, T)
+        tok_pad, row_out, gate_pad, tg, tr, k = eg.fused_tables(qd, gs, token, dest, slot, gate_sorted, T)
+        h = rand(tok_pad.shape[0], 14336)
+        dst = torch.empty((k, T, 4096), dtype=torch.bfloat16, device="cuda")
+        for name, fn in (("grouped_down_fused_q8", lambda: eg.fused_down_q8_cuda(h, qd, sd, row_out, gate_pad, tg, tr,
+                                                                                 k, T, dst)),
+                         ("grouped_down_q8", lambda: eg.down_q8_cuda(h, qd, sd, tg, tr)),
+                         ("grouped_down", lambda: eg.down_cuda(h, wd, tg, tr))):
+            out[f"{name} {label}"] = {"device_ms": graph_ms(fn), "ms": time_ms(fn)}
     return out
 
 
@@ -2174,11 +2266,13 @@ def check_fused(gen, group_sizes, T: int, label: str, D=4096, F=14336, q8: bool 
     """Kernels #12/#13 (``q8``: #14/#15) on one routing against their plain
     versions (GG_TOL x max|plain|): h's padding rows exactly 0, and the
     partials buffer filled with NaN before the down launch comes back
-    finite (every (slot, token) row written once). Then kernel, plain and
-    bound times, the unfused twin kernel's time (#3/#4 or #10/#11 on the
-    scattered buffer), and the whole fused path (tables, both kernels, k-way sum)
-    beside the port's unfused path on the same routing (scatter into the
-    aligned buffer, #3/#4 or #10/#11, gather and combine)."""
+    finite (every (slot, token) row written once), twice, bit-equal. Then
+    kernel, plain and bound times, the unfused twin kernel's time (#3/#4 or
+    #10/#11 on the scattered buffer; with ``q8`` also the bf16 #4 on the
+    same h and the weights before quantisation, and CUDA-graph device times
+    of #15, #11 and #4), and the whole fused path (tables, both kernels,
+    k-way sum) beside the port's unfused path on the same routing (scatter
+    into the aligned buffer, #3/#4 or #10/#11, gather and combine)."""
     import torch
     from repro_torch.core.dispatch import SortedDispatcher
     from repro_torch.core.dispatch.base import DispatchLayout, DispatchState
@@ -2199,6 +2293,7 @@ def check_fused(gen, group_sizes, T: int, label: str, D=4096, F=14336, q8: bool 
     valid = valid_rows(gs, N_pad)
     if q8:
         (wg, sg), (wu, su), (wd, sd) = (quantize_weight(w[n]) for n in ("w_gate", "w_up", "w_down"))
+        wd_bf16 = w["w_down"]  # #4's operand: the same product in bf16
         del w
         gate_up = lambda: eg.fused_gate_up_q8_cuda(x, wg, wu, sg, su, tok_pad, tg, tr)
         gate_up_plain = lambda: ref.fused_gate_up_q8_ref(x, wg, wu, sg, su, tok_pad, tg, tr)
@@ -2233,16 +2328,24 @@ def check_fused(gen, group_sizes, T: int, label: str, D=4096, F=14336, q8: bool 
 
     h = gate_up()
     h_ref = gate_up_plain()
-    nan_buf = torch.full((k, T, D), float("nan"), dtype=torch.bfloat16, device=dev)
-    part = down(h_ref, nan_buf)
+    parts = [down(h_ref, torch.full((k, T, D), float("nan"), dtype=torch.bfloat16, device=dev)) for _ in range(2)]
+    part = parts[0]
     part_ref = down_plain(h_ref)
     y_fused, y_unfused = fused_path(), unfused_path()
     torch.cuda.synchronize()
     all_written = bool(torch.isfinite(part.float()).all())
+    bit_equal = torch.equal(parts[0].view(torch.int16), parts[1].view(torch.int16))
     path_rel = rel_err(y_fused, y_unfused)[1]
     fused_ms, unfused_ms = time_ms(fused_path), time_ms(unfused_path)
     xs = scatter()
     twin_ms = (time_ms(lambda: twins[0](xs)), time_ms(lambda: twins[1](h_ref)))
+    extra = {}
+    if q8:  # the same product in bf16 (#4), and device times of #15, #11 and #4
+        dst = torch.empty((k, T, D), dtype=torch.bfloat16, device=dev)
+        extra = dict(grouped_down_ms=time_ms(lambda: eg.down_cuda(h_ref, wd_bf16, tg, tr)),
+                     device_ms=graph_ms(lambda: down(h_ref, dst)),
+                     unfused_twin_device_ms=graph_ms(lambda: twins[1](h_ref)),
+                     grouped_down_device_ms=graph_ms(lambda: eg.down_cuda(h_ref, wd_bf16, tg, tr)))
     touched = sum(1 for g in group_sizes if g)
     scale_bytes = lambda n_w, n_out: touched * n_w * n_out * 2 if q8 else 0
     rows = []
@@ -2251,7 +2354,7 @@ def check_fused(gen, group_sizes, T: int, label: str, D=4096, F=14336, q8: bool 
          # x (each token's row once), the touched experts' weights (and scales), h (all N_pad rows), tok_pad
          T * D * 2 + touched * 2 * D * F * w_bytes + scale_bytes(2, F) + N_pad * F * 2 + N_pad * 4,
          N * 4 * D * F, gate_up, gate_up_plain),
-        (names[1], twin_ms[1], part, part_ref, all_written,
+        (names[1], twin_ms[1], part, part_ref, all_written and bit_equal,
          # h's valid rows, the touched experts' weights (and scales), k*T partial rows, row_out and gate_pad
          N * F * 2 + touched * F * D * w_bytes + scale_bytes(1, D) + k * T * D * 2 + N_pad * 8,
          N * 2 * F * D, lambda: down(h_ref), lambda: down_plain(h_ref)),
@@ -2265,11 +2368,19 @@ def check_fused(gen, group_sizes, T: int, label: str, D=4096, F=14336, q8: bool 
                    unfused_path_ms=unfused_ms,
                    shape=f"{label}: T={T} k={k} N={N} N_pad={N_pad} D={D} F={F} E={E} groups={list(group_sizes)}"
                          + (" int8 weights" if q8 else ""))
+        side = "padding rows of h zero" if name == names[0] else \
+            "every partial row written (NaN-filled before), twice bit-equal"
+        more = ""
+        if name == names[1] and extra:
+            row.update(extra)
+            more = (f"; #4 (bf16 weights) {extra['grouped_down_ms']:.4f} ms; device: kernel {extra['device_ms']:.4f} "
+                    f"#11 {extra['unfused_twin_device_ms']:.4f} #4 {extra['grouped_down_device_ms']:.4f} ms, "
+                    f"kernel / #4 {extra['device_ms'] / extra['grouped_down_device_ms']:.3f}, bound / kernel "
+                    f"{b_ms / extra['device_ms']:.3f}")
         rows.append(row)
-        side = "padding rows of h zero" if name == names[0] else "every partial row written (NaN-filled before)"
         print(f"  {name} [{label}] err {err:.4g} (rel {rel:.3g}, tol {GG_TOL}) {side} {side_ok} "
               f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms bound {b_ms:.4f} ms ({b_by}); its unfused "
-              f"twin on the scattered buffer {twin:.4f} ms")
+              f"twin on the scattered buffer {twin:.4f} ms{more}")
         if not ok:
             raise SystemExit(f"{name} [{label}] disagrees with its plain version")
     print(f"  fused path [{label}] (tables + {names[0]} + {names[1]} + fp32 k-way sum) {fused_ms:.4f} ms; the port's "
@@ -2444,6 +2555,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9", help="comma list of phases to run")
     ap.add_argument("--digest", metavar="SRC", help="only print digests() of the port under SRC (a tree's src "
                                                       "directory) and exit: run it on two trees to compare outputs")
+    ap.add_argument("--times", metavar="SRC", help="only print kernel_times() of the port under SRC and exit: run "
+                                                     "it on two trees in turns to compare their kernels")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -2455,9 +2568,14 @@ def main(argv=None) -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {ROOT / 'chip_smoke.py'}", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(args.digest).resolve() if args.digest else ROOT / "src"))
+    tree = args.digest or args.times
+    sys.path.insert(0, str(Path(tree).resolve() if tree else ROOT / "src"))
     if args.digest:
         print(json.dumps({"digests": digests(args.seed), "src": args.digest}))
+        return 0
+    if args.times:
+        print(card_line())
+        print(json.dumps({"times": kernel_times(args.seed), "src": args.times}))
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2510,6 +2628,8 @@ def main(argv=None) -> int:
         check_flash(gen, 340)
         kernels["flash_fwd"] = check_flash(gen, 512)
         check_flash(gen, 512, window=128)
+        check_flash(gen, 2048)  # the training length
+        check_flash(gen, 1000, d=64)  # ragged: no tile size divides it
         for q8 in (False, True):
             kernels["paged_attention_q8" if q8 else "paged_attention"] = check_paged(gen, q8)
             check_paged(gen, q8, window=128)

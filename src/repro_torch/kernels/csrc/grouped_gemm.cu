@@ -1,10 +1,11 @@
 // Expert FFN GEMMs with fused SwiGLU for Hopper (sm_90a): twelve entry
-// points. Three run on the warp-specialised wgmma/TMA mainloop of
-// sm90_gemm.cuh: expert_gate_up (#1), expert_down (#2) and grouped_down
-// (#4), each with its note below. The other nine (#3 and #8-#15) run on
-// one WMMA tile loop (ffn_kernel), templated over the row mapping and the
-// weight type. Each entry point has its own launch counter in
-// kernels/expert_gemm.py.
+// points. Four run on the warp-specialised wgmma/TMA mainloop of
+// sm90_gemm.cuh: expert_gate_up (#1), expert_down (#2), grouped_down (#4)
+// and grouped_down_fused_q8 (#15, int8 weights widened by the header's
+// widening stage), each with its note below. The other eight (#3 and
+// #8-#14) run on one WMMA tile loop (ffn_kernel), templated over the row
+// mapping and the weight type. Each entry point has its own launch
+// counter in kernels/expert_gemm.py.
 //
 // Replaces the TPU kernels of src/repro/kernels/expert_gemm.py:
 //   grouped_gate_up           _grouped_gate_up_kernel     (#3)  sorted, bf16          :335
@@ -58,7 +59,7 @@
 // the combine writes k*T*D*2 bytes of partials in place of the sorted
 // buffer's N_pad rows.
 //
-// ffn_kernel (#3, #8-#15): one block per (64-row block, 128 output
+// ffn_kernel (#3, #8-#14): one block per (64-row block, 128 output
 // columns); blocks that share a weight column block are launched next to
 // each other (the row block is the fastest grid dim) so the second reads
 // the weights from L2. The contraction loop streams 32-deep slabs of x
@@ -75,7 +76,8 @@
 // the TPU epilogue does (loaded into accumulator fragments from a
 // shared-memory tile of repeated rows, so they line up). No wgmma, TMA
 // or warp specialisation: its entry points are ROADMAP queue 2's next
-// redesigns.
+// redesigns (the int8 ones, #8-#11 and #14, onto the mainloop with #15's
+// widening stage). Its <1, FUSED, true> instantiation (#15) is gone.
 //
 // expert_down (#2): y[e] = h[e] @ Wd[e]. Bound at decode (C 4) by the
 // weight bytes (940 MB at llama3-e8t2 widths, 0.281 ms at 3.35 TB/s), at
@@ -141,12 +143,42 @@
 // memory at BN 256, 230,512 B at BN 128. Tried and dropped for #1 and
 // #4: nothing; each kept its first design.
 //
+// grouped_down_fused_q8 (#15): partials[row_out[r]] = (h[r] @ Wd[e] *
+// s_down[e]) * gate_pad[r] over the sorted row tiles, Wd int8. Bound by
+// bytes at decode (5 experts' int8 weights, 294 MB, 0.0877 ms) and at
+// prefill (0.1293 ms). The design is #4's kernel (grid, grouped_tile order,
+// clusters of 2, the 64-row h box for tiles whose rows fit one
+// warpgroup) with an int8 B: Wd[e] comes as N-major boxes of 128 columns x
+// 64 F rows through a UINT8 tensor map (8 KB a box, two a slab at BN 256,
+// half #4's bytes), and every slab is widened to the two bf16 boxes a
+// 128-column box makes before the slab's wgmma (sm90::widen_s8 into one
+// of three bf16 buffers; a fence, one named barrier a slab;
+// sm90::consume_s8). All 256 consumer threads widen, so at decode the
+// warpgroup with no rows widens half of every slab (sm90::widen_slabs: a
+// loop with no accumulator) while the other widens the other half and
+// runs the products. The epilogue scales, gates and rounds once in
+// registers and stores each valid row at its row_out row; padding rows and
+// empty tiles store nothing. Per block: 168 registers (a few bytes spilled
+// at BN 256), 230,464 B of shared memory (4 slots of 16 KB h + 16 KB int8
+// and three 32 KB bf16 buffers); BN 128: 7 slots, 222,320 B. Tried and
+// dropped (variant builds on the card; PERF.md): widening through fp32
+// (prmt, fadd per value: slower than the bf16x2 subtraction), a loop that
+// both roles share (the idle warpgroup's widening then ran with the
+// accumulator's registers live: slower), BN 128 (more blocks than SMs at
+// decode), separate rings for h and the int8 boxes so that an int8 slot
+// is refilled as soon as it is widened (slower), one warpgroup widening a
+// whole slab while the other runs the products, and 16-row h boxes for
+// tiles of up to 16 rows (neither faster).
+//
 // Left for later: #1 at C 300 (a block of 100 rows on a 128-row tile) and
 // the mainloop's ~60-67% of the tensor-core peak at C 512 and in training
 // (sm90_gemm.cuh); the padded decode computes all 8 experts at C 4 (#1,
 // #2: skip empty ones); a fixed-order split over F for #2 at C 300; the
-// nine ffn_kernel entry points onto the mainloop (int8 weights need a
-// widening stage before wgmma).
+// eight ffn_kernel entry points onto the mainloop (the int8 ones with
+// #15's widening stage); #15's widening costs shared-memory traffic (16 KB
+// read and 32 KB written a slab at BN 256, beside the products' reads)
+// that the products do not fully hide, which holds it above #4 at
+// prefill.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -637,6 +669,101 @@ int launch_grouped_down(const void* h, const void* w_down, const int* tile_group
                               tile_group, tile_rows, (bf16*)y, f, d);
 }
 
+// ---------------------------------------------------------------------------
+// #15 grouped_down_fused_q8: #4's product with int8 weights, widened in
+// shared memory, and the gate-weighted combine into the slot partials
+// ---------------------------------------------------------------------------
+
+// h (N_pad, F) as #4 reads it (128- and 64-row boxes); Wd (E, F, D) int8 in
+// boxes of 128 D columns x 64 F rows (N-major B, widened by consume_s8)
+struct FusedDownQ8Maps {
+  CUtensorMap h, h64, wd;
+};
+
+// #4's grid, block order and row boxes. Each slab's int8 boxes are widened
+// to bf16 by all consumer threads (an idle warpgroup's among them) before
+// the active warpgroups' wgmma (sm90::consume_s8). The epilogue stores only
+// valid rows: row r of the tile, (acc * s_down[e, col]) * gate_pad[row0 + r]
+// in fp32, rounded to bf16 once, at row row_out[row0 + r] of the (k*T, D)
+// partials. An empty tile loads and stores nothing.
+template <class T>
+__global__ void __launch_bounds__(T::THREADS, 1)
+grouped_down_fused_q8_kernel(const __grid_constant__ FusedDownQ8Maps maps, const bf16* __restrict__ S,
+                             const int* __restrict__ row_out, const float* __restrict__ gate_pad,
+                             const int* __restrict__ tile_group, const int* __restrict__ tile_rows,
+                             bf16* __restrict__ out, int F, int D) {
+  static_assert(T::BM == ROW_TILE && T::B_MN, "one block per row tile, an N-major B");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int tid = threadIdx.x, wg = tid / 128;
+  int tile, cb;
+  sm90::grouped_tile(D / T::BN, tile, cb);
+  const int row0 = tile * T::BM, n0 = cb * T::BN;
+  const int valid = min(max(tile_rows[tile], 0), T::BM);
+  const int active = (valid + 63) / 64;  // consumer warpgroups with a valid row
+  if (active == 0) return;               // empty tile: no row of the partials is its
+  const int e = tile_group[tile];
+  const sm90::Ring<T> ring = sm90::ring_at<T>(smem_raw);
+  if (tid == 0) ring.init(4 * active);
+  __syncthreads();
+  const int n_slabs = F / T::BK;
+  if (wg == T::NWG) {  // the producer warp: one thread issues every copy
+    if (tid == T::CONSUMERS) {
+      const CUtensorMap* a_map = active == 1 ? &maps.h64 : &maps.h;
+      sm90::produce(ring, n_slabs, [&](int i, uint32_t a, uint32_t b, uint32_t bar) {
+        const int k0 = i * T::BK;
+        sm90::tma_load_3d(a, a_map, k0, row0, 0, bar);
+#pragma unroll
+        for (int c = 0; c < T::BN / 128; ++c)
+          sm90::tma_load_3d(b + c * (T::BK * 128), &maps.wd, n0 + 128 * c, k0, e, bar);
+      }, active * 64 * 128 + T::B_BYTES);
+    }
+    return;
+  }
+  if (wg >= active) {  // no row of this warpgroup's: it only widens its share of each slab
+    sm90::widen_slabs(ring, n_slabs);
+    return;
+  }
+  float acc[T::BN / 2];
+#pragma unroll
+  for (int i = 0; i < T::BN / 2; ++i) acc[i] = 0.f;
+  sm90::consume_s8(ring, n_slabs, wg, acc);
+  if (wg >= active) return;
+  const int warp = (tid % 128) / 32, g = (tid % 32) / 4, t = tid % 4;
+  const __nv_bfloat162* scale = reinterpret_cast<const __nv_bfloat162*>(S + (size_t)e * D + n0 + 2 * t);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = wg * 64 + warp * 16 + g + 8 * hh;
+    if (r >= valid) continue;
+    const float gate = gate_pad[row0 + r];
+    uint32_t* dst = reinterpret_cast<uint32_t*>(out + (size_t)row_out[row0 + r] * D + n0 + 2 * t);
+#pragma unroll
+    for (int j = 0; j < T::BN / 8; ++j) {
+      const float2 sc = __bfloat1622float2(scale[4 * j]);
+      dst[4 * j] = sm90::pack_bf16((acc[4 * j + 2 * hh] * sc.x) * gate, (acc[4 * j + 2 * hh + 1] * sc.y) * gate);
+    }
+  }
+}
+
+// three bf16 buffers of a widened slab after the ring (consume_s8)
+template <int BN_>
+using FusedQ8Tile = sm90::Tile<2, BN_, true, 3 * BN_ * 64 * 2, 1>;
+
+template <class T>
+int launch_fused_down_q8(const void* h, const void* w_down, const void* s_down, const int* row_out,
+                         const float* gate_pad, const int* tile_group, const int* tile_rows, void* partials,
+                         int n_pad, int f, int d, cudaStream_t s) {
+  static const cudaError_t attr =  // once per process and tile shape
+      cudaFuncSetAttribute(grouped_down_fused_q8_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  FusedDownQ8Maps maps;
+  if (!sm90::map_3d(&maps.h, h, f, n_pad, 1, T::BM) || !sm90::map_3d(&maps.h64, h, f, n_pad, 1, 64) ||
+      !sm90::map_3d(&maps.wd, w_down, d, f, sm90::MAX_EXPERTS, 64, 1))
+    return (int)cudaErrorInvalidValue;
+  return sm90::launch_grouped(grouped_down_fused_q8_kernel<T>, (n_pad / T::BM) * (d / T::BN), T::THREADS, T::SMEM,
+                              s, maps, (const bf16*)s_down, row_out, gate_pad, tile_group, tile_rows, (bf16*)partials,
+                              f, d);
+}
+
 int sorted_blocks(int n_pad) { return n_pad / BM; }
 int padded_blocks(int e, int c) { return e * ((c + BM - 1) / BM); }
 
@@ -755,12 +882,15 @@ extern "C" int grouped_gate_up_fused_q8(const void* x, const void* w_gate, const
   return (int)cudaGetLastError();
 }
 
+// h (n_pad, f); w_down (E, f, d) int8; s_down (E, d) bf16; row_out / gate_pad (n_pad,) -> partials
+// (k*T, d), each row written once: the wgmma/TMA kernel above, BN 256 where d allows it
 extern "C" int grouped_down_fused_q8(const void* h, const void* w_down, const void* s_down, const int* row_out,
                                      const float* gate_pad, const int* tile_group, const int* tile_rows,
                                      void* partials, int n_pad, int f, int d, void* stream) {
-  dim3 grid(sorted_blocks(n_pad), d / BN);
-  ffn_kernel<1, FUSED, true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)h, w_down, w_down, (const bf16*)s_down, (const bf16*)s_down, tile_group, tile_rows, 0, row_out,
-      gate_pad, (bf16*)partials, f, d);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_pad % ROW_TILE || f % 64 || d % 128) return (int)cudaErrorInvalidValue;
+  return d % 256 == 0 ? launch_fused_down_q8<FusedQ8Tile<256>>(h, w_down, s_down, row_out, gate_pad, tile_group,
+                                                               tile_rows, partials, n_pad, f, d, s)
+                      : launch_fused_down_q8<FusedQ8Tile<128>>(h, w_down, s_down, row_out, gate_pad, tile_group,
+                                                               tile_rows, partials, n_pad, f, d, s);
 }

@@ -1,15 +1,33 @@
 // A warp-specialised wgmma + TMA GEMM mainloop for Hopper (sm_90a), shared
-// by the bf16 expert GEMMs on it: expert_gate_up (#1), expert_down (#2)
-// and grouped_down (#4) in grouped_gemm.cu, and grouped_bwd_dh (#5),
-// grouped_bwd_dx (#6) and grouped_bwd_wgrad (#7) in grouped_gemm_bwd.cu.
-// Header only: each .cu that includes it instantiates the tiles it needs;
-// each caller's note gives its design and ptxas's counts. Besides the
-// mainloop it holds what the sorted kernels share (grouped_tile's block
-// order, store_zeros, MAX_EXPERTS) and the cluster launch (launch_cluster).
-// The paged-attention decode kernels #19/#20 (paged_attention.cu) use its
-// TMA, mbarrier, cluster-launch and tensor-map helpers, and the warp-level
-// helpers kept here for them (ldmatrix, movmatrix, mma.sync m16n8k16, a
-// 4-byte cp.async that arrives on an mbarrier).
+// by the expert GEMMs on it: expert_gate_up (#1), expert_down (#2),
+// grouped_down (#4) and, with int8 weights, grouped_down_fused_q8 (#15) in
+// grouped_gemm.cu, and grouped_bwd_dh (#5), grouped_bwd_dx (#6) and
+// grouped_bwd_wgrad (#7) in grouped_gemm_bwd.cu. Header only: each .cu
+// that includes it instantiates the tiles it needs; each caller's note
+// gives its design and ptxas's counts. Besides the mainloop it holds what
+// the sorted kernels share (grouped_tile's block order, store_zeros,
+// MAX_EXPERTS) and the cluster launch (launch_cluster). The paged-attention
+// decode kernels #19/#20 (paged_attention.cu) use its TMA, mbarrier,
+// cluster-launch and tensor-map helpers, and the warp-level helpers kept
+// here for them (ldmatrix, movmatrix, mma.sync m16n8k16, a 4-byte cp.async
+// that arrives on an mbarrier); the flash-attention forward #16
+// (flash_fwd.cu) its TMA, mbarrier, named-barrier and wgmma helpers, with
+// the shapes added for it (wgmma m64n64k16 from shared memory that starts
+// or adds to its sum, wgmma with a register A at n64 and n128, pack_a,
+// fence_frags, exp2_approx).
+//
+// int8 weights (#15; the pattern for #8-#11 and #14). map_3d takes 1-byte
+// elements (a UINT8 map: boxes of 128 columns x rows, 128B-swizzled like
+// the others), and a Tile with B_ELEM 1 keeps B in its slots as int8
+// N-major boxes of 128 columns x 64 K rows: half the bytes of bf16 per
+// slab. wgmma has no bf16 x int8 product, so a widening stage runs between
+// a slot's arrival and its product: widen_s8 turns each int8 box into the
+// two 64-column bf16 boxes that an N-major B descriptor reads (exact, |q|
+// <= 127) in one of three bf16 buffers in the Tile's EXTRA area, then a
+// proxy fence and one named barrier of all consumer threads a slab
+// (consume_s8, for warpgroups with rows; widen_slabs, for one without).
+// The caller applies the per-column scales to the fp32 sums in its
+// epilogue, as the TPU kernels do.
 //
 // What it computes: per consumer warpgroup, a 64 x N fp32 accumulator (N
 // 128 or 256) += A (64 rows, K) @ B over a run of BK-deep slabs of a ring
@@ -171,6 +189,11 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
+// arrive at barrier `id` without waiting: the threads that bar.sync on it
+// go on once `threads` threads in all have arrived or synced
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 // make this thread's generic writes to shared memory visible to the async proxy (wgmma, TMA)
 __device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 // make mbarrier inits visible to the async proxy and the cluster (after the inits, before their first use)
@@ -227,6 +250,13 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x (ex2.approx: relative error ~2^-22; -inf gives +0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Descriptor of a shared-memory operand stored as 128-byte swizzled rows of
@@ -291,6 +321,82 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t
     wgmma_ss_n256<TA, TB>(d, a, b);
 }
 
+#define SM90_ACC8(o)                                                                                       \
+  "+f"(d[o + 0]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), "+f"(d[o + 4]), "+f"(d[o + 5]),          \
+      "+f"(d[o + 6]), "+f"(d[o + 7])
+#define SM90_OUT8(o)                                                                                       \
+  "=f"(d[o + 0]), "=f"(d[o + 1]), "=f"(d[o + 2]), "=f"(d[o + 3]), "=f"(d[o + 4]), "=f"(d[o + 5]),          \
+      "=f"(d[o + 6]), "=f"(d[o + 7])
+#define SM90_SS_N64                                                                     \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                        \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "            \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
+  "%32, %33, p, 1, 1, 0, 0;\n}\n"
+
+// d (64 x 64 fp32) = (ACC ? d : 0) + A (64 x 16) B (16 x 64), both K-major
+// in shared memory (flash_fwd.cu's S = Q K^T); ACC false starts the sum
+template <bool ACC>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b) {
+  if constexpr (ACC)
+    asm volatile(SM90_SS_N64 : SM90_ACC8(0), SM90_ACC8(8), SM90_ACC8(16), SM90_ACC8(24) : "l"(a), "l"(b), "r"(1));
+  else
+    asm volatile(SM90_SS_N64 : SM90_OUT8(0), SM90_OUT8(8), SM90_OUT8(16), SM90_OUT8(24) : "l"(a), "l"(b), "r"(0));
+}
+
+// d (64 x N fp32) += A (64 x 16 bf16 in registers: the thread's fragment,
+// as pack_a gives it) B (16 x N in shared memory, K-major (TB 0) or N-major
+// (TB 1)); N 64 or 128 (flash_fwd.cu's O += P V)
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : SM90_ACC8(0), SM90_ACC8(8), SM90_ACC8(16), SM90_ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
+}
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : SM90_ACC8(0), SM90_ACC8(8), SM90_ACC8(16), SM90_ACC8(24), SM90_ACC8(32), SM90_ACC8(40), SM90_ACC8(48),
+        SM90_ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
+}
+#undef SM90_SS_N64
+#undef SM90_OUT8
+#undef SM90_ACC8
+
+// The accumulator of an m64nN wgmma (N / 2 fp32 a thread) as the bf16 A
+// fragments of the next product: columns 16kk..16kk+15 of a thread's rows,
+// packed in pairs, are its fragment a[kk] for the k16 step kk.
+template <int M>
+__device__ __forceinline__ void pack_a(const float (&x)[M], uint32_t (&a)[M / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < M / 8; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[kk][i] = pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
+  }
+}
+
+// keep the compiler from reusing A fragments that an async MMA still reads
+template <int K>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
+}
+
 // ---------------------------------------------------------------------------
 // the tile and its ring
 // ---------------------------------------------------------------------------
@@ -302,14 +408,17 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t
 // consumer thread holds BN / 2 accumulators. B_MN is the B layout of
 // consume(); consume_at() takes its layouts per product. EXTRA bytes of
 // shared memory after the ring, 1024-aligned, are the caller's (#7 stages
-// its output tile there for a TMA store).
-template <int NWG_, int BN_, bool B_MN_, int EXTRA_ = 0>
+// its output tile there for a TMA store; consume_s8 widens int8 slabs
+// there). B_ELEM 1: a slot holds B in int8 (BN / 128 N-major boxes of 128
+// columns x 64 K rows), for consume_s8.
+template <int NWG_, int BN_, bool B_MN_, int EXTRA_ = 0, int B_ELEM_ = 2>
 struct Tile {
   static constexpr int NWG = NWG_, BM = 64 * NWG_, BN = BN_, BK = 64;
   static constexpr bool B_MN = B_MN_;
   static constexpr int CONSUMERS = 128 * NWG, THREADS = CONSUMERS + 32;
   static_assert(NWG == 1 || NWG == 2, "consumer warpgroups");
-  static constexpr int A_BYTES = BM * BK * 2, B_BYTES = BN * BK * 2, STAGE = A_BYTES + B_BYTES;
+  static_assert(B_ELEM_ == 2 || (B_ELEM_ == 1 && B_MN_ && BN_ % 128 == 0), "B in bf16, or int8 N-major boxes");
+  static constexpr int A_BYTES = BM * BK * 2, B_BYTES = BN * BK * B_ELEM_, STAGE = A_BYTES + B_BYTES;
   static constexpr int EXTRA = EXTRA_;
   static constexpr int STAGES = (225 * 1024 - EXTRA) / STAGE < 8 ? (225 * 1024 - EXTRA) / STAGE : 8;
   static constexpr int BAR = STAGES * STAGE + EXTRA;      // full[STAGES], then empty[STAGES]
@@ -414,6 +523,100 @@ __device__ __forceinline__ void zero_rows(uint32_t base, int boxes, int from, in
     asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(at), "r"(0) : "memory");
   }
   fence_async_smem();
+}
+
+// The int8 widening stage. BOXES int8 boxes at src (each 64 K rows of 128
+// bytes = 128 N columns, 128B-swizzled by the TMA unit: 16-byte chunk c of
+// row r at chunk c ^ (r % 8)) become 2 * BOXES bf16 boxes at dst (box j:
+// columns 64j..64j+63, 64 rows of 128 bytes, 8 KB apart, in the same
+// swizzle): the N-major B that consume's descriptors read. THREADS threads
+// (index tid) each load all their 16-byte chunks first, then convert and
+// store them: a warp's loads read 512 contiguous bytes, and its two
+// 16-byte stores per chunk fall on all 32 banks (no conflict). A byte q
+// becomes bf16 exactly (|q| <= 127): one prmt places two bytes in the low
+// bytes of two 16-bit lanes, one lop3 makes each lane the bf16 128 +
+// (q & 127), another makes it 128 or 256 by q's sign bit, and one
+// sub.bf16x2 leaves q (fewer integer operations than widening through
+// fp32, which measured slower on the card; PERF.md).
+template <int BOXES, int THREADS>
+__device__ __forceinline__ void widen_s8(uint32_t src, uint32_t dst, int tid) {
+  static_assert(BOXES * 512 % THREADS == 0, "whole chunks a thread");
+  constexpr int N = BOXES * 512 / THREADS;  // 16-byte chunks a thread
+  uint32_t w[N][4];
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(w[j][0]), "=r"(w[j][1]), "=r"(w[j][2]), "=r"(w[j][3])
+                 : "r"(src + (tid + j * THREADS) * 16));
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int c = tid + j * THREADS;
+    const int r = (c / 8) % 64, x = r % 8, lc = (c % 8) ^ x;  // lc: the chunk's 16 columns in its int8 box
+    uint32_t o[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const uint32_t lanes = __byte_perm(w[j][k / 2], 0u, k % 2 ? 0x4342 : 0x4140);  // bytes 2(k%2), +1
+      const uint32_t v = (lanes & 0x007F007Fu) | 0x43004300u, base = (lanes & 0x00800080u) | 0x43004300u;
+      asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(o[k]) : "r"(v), "r"(base));
+    }
+    const uint32_t row = dst + (2 * (c / 512) + lc / 4) * (64 * 128) + r * 128;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(row + ((2 * (lc % 4) + hh) ^ x) * 16),
+                   "r"(o[4 * hh]), "r"(o[4 * hh + 1]), "r"(o[4 * hh + 2]), "r"(o[4 * hh + 3])
+                   : "memory");
+  }
+}
+
+// Consumers of a ring whose slots hold a K-major bf16 A (as consume reads
+// it) and B as int8 N-major boxes (Tile B_ELEM 1). Per slab: wait for the
+// slot, widen its int8 boxes into bf16 buffer i % 3 of the caller's EXTRA
+// area (BN / 64 boxes of 8 KB each), fence the writes for the async proxy
+// and meet at named barrier 1 (all T::CONSUMERS threads, every slab); then
+// the warpgroup issues the slab's wgmma and waits for the one before it,
+// which frees that slab's slot. Three buffers let a slab be widened while
+// the previous slab's product runs, with one barrier a slab: buffer i % 3
+// is rewritten only after every product warpgroup has waited for slab
+// i - 3's product, which it does before it reaches the barrier of slab
+// i - 1. A warpgroup with rows runs consume_s8 (it widens its share of
+// each slab, then runs the product; its accumulator stays live through
+// the loop); a warpgroup without rows runs widen_slabs, the same loop with
+// no product and no accumulator (so its widening spends no registers on
+// one), which measured faster than one loop for both.
+template <class T>
+__device__ __forceinline__ void widen_slabs(const Ring<T>& r, int n) {
+  for (int i = 0; i < n; ++i) {
+    const int s = i % T::STAGES;
+    mbar_wait(r.full(s), (i / T::STAGES) & 1);
+    widen_s8<T::BN / 128, T::CONSUMERS>(r.b(s), r.extra() + (i % 3) * (T::BN * T::BK * 2), threadIdx.x);
+    fence_async_smem();
+    named_sync(1, T::CONSUMERS);
+  }
+}
+
+template <class T>
+__device__ __forceinline__ void consume_s8(const Ring<T>& r, int n, int wg, float (&acc)[T::BN / 2]) {
+  constexpr int W_BYTES = T::BN * T::BK * 2;
+  static_assert(T::B_BYTES * 2 == W_BYTES && T::EXTRA >= 3 * W_BYTES, "int8 slots, three bf16 buffers");
+  const bool lead = threadIdx.x % 32 == 0;
+  for (int i = 0; i < n; ++i) {
+    const int s = i % T::STAGES;
+    mbar_wait(r.full(s), (i / T::STAGES) & 1);
+    const uint32_t w = r.extra() + (i % 3) * W_BYTES;
+    widen_s8<T::BN / 128, T::CONSUMERS>(r.b(s), w, threadIdx.x);
+    fence_async_smem();
+    named_sync(1, T::CONSUMERS);
+    const uint64_t da = sw128_desc(r.a(s) + wg * (64 * 128), 16), db = sw128_desc(w, T::BK * 128);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < T::BK / 16; ++kk) wgmma_ss<T::BN, 0, 1>(acc, da + 2 * kk, db + (16 * 128 >> 4) * kk);
+    wgmma_commit();
+    wgmma_wait<1>();  // the slab before this one has been read
+    if (i > 0 && lead) mbar_arrive(r.empty((i - 1) % T::STAGES));
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if (n > 0 && lead) mbar_arrive(r.empty((n - 1) % T::STAGES));
 }
 
 // Columns C0 .. C0 + W - 1 of a consumer warpgroup's accumulator as bf16
@@ -543,17 +746,21 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (d2, d1, d0) array of `elem`-byte elements (bf16, or fp32 where elem is
-// 4), contiguous along d0, read or written in 128B-swizzled boxes of
-// 128 / elem x rows x 1; out-of-bounds elements arrive as zeros. False if
-// the base is not 16-byte aligned or the driver refuses the map.
+// A (d2, d1, d0) array of `elem`-byte elements (bf16; fp32 where elem is
+// 4; int8, as bytes, where elem is 1), contiguous along d0, read or
+// written in 128B-swizzled boxes of 128 / elem x rows x 1; out-of-bounds
+// elements arrive as zeros. False if the base is not 16-byte aligned or
+// cuTensorMapEncodeTiled refuses the map.
 inline bool map_3d(CUtensorMap* m, const void* ptr, uint64_t d0, uint64_t d1, uint64_t d2, uint32_t rows,
                    uint32_t elem = 2) {
   if (reinterpret_cast<uintptr_t>(ptr) % 16 || !encode_tiled()) return false;
   const cuuint64_t dims[3] = {d0, d1, d2};
   const cuuint64_t strides[2] = {d0 * elem, d0 * d1 * elem};
   const cuuint32_t box[3] = {128 / elem, rows, 1}, step[3] = {1, 1, 1};
-  return encode_tiled()(m, elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  const CUtensorMapDataType type = elem == 4   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : elem == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return encode_tiled()(m, type, 3,
                         const_cast<void*>(ptr), dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -3,9 +3,10 @@ for the sorted layout in bf16 (``grouped_gemm``) and int8
 (``grouped_gemm_q8``), the padded layout in bf16 (``expert_gemm``) and int8
 (``expert_gemm_q8``) and the fused dispatch-in-kernel path in bf16
 (``grouped_gemm_fused``) and int8 (``grouped_gemm_fused_q8``). All twelve
-forward kernels live in ``csrc/grouped_gemm.cu``: #1, #2 and #4 on the
-wgmma/TMA mainloop of ``csrc/sm90_gemm.cuh``, the other nine on one
-templated WMMA tile loop.
+forward kernels live in ``csrc/grouped_gemm.cu``: #1, #2, #4 and #15 on
+the wgmma/TMA mainloop of ``csrc/sm90_gemm.cuh`` (#15 widens its int8
+weight slabs to bf16 in shared memory before each product), the other
+eight on one templated WMMA tile loop.
 
 Sorted, bf16 (``_grouped_fwd_impl``: ``_grouped_gate_up_kernel`` and
 ``_grouped_down_kernel``):
@@ -709,10 +710,30 @@ def fused_gate_up_q8_cuda(x, w_gate, w_up, s_gate, s_up, tok_pad, tile_group, ti
 
 def fused_down_q8_cuda(h, w_down, s_down, row_out, gate_pad, tile_group, tile_rows, k: int, T: int,
                        out=None) -> torch.Tensor:
-    """Launch ``grouped_down_fused_q8`` (#15): h (N_pad, F) -> (k, T, D)."""
+    """Launch ``grouped_down_fused_q8`` (#15): h (N_pad, F) -> slot
+    partials (k, T, D), every row written exactly once (``out``, a
+    contiguous (k, T, D) tensor of h's dtype, is written in its place).
+    Every check runs before the library is loaded."""
+    _check_bf16("grouped_down_fused_q8", h.device, h=h, s_down=s_down)
+    if h.dim() != 2 or w_down.dim() != 3 or w_down.shape[1] != h.shape[1]:
+        raise ValueError(f"grouped_down_fused_q8: h {tuple(h.shape)} must be (N_pad, F) and w_down "
+                         f"{tuple(w_down.shape)} (E, F, D)")
+    if w_down.dtype != torch.int8 or w_down.device != h.device or not w_down.is_contiguous():
+        raise ValueError(f"grouped_down_fused_q8: w_down must be a contiguous int8 tensor on {h.device}")
     N_pad, F = h.shape
-    D = w_down.shape[2]
+    E, D = w_down.shape[0], w_down.shape[2]
+    if s_down.shape != (E, D):
+        raise ValueError(f"grouped_down_fused_q8: s_down {tuple(s_down.shape)} must be ({E}, {D})")
+    if N_pad % ROW_TILE or F % COL_TILE or D % COL_TILE:
+        raise ValueError(f"grouped_down_fused_q8: N_pad={N_pad} must be a multiple of {ROW_TILE}, F={F} and D={D} "
+                         f"of {COL_TILE}")
+    for name, t, dt in (("row_out", row_out, torch.int32), ("gate_pad", gate_pad, torch.float32)):
+        if t.shape != (N_pad,) or t.dtype != dt or t.device != h.device or not t.is_contiguous():
+            raise ValueError(f"grouped_down_fused_q8: {name} must be a contiguous {dt} ({N_pad},) tensor on "
+                             f"{h.device}")
+    _check_tiles("grouped_down_fused_q8", N_pad // ROW_TILE, h.device, tile_group=tile_group, tile_rows=tile_rows)
     partials = _partials(out, k, T, D, h)
+    _check_tma("grouped_down_fused_q8", h=h, w_down=w_down, out=partials)
     lib = _build.load("grouped_gemm", _SIGS)
     _build.check(lib.grouped_down_fused_q8(
         h.data_ptr(), w_down.data_ptr(), s_down.data_ptr(), row_out.data_ptr(), gate_pad.data_ptr(),

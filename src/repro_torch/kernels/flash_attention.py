@@ -3,12 +3,13 @@
 
 Causal / sliding-window attention over q ``(B, Sq, H, d)`` and k, v ``(B,
 Sk, KV, d)`` with implicit right-aligned positions (``q_offset = Sk -
-Sq``). One CUDA kernel (``csrc/flash_fwd.cu``) keeps the online-softmax
-statistics m, l and the accumulator in fp32, reads KV head ``h // (H/KV)``
-in place (no GQA copy), skips key tiles that causality or the window mask
-entirely, masks the ragged edge of the last tiles, and emits the output
-(bf16) and the logsumexp ``(B*H, Sq)`` fp32 that the backward needs. On a
-CPU tensor the wrapper runs ``kernels.ref.flash_attention_ref``.
+Sq``). One CUDA kernel (``csrc/flash_fwd.cu``, wgmma and TMA) keeps the
+online-softmax statistics m, l and the accumulator in fp32, reads KV head
+``h // (H/KV)`` in place (no GQA copy), skips key tiles that causality or
+the window mask entirely, masks only the tiles the mask cuts, and emits
+the output (bf16) and the logsumexp ``(B*H, Sq)`` fp32 that the backward
+needs, into ``out=``/``lse=`` where given. On a CPU tensor the wrapper
+runs ``kernels.ref.flash_attention_ref``.
 
 The backward (``_fa_bwd``: ``_fa_bwd_dq_kernel``, ``_fa_bwd_dkv_kernel``)
 is two CUDA kernels (``csrc/flash_bwd.cu``) that recompute the
@@ -60,13 +61,28 @@ def _check(q, k, v, window, *more):
         raise ValueError(f"flash_attention: window must be positive, got {window}")
 
 
-def flash_fwd_cuda(q, k, v, causal: bool, window: Optional[int], scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_fwd_cuda(q, k, v, causal: bool, window: Optional[int], scale: float, out: Optional[torch.Tensor] = None,
+                   lse: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``flash_fwd`` -> (out (B, Sq, H, d) bf16, lse (B*H, Sq) fp32),
+    into ``out`` and ``lse`` where given. Every check runs before the
+    library is loaded: the kernel reads q, k and v by TMA (16-byte bases)."""
     B, Sq, H, d = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     _check(q, k, v, window)
+    if out is not None and (out.shape != q.shape or out.dtype != torch.bfloat16 or not out.is_contiguous()
+                            or out.device != q.device):
+        raise ValueError(f"flash_attention: out must be a contiguous bf16 tensor of shape {tuple(q.shape)} on "
+                         f"{q.device}, got {out.dtype} {tuple(out.shape)} on {out.device}")
+    if lse is not None and (lse.shape != (B * H, Sq) or lse.dtype != torch.float32 or not lse.is_contiguous()
+                            or lse.device != q.device):
+        raise ValueError(f"flash_attention: lse must be a contiguous fp32 tensor of shape {(B * H, Sq)} on "
+                         f"{q.device}, got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must start on a 16-byte boundary (TMA), got {t.data_ptr():#x}")
+    out = torch.empty_like(q) if out is None else out
+    lse = torch.empty((B * H, Sq), dtype=torch.float32, device=q.device) if lse is None else lse
     lib = _build.load("flash_fwd", _SIGS)
-    out = torch.empty_like(q)
-    lse = torch.empty((B * H, Sq), dtype=torch.float32, device=q.device)
     _build.check(lib.flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         B, Sq, Sk, H, KV, d, float(scale), int(causal), int(window or 0),

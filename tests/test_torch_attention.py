@@ -133,3 +133,57 @@ def test_ring_decode_gqa_apply(rng):
     np.testing.assert_allclose(f32(tout), f32(jout), atol=FP32_ATOL)
     np.testing.assert_allclose(f32(tc["k"]), f32(jc["k"]), atol=1e-5)
     np.testing.assert_allclose(f32(tc["v"]), f32(jc["v"]), atol=1e-5)
+
+
+def _flash_out(name, fault):
+    shape, dtype = {"out": ((1, 8, 2, 64), torch.bfloat16), "lse": ((2, 8), torch.float32)}[name]
+    if fault == "shape":
+        return torch.zeros(shape[:-1] + (shape[-1] + 8,), dtype=dtype)
+    if fault == "dtype":
+        return torch.zeros(shape, dtype=torch.float16)
+    if fault == "layout":
+        return torch.zeros(shape[:-1] + (2 * shape[-1],), dtype=dtype)[..., ::2]
+    return torch.zeros(shape, dtype=dtype, device="meta")
+
+
+def _forbid_library(monkeypatch):
+    from repro_torch.kernels import _build
+
+    def forbidden(*_a, **_k):
+        raise AssertionError("reached past the argument checks")
+
+    monkeypatch.setattr(_build, "load", forbidden)
+    monkeypatch.setattr(torch.cuda, "current_stream", forbidden)
+
+
+@pytest.mark.parametrize("fault", ["shape", "dtype", "layout", "device"])
+@pytest.mark.parametrize("name", ["out", "lse"])
+def test_flash_fwd_out_checked_before_any_library(monkeypatch, name, fault):
+    """A wrong ``out=`` or ``lse=`` on the forward wrapper raises ValueError
+    from the argument checks, before a library is loaded or a stream
+    looked up."""
+    from repro_torch.kernels import flash_attention as tfa
+
+    _forbid_library(monkeypatch)
+    q = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
+    k = torch.zeros((1, 8, 1, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=f"flash_attention: {name}"):
+        tfa.flash_fwd_cuda(q, k, k, True, None, 0.125, **{name: _flash_out(name, fault)})
+
+
+@pytest.mark.parametrize("name", ["q", "k", "v"])
+def test_flash_fwd_tma_bases_checked_before_any_library(monkeypatch, name):
+    """q, k and v are read by TMA: a base off a 16-byte boundary raises
+    ValueError before any library loads; aligned ones reach the load."""
+    from repro_torch.kernels import flash_attention as tfa
+
+    _forbid_library(monkeypatch)
+    shapes = {"q": (1, 8, 2, 64), "k": (1, 8, 1, 64), "v": (1, 8, 1, 64)}
+    t = {n: torch.zeros(s, dtype=torch.bfloat16) for n, s in shapes.items()}
+    with pytest.raises(AssertionError, match="reached past"):
+        tfa.flash_fwd_cuda(t["q"], t["k"], t["v"], True, None, 0.125, out=torch.zeros_like(t["q"]),
+                           lse=torch.zeros((2, 8)))
+    n = int(np.prod(shapes[name]))
+    t[name] = torch.zeros(n + 1, dtype=torch.bfloat16)[1:].view(shapes[name])
+    with pytest.raises(ValueError, match=f"{name} must start on a 16-byte boundary"):
+        tfa.flash_fwd_cuda(t["q"], t["k"], t["v"], True, None, 0.125)

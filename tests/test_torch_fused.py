@@ -360,3 +360,89 @@ def test_train_cli_fused_errors(bad):
     with pytest.raises(SystemExit, match="--fused-dispatch requires"):
         train_cli(["--arch", "llama3-8b", "--smoke", "--upcycle", "4", "--steps", "1", "--batch", "2",
                    "--seq", "16", "--device", "cpu", *bad])
+
+
+def _fused_q8_down_args(**faults):
+    """The fused int8 down kernel #15's wrapper arguments at a small shape
+    (E 2, N_pad 256, F 128, D 256, k 2, T 64), each replaced by
+    ``faults[name]`` where given."""
+    E, N_pad, F, D = 2, 256, 128, 256
+    args = dict(h=torch.zeros((N_pad, F), dtype=torch.bfloat16), w_down=torch.zeros((E, F, D), dtype=torch.int8),
+                s_down=torch.zeros((E, D), dtype=torch.bfloat16),
+                row_out=torch.full((N_pad,), -1, dtype=torch.int32), gate_pad=torch.zeros(N_pad),
+                tile_group=torch.zeros(2, dtype=torch.int32), tile_rows=torch.full((2,), 128, dtype=torch.int32),
+                k=2, T=64, out=None)
+    args.update(faults)
+    return args
+
+
+def _misaligned(shape, dtype):
+    """A contiguous tensor whose data starts one element past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+
+
+_FUSED_Q8_FAULTS = {
+    ("h", "shape"): torch.zeros((256, 256), dtype=torch.bfloat16),
+    ("h", "dtype"): torch.zeros((256, 128)),
+    ("h", "layout"): torch.zeros((256, 256), dtype=torch.bfloat16)[:, ::2],
+    ("h", "device"): torch.zeros((256, 128), dtype=torch.bfloat16, device="meta"),
+    ("h", "align"): _misaligned((256, 128), torch.bfloat16),
+    ("w_down", "shape"): torch.zeros((2, 256, 256), dtype=torch.int8),
+    ("w_down", "dtype"): torch.zeros((2, 128, 256), dtype=torch.bfloat16),
+    ("w_down", "layout"): torch.zeros((2, 128, 512), dtype=torch.int8)[..., ::2],
+    ("w_down", "device"): torch.zeros((2, 128, 256), dtype=torch.int8, device="meta"),
+    ("w_down", "align"): _misaligned((2, 128, 256), torch.int8),
+    ("s_down", "shape"): torch.zeros((2, 128), dtype=torch.bfloat16),
+    ("s_down", "dtype"): torch.zeros((2, 256)),
+    ("s_down", "device"): torch.zeros((2, 256), dtype=torch.bfloat16, device="meta"),
+    ("row_out", "shape"): torch.zeros(255, dtype=torch.int32),
+    ("row_out", "dtype"): torch.zeros(256, dtype=torch.int64),
+    ("row_out", "layout"): torch.zeros(512, dtype=torch.int32)[::2],
+    ("gate_pad", "shape"): torch.zeros(128),
+    ("gate_pad", "dtype"): torch.zeros(256, dtype=torch.bfloat16),
+    ("gate_pad", "device"): torch.zeros(256, device="meta"),
+    ("tile_group", "shape"): torch.zeros(3, dtype=torch.int32),
+    ("tile_rows", "dtype"): torch.full((2,), 128, dtype=torch.int64),
+    ("tile_rows", "device"): torch.full((2,), 128, dtype=torch.int32, device="meta"),
+    ("out", "shape"): torch.zeros((2, 64, 128), dtype=torch.bfloat16),
+    ("out", "dtype"): torch.zeros((2, 64, 256)),
+    ("out", "layout"): torch.zeros((2, 64, 512), dtype=torch.bfloat16)[..., ::2],
+    ("out", "device"): torch.zeros((2, 64, 256), dtype=torch.bfloat16, device="meta"),
+    ("out", "align"): _misaligned((2, 64, 256), torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("arg,fault", sorted(_FUSED_Q8_FAULTS))
+def test_fused_down_q8_args_checked_before_any_library(monkeypatch, arg, fault):
+    """A wrong input or ``out=`` of the fused int8 down kernel #15's wrapper
+    (dtype, shape, layout, device, or a base off the 16-byte boundary that
+    TMA needs) raises ValueError from the argument checks, before a library
+    is loaded or a stream looked up."""
+    from repro_torch.kernels import _build
+
+    def forbidden(*_a, **_k):
+        raise AssertionError("reached past the argument checks")
+
+    monkeypatch.setattr(_build, "load", forbidden)
+    monkeypatch.setattr(torch.cuda, "current_stream", forbidden)
+    a = _fused_q8_down_args(**{arg: _FUSED_Q8_FAULTS[(arg, fault)]})
+    with pytest.raises(ValueError, match="grouped_down_fused_q8|fused down: out"):
+        teg.fused_down_q8_cuda(a["h"], a["w_down"], a["s_down"], a["row_out"], a["gate_pad"], a["tile_group"],
+                               a["tile_rows"], a["k"], a["T"], out=a["out"])
+
+
+@pytest.mark.parametrize("out", [False, True])
+def test_fused_down_q8_good_args_reach_the_library(monkeypatch, out):
+    """Arguments the kernel takes (with or without ``out=``) pass every
+    check of #15's wrapper and reach the library load."""
+    from repro_torch.kernels import _build
+
+    def forbidden(*_a, **_k):
+        raise AssertionError("reached past the argument checks")
+
+    monkeypatch.setattr(_build, "load", forbidden)
+    a = _fused_q8_down_args(out=torch.zeros((2, 64, 256), dtype=torch.bfloat16) if out else None)
+    with pytest.raises(AssertionError, match="reached past"):
+        teg.fused_down_q8_cuda(a["h"], a["w_down"], a["s_down"], a["row_out"], a["gate_pad"], a["tile_group"],
+                               a["tile_rows"], a["k"], a["T"], out=a["out"])
