@@ -17,9 +17,10 @@ Phases (each failure exits non-zero; nothing is swallowed):
    paged-attention kernels' idle row exactly 0, the grouped kernels'
    padding rows exactly 0 (bf16 #3/#4 at the decode, prefill and
    training groups and int8-weight #10/#11 at the decode and prefill
-   groups, an empty expert in each; #4 also launched into a NaN-filled
-   output, where padding rows and empty tiles must come back 0, twice,
-   bit-equal, and on h with NaN in its padding rows), the padded #1/#2 at C
+   groups, an empty expert in each; #4, #10 and #11 also launched into a
+   NaN-filled output, where padding rows and empty tiles must come back 0,
+   twice, bit-equal, and on input with NaN in its padding rows; each with
+   its CUDA-graph device time beside its host-timed one), the padded #1/#2 at C
    4, 300, 512 and 100 and the padded int8-weight #8/#9 at C 4, 300 and
    512 (#1, #2, #8 and #9 also launched over all but the last expert into a
    NaN-filled output: the last expert's rows must stay NaN, so no block
@@ -152,7 +153,7 @@ serving, ``--phases 1,9`` at fused dispatch. ``--digest SRC`` prints a
 SHA-256 of every expert GEMM's and the flash forward's outputs on seeded
 inputs for the kernels of the tree whose ``src`` is SRC; ``--times SRC``
 prints the device and host-inclusive times of #16 at phase 2's lengths
-and of #15, #11 and #4 at phase 9a's routings for that tree's kernels:
+and of #15, #11, #10 and #4 at phase 9a's routings for that tree's kernels:
 run either on two trees in one call to compare them. The last two lines are the card's
 ``nvidia-smi`` name and power limit and the result JSON; the lines before
 them list the launches by path, the serve and train figures and the
@@ -223,15 +224,35 @@ def row_rel_err(out, ref, rows) -> float:
 # ---------------------------------------------------------------------------
 
 
+def masked_launch_flags(launch, x, first, ref, valid, shape) -> dict:
+    """A sorted kernel's masking and determinism, as ``launch(x, out)``
+    runs it: launched into a NaN-filled ``out=`` (every element finite,
+    padding rows and empty tiles exactly 0; bit-equal to ``first``, the
+    kernel's earlier output on the same x) and, untimed, on x with NaN in
+    its padding rows (valid rows within GG_TOL of ``ref``, padding rows 0)."""
+    import torch
+
+    nan = torch.full(shape, float("nan"), dtype=torch.bfloat16, device=x.device)
+    y_nan = launch(x, nan)
+    y_pad_nan = launch(x.masked_fill(~valid[:, None], float("nan")), None)
+    torch.cuda.synchronize()
+    return {"into NaN: every element finite": bool(torch.isfinite(y_nan.float()).all()),
+            "into NaN: padding rows 0": bool((y_nan[~valid] == 0).all()),
+            "two launches bit-equal": torch.equal(first.view(torch.int16), y_nan.view(torch.int16)),
+            "NaN padding rows in the input: valid rows within tol": rel_err(y_pad_nan[valid], ref[valid])[1] <= GG_TOL,
+            "NaN padding rows in the input: padding rows 0": bool((y_pad_nan[~valid] == 0).all())}
+
+
 def check_grouped(gen, group_sizes, label: str, D=4096, F=14336, q8: bool = False):
     """The sorted gate/up and down kernels (bf16 #3/#4, or with ``q8`` the
     int8-weight #10/#11) against their plain versions on the same inputs:
     within GG_TOL x max|plain| on the valid rows, padding rows exactly 0.
-    The bf16 down kernel #4 is also launched into a NaN-filled output
-    (padding rows and empty tiles must come back exactly 0, every element
-    finite), a second time (bit-equal) and, untimed, on h with NaN in its
-    padding rows (valid rows within GG_TOL, padding rows 0), and its time
-    is printed over ``torch._grouped_mm``'s and its bound over its time."""
+    The down kernel (#4; #11) and the int8 gate/up kernel #10 are also
+    checked by ``masked_launch_flags``: launched into a NaN-filled output,
+    a second time (bit-equal) and on input with NaN in its padding rows.
+    Each kernel's time is printed as CUDA events around back-to-back
+    wrapper calls (``ms``) and as CUDA-graph device time (``device_ms``),
+    beside its bound, and #4's over ``torch._grouped_mm``'s."""
     import torch
     from repro_torch.core.dispatch import aligned_rows
     from repro_torch.core.quant import quantize_weight
@@ -255,41 +276,39 @@ def check_grouped(gen, group_sizes, label: str, D=4096, F=14336, q8: bool = Fals
     w = {k: (torch.randn(shape, generator=gen, device=dev) * shape[1] ** -0.5).bfloat16()
          for k, shape in (("w_gate", (E, D, F)), ("w_up", (E, D, F)), ("w_down", (E, F, D)))}
     tg, tr = eg.group_tiling(gs, N_pad // eg.ROW_TILE)
+    gate_up_into = None
     if q8:
         (wg, sg), (wu, su), (wd, sd) = (quantize_weight(w[k]) for k in ("w_gate", "w_up", "w_down"))
         del w
-        gate_up = lambda: eg.gate_up_q8_cuda(xs, wg, wu, sg, su, tg, tr)
+        gate_up_into = lambda x, out: eg.gate_up_q8_cuda(x, wg, wu, sg, su, tg, tr, out=out)
         gate_up_plain = lambda: ref.grouped_gate_up_q8_ref(xs, wg, wu, sg, su, gs, eg.ROW_TILE)
-        down = lambda h: eg.down_q8_cuda(h, wd, sd, tg, tr)
+        down_into = lambda h, out: eg.down_q8_cuda(h, wd, sd, tg, tr, out=out)
         down_plain = lambda h: ref.grouped_down_q8_ref(h, wd, sd, gs, eg.ROW_TILE)
         names, w_bytes = ("grouped_gate_up_q8", "grouped_down_q8"), 1
+        gate_up = lambda: gate_up_into(xs, None)
     else:
         gate_up = lambda: eg.gate_up_cuda(xs, w["w_gate"], w["w_up"], tg, tr)
         gate_up_plain = lambda: ref.grouped_gate_up_ref(xs, w["w_gate"], w["w_up"], gs, eg.ROW_TILE)
-        down = lambda h: eg.down_cuda(h, w["w_down"], tg, tr)
+        down_into = lambda h, out: eg.down_cuda(h, w["w_down"], tg, tr, out=out)
         down_plain = lambda h: ref.grouped_down_ref(h, w["w_down"], gs, eg.ROW_TILE)
         names, w_bytes = ("grouped_gate_up", "grouped_down"), 2
+    down = lambda h: down_into(h, None)
 
     h = gate_up()
     h_ref = gate_up_plain()
     y = down(h_ref)
     y_ref = down_plain(h_ref)
     torch.cuda.synchronize()
-    down_ok = True
-    if not q8:
-        nan = torch.full((N_pad, D), float("nan"), dtype=torch.bfloat16, device=dev)
-        y_nan = eg.down_cuda(h_ref, w["w_down"], tg, tr, out=nan)
-        y_pad_nan = down(h_ref.masked_fill(~valid[:, None], float("nan")))
-        torch.cuda.synchronize()
-        flags = {"into NaN: every element finite": bool(torch.isfinite(y_nan.float()).all()),
-                 "into NaN: padding rows 0": bool((y_nan[~valid] == 0).all()),
-                 "two launches bit-equal": torch.equal(y.view(torch.int16), y_nan.view(torch.int16)),
-                 "NaN padding rows in h: valid rows within tol":
-                     rel_err(y_pad_nan[valid], y_ref[valid])[1] <= GG_TOL,
-                 "NaN padding rows in h: padding rows 0": bool((y_pad_nan[~valid] == 0).all())}
-        print(f"  grouped_down [{label}] {flags}")
-        down_ok = all(flags.values())
-        del nan, y_nan, y_pad_nan
+    flags_ok = {}
+    for name, launch, x, first, ref_out, shape in (
+        (names[0], gate_up_into, xs, h, h_ref, (N_pad, F)),
+        (names[1], down_into, h_ref, y, y_ref, (N_pad, D)),
+    ):
+        if launch is None:
+            continue
+        flags = masked_launch_flags(launch, x, first, ref_out, valid, shape)
+        print(f"  {name} [{label}] {flags}")
+        flags_ok[name] = all(flags.values())
     rows = []
     touched = sum(1 for g in gs_host if g)
     for name, out, ref_out, k_in, n_out, flops_per_row, fn, plain in (
@@ -298,15 +317,14 @@ def check_grouped(gen, group_sizes, label: str, D=4096, F=14336, q8: bool = Fals
     ):
         err, rel = rel_err(out[valid], ref_out[valid])
         pad_zero = bool((out[~valid] == 0).all())
-        ok = rel <= GG_TOL and pad_zero and bool(torch.isfinite(out.float()).all())
-        ok &= down_ok or name != "grouped_down"
+        ok = rel <= GG_TOL and pad_zero and bool(torch.isfinite(out.float()).all()) and flags_ok.get(name, True)
         n_w = 2 if name.startswith("grouped_gate_up") else 1
         # x rows read once, each touched expert's weights (and int8 scales), all N_pad rows written
         nbytes = (N * k_in * 2 + touched * n_w * k_in * n_out * w_bytes + N_pad * n_out * 2
                   + (touched * n_w * n_out * 2 if q8 else 0))
         b_ms, b_by = bound(nbytes, N * flops_per_row)
         row = dict(name=name, max_abs_err=err, rel_err=rel, ok=ok, pad_rows_zero=pad_zero,
-                   ms=time_ms(fn), plain_ms=time_ms(plain, reps=3, warmup=1),
+                   ms=time_ms(fn), device_ms=graph_ms(fn), plain_ms=time_ms(plain, reps=3, warmup=1),
                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
                    library="none (no single call)" if q8 else None,
                    shape=f"{label}: N={N} N_pad={N_pad} D={D} F={F} E={E} groups={gs_host}"
@@ -315,9 +333,9 @@ def check_grouped(gen, group_sizes, label: str, D=4096, F=14336, q8: bool = Fals
             row["library_ms"] = grouped_mm_ms(h_ref[valid].contiguous(), w["w_down"], gs)
         rows.append(row)
         print(f"  {name} [{label}] err {err:.4g} (rel {rel:.3g}, tol {GG_TOL}) pad-zero {pad_zero} "
-              f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
+              f"kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f} ms) plain {row['plain_ms']:.4f} ms "
               f"library {row['library_ms']} ms bound {b_ms:.4f} ms ({b_by}); bound / kernel "
-              f"{b_ms / row['ms']:.3f}"
+              f"{b_ms / row['ms']:.3f} (device {b_ms / row['device_ms']:.3f})"
               + (f", kernel / library {row['ms'] / row['library_ms']:.3f}" if row["library_ms"] else ""))
         if not ok:
             raise SystemExit(f"{name} [{label}] disagrees with its plain version")
@@ -915,8 +933,9 @@ def check_grouped_bwd(gen, group_sizes, label: str, D=4096, F=14336):
 def digests(seed: int) -> dict:
     """SHA-256 (first 16 hex digits) of the outputs of the expert GEMM
     kernels (#1-#15) and the flash forward (#16) at llama3-e8t2 widths on
-    inputs drawn from ``seed``, each kernel fed its own random inputs. Two
-    trees whose digests agree compute bit-equal outputs (``--digest``)."""
+    inputs drawn from ``seed``, each kernel fed its own random inputs (#10
+    and #11 at the decode and prefill groups). Two trees whose digests
+    agree compute bit-equal outputs (``--digest``)."""
     import hashlib
 
     import torch
@@ -979,16 +998,25 @@ def digests(seed: int) -> dict:
     for S, window, d in ((340, None, 128), (2048, None, 128), (512, 128, 128), (1000, None, 64)):
         q, kk, v = rand(1, S, 32, d), rand(1, S, 8, d), rand(1, S, 8, d)
         out[f"flash_fwd S={S} window={window} d={d}"] = sha(*fa.flash_fwd_cuda(q, kk, v, True, window, d ** -0.5))
+    del q, kk, v
+    xs, _, (wg, wu, wd), gs, _, _, N_pad = grouped_bwd_case(gen, (200, 0, 131, 77, 64, 50, 40, 38))
+    tg, tr = eg.group_tiling(gs, N_pad // eg.ROW_TILE)
+    (qg, sg), (qu, su), (qd, sd) = (quantize_weight(w) for w in (wg, wu, wd))
+    del wg, wu, wd
+    h = eg.gate_up_q8_cuda(xs, qg, qu, sg, su, tg, tr)
+    out["grouped_gate_up_q8 prefill"] = sha(h)
+    out["grouped_down_q8 prefill"] = sha(eg.down_q8_cuda(h, qd, sd, tg, tr))
     return out
 
 
 def kernel_times(seed: int) -> dict:
-    """Times (ms) of the kernels this slice redesigned, #16 and #15, and of
-    #15's yardsticks #11 and #4, at phase 2's flash shapes and phase 9a's
-    decode and prefill routings, for the kernels of the tree whose ``src``
-    is on the path (``--times``; the calls are ones every tree since the
-    fused slice takes): CUDA-graph device time and CUDA events around
-    back-to-back wrapper calls (host work included)."""
+    """Times (ms) of the kernels the last slices redesigned, #16, #15, #11
+    and #10, and of their yardstick #4 (the bf16 twin of #11 and #15), at
+    phase 2's flash shapes and phase 9a's decode and prefill routings, for
+    the kernels of the tree whose ``src`` is on the path (``--times``; the
+    calls are ones every tree since the fused slice takes): CUDA-graph
+    device time and CUDA events around back-to-back wrapper calls (host
+    work included)."""
     import torch
     from repro_torch.core.quant import quantize_weight
     from repro_torch.kernels import expert_gemm as eg
@@ -1004,16 +1032,19 @@ def kernel_times(seed: int) -> dict:
         out[f"flash_fwd S={S} window={window}"] = {"device_ms": graph_ms(fn), "ms": time_ms(fn, reps=20, warmup=3)}
     wd = rand(8, 14336, 4096, scale=14336 ** -0.5)
     qd, sd = quantize_weight(wd)
+    (qg, sg), (qu, su) = (quantize_weight(rand(8, 4096, 14336, scale=4096 ** -0.5)) for _ in range(2))
     for groups, T in (((3, 0, 2, 1, 0, 1, 1, 0), 4), ((200, 0, 131, 77, 64, 50, 40, 38), 300)):
         label = "decode" if T == 4 else "prefill"
         token, slot, dest, gate_sorted, gs = fused_routing(gen, groups, T)
         tok_pad, row_out, gate_pad, tg, tr, k = eg.fused_tables(qd, gs, token, dest, slot, gate_sorted, T)
         h = rand(tok_pad.shape[0], 14336)
+        xs = rand(tok_pad.shape[0], 4096)
         dst = torch.empty((k, T, 4096), dtype=torch.bfloat16, device="cuda")
         for name, fn in (("grouped_down_fused_q8", lambda: eg.fused_down_q8_cuda(h, qd, sd, row_out, gate_pad, tg, tr,
                                                                                  k, T, dst)),
                          ("grouped_down_q8", lambda: eg.down_q8_cuda(h, qd, sd, tg, tr)),
-                         ("grouped_down", lambda: eg.down_cuda(h, wd, tg, tr))):
+                         ("grouped_down", lambda: eg.down_cuda(h, wd, tg, tr)),
+                         ("grouped_gate_up_q8", lambda: eg.gate_up_q8_cuda(xs, qg, qu, sg, su, tg, tr))):
             out[f"{name} {label}"] = {"device_ms": graph_ms(fn), "ms": time_ms(fn)}
     return out
 

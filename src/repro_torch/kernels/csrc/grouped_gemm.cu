@@ -1,11 +1,12 @@
 // Expert FFN GEMMs with fused SwiGLU for Hopper (sm_90a): twelve entry
-// points. Four run on the warp-specialised wgmma/TMA mainloop of
+// points. Six run on the warp-specialised wgmma/TMA mainloop of
 // sm90_gemm.cuh: expert_gate_up (#1), expert_down (#2), grouped_down (#4)
-// and grouped_down_fused_q8 (#15, int8 weights widened by the header's
-// widening stage), each with its note below. The other eight (#3 and
-// #8-#14) run on one WMMA tile loop (ffn_kernel), templated over the row
-// mapping and the weight type. Each entry point has its own launch
-// counter in kernels/expert_gemm.py.
+// and, with int8 weights widened by the header's widening stage,
+// grouped_gate_up_q8 (#10), grouped_down_q8 (#11) and
+// grouped_down_fused_q8 (#15), each with its note below. The other six
+// (#3, #8, #9 and #12-#14) run on one WMMA tile loop (ffn_kernel),
+// templated over the row mapping and the weight type. Each entry point has
+// its own launch counter in kernels/expert_gemm.py.
 //
 // Replaces the TPU kernels of src/repro/kernels/expert_gemm.py:
 //   grouped_gate_up           _grouped_gate_up_kernel     (#3)  sorted, bf16          :335
@@ -27,8 +28,8 @@
 // regions are aligned to 128 rows; per 128-row tile, tile_group[t] is its
 // expert and tile_rows[t] its valid rows (computed on the device by the
 // wrapper, as group_tiling does). Rows past the valid count come out zero;
-// a tile (#4) or 64-row half tile (ffn_kernel) with no valid row writes
-// zeros and does no product. Padded: the dense (E, C, D) buffer read in
+// a tile (#4, #10, #11) or 64-row half tile (ffn_kernel) with no valid row
+// writes zeros and does no product. Padded: the dense (E, C, D) buffer read in
 // place; every slot r < C is computed (empty slots hold token 0's row and
 // are zeroed by the combine's gate), and no row at or past C is written,
 // so a launch never touches the next expert's rows. The int8 padded
@@ -59,7 +60,7 @@
 // the combine writes k*T*D*2 bytes of partials in place of the sorted
 // buffer's N_pad rows.
 //
-// ffn_kernel (#3, #8-#14): one block per (64-row block, 128 output
+// ffn_kernel (#3, #8, #9, #12-#14): one block per (64-row block, 128 output
 // columns); blocks that share a weight column block are launched next to
 // each other (the row block is the fastest grid dim) so the second reads
 // the weights from L2. The contraction loop streams 32-deep slabs of x
@@ -76,8 +77,9 @@
 // the TPU epilogue does (loaded into accumulator fragments from a
 // shared-memory tile of repeated rows, so they line up). No wgmma, TMA
 // or warp specialisation: its entry points are ROADMAP queue 2's next
-// redesigns (the int8 ones, #8-#11 and #14, onto the mainloop with #15's
-// widening stage). Its <1, FUSED, true> instantiation (#15) is gone.
+// redesigns (the int8 ones, #8, #9 and #14, onto the mainloop with the
+// widening stage). Its <1, FUSED, true> (#15) and <2 / 1, SORTED, true>
+// (#10, #11) instantiations are gone.
 //
 // expert_down (#2): y[e] = h[e] @ Wd[e]. Bound at decode (C 4) by the
 // weight bytes (940 MB at llama3-e8t2 widths, 0.281 ms at 3.35 TB/s), at
@@ -146,7 +148,8 @@
 // grouped_down_fused_q8 (#15): partials[row_out[r]] = (h[r] @ Wd[e] *
 // s_down[e]) * gate_pad[r] over the sorted row tiles, Wd int8. Bound by
 // bytes at decode (5 experts' int8 weights, 294 MB, 0.0877 ms) and at
-// prefill (0.1293 ms). The design is #4's kernel (grid, grouped_tile order,
+// prefill (0.1293 ms). The design (one kernel template with #11,
+// grouped_down_q8_kernel, whose COMBINE epilogue is #15's) is #4's kernel (grid, grouped_tile order,
 // clusters of 2, the 64-row h box for tiles whose rows fit one
 // warpgroup) with an int8 B: Wd[e] comes as N-major boxes of 128 columns x
 // 64 F rows through a UINT8 tensor map (8 KB a box, two a slab at BN 256,
@@ -170,15 +173,48 @@
 // whole slab while the other runs the products, and 16-row h boxes for
 // tiles of up to 16 rows (neither faster).
 //
+// grouped_down_q8 (#11): y = (h @ Wd[e]) * s_down[e] over the sorted row
+// tiles, Wd int8, rounded to bf16 once. Bound by bytes: 0.0902 ms at
+// decode, 0.1319 at prefill (#15's weights; h read and y written in full).
+// #15's kernel with #4's store: the same grid, ring, widening and
+// products; the epilogue scales the fp32 accumulator in registers (bf16x2
+// scale loads) and stores every row of the tile through store_rows, zeros
+// past the valid count; the warpgroup without rows widens its share of
+// each slab, then stores its 64 rows of zeros; an empty tile stores zeros
+// and loads nothing. Per block: 168 registers with 36 B spilled at BN 256
+// (110 and none at BN 128), 230,464 B of shared memory. At decode it runs
+// within ~8% of #15 in the same call (PERF.md). BN 128 at decode (160
+// blocks on 132 SMs, a second wave) was slower at decode and prefill in a
+// variant build on the card, as it was for #15.
+//
+// grouped_gate_up_q8 (#10): h = silu((x Wg[e]) * s_gate[e]) * ((x Wu[e]) *
+// s_up[e]) over the sorted row tiles, Wg and Wu int8, the scales on the
+// fp32 sums before silu, rounded to bf16 once. Bound by bytes: 5 experts'
+// int8 Wg and Wu (587 MB) at decode, 0.1842 ms; 0.2612 at prefill (141
+// GFLOP, 0.142 ms of operations). #1's g | u product on #4's sorted tiles:
+// one block per (128-row tile, 128 h columns) in grouped_tile order, as
+// clusters of 2, xs the K-major A through 128- and 64-row boxes; a slab's
+// B is one 128-column int8 box of Wg[e] and one of Wu[e] (UINT8 maps over
+// (E, D, F)), which widen_s8 turns into #1's four 64-column bf16 boxes, so
+// the m64n256 accumulator holds g in columns 0-127 and u in 128-255 (#15's
+// slab at BN 256: its Q8Tile<256> layout as it is). The epilogue loads the
+// scales a column pair at a time after the K loop, applies silu(g) * u in
+// fp32 (swiglu, shared with #1) and stores bf16 pairs from registers,
+// zeros past the valid count; the warpgroup without rows widens, then
+// stores zeros; an empty tile stores zeros. At decode: 5 busy row tiles x
+// 112 column blocks = 560 blocks of 64 slabs (~4.2 waves), ~60% of the
+// byte bound. Per block: 168 registers, 20 B spilled; 230,464 B of shared
+// memory.
+//
 // Left for later: #1 at C 300 (a block of 100 rows on a 128-row tile) and
 // the mainloop's ~60-67% of the tensor-core peak at C 512 and in training
 // (sm90_gemm.cuh); the padded decode computes all 8 experts at C 4 (#1,
 // #2: skip empty ones); a fixed-order split over F for #2 at C 300; the
-// eight ffn_kernel entry points onto the mainloop (the int8 ones with
-// #15's widening stage); #15's widening costs shared-memory traffic (16 KB
-// read and 32 KB written a slab at BN 256, beside the products' reads)
-// that the products do not fully hide, which holds it above #4 at
-// prefill.
+// six ffn_kernel entry points onto the mainloop (the int8 ones with the
+// widening stage); the widening costs shared-memory traffic (16 KB read
+// and 32 KB written a slab at BN 256, beside the products' reads) that
+// the products do not fully hide, which holds #15 and #11 above #4 at
+// prefill and all three int8 kernels under ~60% of their byte bounds.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -521,6 +557,9 @@ int launch_down(const void* h, const void* w_down, void* y, int e, int c, int f,
 
 constexpr int GU_BN = 128;  // h columns per block: g and u, 128 each, side by side
 
+// silu(g) * u in fp32 (#1, #10)
+__device__ __forceinline__ float swiglu(float g, float u) { return g * __fdividef(1.0f, 1.0f + expf(-g)) * u; }
+
 // x (E, C, D) in boxes of 64 columns x down_rows rows of one expert; Wg,
 // Wu (E, D, F) in boxes of 64 F columns x 64 D rows (N-major B)
 struct GateUpMaps {
@@ -576,10 +615,7 @@ expert_gate_up_kernel(const __grid_constant__ GateUpMaps maps, bf16* __restrict_
     for (int j = 0; j < GU_BN / 8; ++j) {
       float o[2];
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const float gv = gu[4 * j + 2 * hh + q], uv = gu[GU_BN / 2 + 4 * j + 2 * hh + q];
-        o[q] = gv * __fdividef(1.0f, 1.0f + expf(-gv)) * uv;  // silu(g) * u in fp32
-      }
+      for (int q = 0; q < 2; ++q) o[q] = swiglu(gu[4 * j + 2 * hh + q], gu[GU_BN / 2 + 4 * j + 2 * hh + q]);
       h[4 * j] = sm90::pack_bf16(o[0], o[1]);
     }
   }
@@ -670,28 +706,33 @@ int launch_grouped_down(const void* h, const void* w_down, const int* tile_group
 }
 
 // ---------------------------------------------------------------------------
-// #15 grouped_down_fused_q8: #4's product with int8 weights, widened in
-// shared memory, and the gate-weighted combine into the slot partials
+// #15 grouped_down_fused_q8 and #11 grouped_down_q8: #4's product with int8
+// weights, widened in shared memory; #15 ends in the gate-weighted combine
+// into the slot partials, #11 in #4's store
 // ---------------------------------------------------------------------------
 
 // h (N_pad, F) as #4 reads it (128- and 64-row boxes); Wd (E, F, D) int8 in
 // boxes of 128 D columns x 64 F rows (N-major B, widened by consume_s8)
-struct FusedDownQ8Maps {
+struct DownQ8Maps {
   CUtensorMap h, h64, wd;
 };
 
 // #4's grid, block order and row boxes. Each slab's int8 boxes are widened
 // to bf16 by all consumer threads (an idle warpgroup's among them) before
-// the active warpgroups' wgmma (sm90::consume_s8). The epilogue stores only
-// valid rows: row r of the tile, (acc * s_down[e, col]) * gate_pad[row0 + r]
-// in fp32, rounded to bf16 once, at row row_out[row0 + r] of the (k*T, D)
-// partials. An empty tile loads and stores nothing.
-template <class T>
+// the active warpgroups' wgmma (sm90::consume_s8). COMBINE (#15): the
+// epilogue stores only valid rows: row r of the tile, (acc * s_down[e, col])
+// * gate_pad[row0 + r] in fp32, rounded to bf16 once, at row row_out[row0 +
+// r] of the (k*T, D) partials; an empty tile loads and stores nothing.
+// Otherwise (#11): y = acc * s_down[e, col] in fp32, rounded once, at the
+// tile's own rows of (N_pad, D), as #4 stores it: rows past the valid count,
+// all of an idle warpgroup's among them, store zeros, and an empty tile
+// stores zeros and loads nothing.
+template <class T, bool COMBINE>
 __global__ void __launch_bounds__(T::THREADS, 1)
-grouped_down_fused_q8_kernel(const __grid_constant__ FusedDownQ8Maps maps, const bf16* __restrict__ S,
-                             const int* __restrict__ row_out, const float* __restrict__ gate_pad,
-                             const int* __restrict__ tile_group, const int* __restrict__ tile_rows,
-                             bf16* __restrict__ out, int F, int D) {
+grouped_down_q8_kernel(const __grid_constant__ DownQ8Maps maps, const bf16* __restrict__ S,
+                       const int* __restrict__ row_out, const float* __restrict__ gate_pad,
+                       const int* __restrict__ tile_group, const int* __restrict__ tile_rows,
+                       bf16* __restrict__ out, int F, int D) {
   static_assert(T::BM == ROW_TILE && T::B_MN, "one block per row tile, an N-major B");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int tid = threadIdx.x, wg = tid / 128;
@@ -700,7 +741,10 @@ grouped_down_fused_q8_kernel(const __grid_constant__ FusedDownQ8Maps maps, const
   const int row0 = tile * T::BM, n0 = cb * T::BN;
   const int valid = min(max(tile_rows[tile], 0), T::BM);
   const int active = (valid + 63) / 64;  // consumer warpgroups with a valid row
-  if (active == 0) return;               // empty tile: no row of the partials is its
+  if (active == 0) {  // empty tile: no product; for #15 no row of the partials is its
+    if constexpr (!COMBINE) sm90::store_zeros<T::BM, T::BN>(out + (size_t)row0 * D + n0, D, T::THREADS);
+    return;
+  }
   const int e = tile_group[tile];
   const sm90::Ring<T> ring = sm90::ring_at<T>(smem_raw);
   if (tid == 0) ring.init(4 * active);
@@ -721,15 +765,28 @@ grouped_down_fused_q8_kernel(const __grid_constant__ FusedDownQ8Maps maps, const
   }
   if (wg >= active) {  // no row of this warpgroup's: it only widens its share of each slab
     sm90::widen_slabs(ring, n_slabs);
+    if constexpr (!COMBINE)
+      sm90::store_zeros<64, T::BN>(out + (size_t)(row0 + wg * 64) * D + n0, D, 128, tid % 128);
     return;
   }
   float acc[T::BN / 2];
 #pragma unroll
   for (int i = 0; i < T::BN / 2; ++i) acc[i] = 0.f;
   sm90::consume_s8(ring, n_slabs, wg, acc);
-  if (wg >= active) return;
   const int warp = (tid % 128) / 32, g = (tid % 32) / 4, t = tid % 4;
   const __nv_bfloat162* scale = reinterpret_cast<const __nv_bfloat162*>(S + (size_t)e * D + n0 + 2 * t);
+  if constexpr (!COMBINE) {
+#pragma unroll
+    for (int j = 0; j < T::BN / 8; ++j) {
+      const float2 sc = __bfloat1622float2(scale[4 * j]);
+      acc[4 * j] *= sc.x;  // rows g and g + 8 of columns 8j + 2t, + 1
+      acc[4 * j + 1] *= sc.y;
+      acc[4 * j + 2] *= sc.x;
+      acc[4 * j + 3] *= sc.y;
+    }
+    sm90::store_rows<T, true>(acc, out + (size_t)(row0 + wg * 64) * D + n0, D, valid - wg * 64);
+    return;
+  }
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = wg * 64 + warp * 16 + g + 8 * hh;
@@ -744,24 +801,127 @@ grouped_down_fused_q8_kernel(const __grid_constant__ FusedDownQ8Maps maps, const
   }
 }
 
-// three bf16 buffers of a widened slab after the ring (consume_s8)
+// Tiles with int8 B slots and three bf16 buffers of a widened slab after
+// the ring (consume_s8): #10, #11, #15
 template <int BN_>
-using FusedQ8Tile = sm90::Tile<2, BN_, true, 3 * BN_ * 64 * 2, 1>;
+using Q8Tile = sm90::Tile<2, BN_, true, 3 * BN_ * 64 * 2, 1>;
+
+// #15 (COMBINE: row_out, gate_pad and the (k*T, D) partials) or #11 (y
+// (N_pad, D); row_out and gate_pad unused)
+template <class T, bool COMBINE>
+int launch_down_q8(const void* h, const void* w_down, const void* s_down, const int* row_out, const float* gate_pad,
+                   const int* tile_group, const int* tile_rows, void* out, int n_pad, int f, int d, cudaStream_t s) {
+  static const cudaError_t attr =  // once per process and tile shape
+      cudaFuncSetAttribute(grouped_down_q8_kernel<T, COMBINE>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  DownQ8Maps maps;
+  if ((!COMBINE && reinterpret_cast<uintptr_t>(out) % 16) || !sm90::map_3d(&maps.h, h, f, n_pad, 1, T::BM) ||
+      !sm90::map_3d(&maps.h64, h, f, n_pad, 1, 64) || !sm90::map_3d(&maps.wd, w_down, d, f, sm90::MAX_EXPERTS, 64, 1))
+    return (int)cudaErrorInvalidValue;
+  return sm90::launch_grouped(grouped_down_q8_kernel<T, COMBINE>, (n_pad / T::BM) * (d / T::BN), T::THREADS,
+                              T::SMEM, s, maps, (const bf16*)s_down, row_out, gate_pad, tile_group, tile_rows,
+                              (bf16*)out, f, d);
+}
+
+// ---------------------------------------------------------------------------
+// #10 grouped_gate_up_q8: #1's g | u product on #4's sorted tiles, with Wg
+// and Wu widened in shared memory as #15 widens Wd
+// ---------------------------------------------------------------------------
+
+// xs (N_pad, D) in boxes of 64 columns x 128 rows, or x 64 rows for a tile
+// whose valid rows fit the first warpgroup; Wg, Wu (E, D, F) int8 in boxes
+// of 128 F columns x 64 D rows (N-major B, widened by consume_s8)
+struct GateUpQ8Maps {
+  CUtensorMap x, x64, wg, wu;
+};
+
+// One block per (128-row tile, 128 h columns) in grouped_tile order. A
+// slab is (xs; Wg[e] | Wu[e]): two int8 boxes that widen_s8 turns into the
+// four 64-column bf16 boxes of #1's slab, so one m64n256 accumulator holds
+// g in columns 0-127 and u in 128-255 (element 4j + e of g and 4(j + 16) +
+// e of u at the same row and column). The epilogue scales each by its
+// column's bf16 scale in fp32, applies silu(g) * u and stores bf16 pairs
+// from registers: rows past the valid count, all of an idle warpgroup's
+// among them, store zeros; an empty tile stores zeros and loads nothing.
+template <class T>
+__global__ void __launch_bounds__(T::THREADS, 1)
+grouped_gate_up_q8_kernel(const __grid_constant__ GateUpQ8Maps maps, const bf16* __restrict__ s_gate,
+                          const bf16* __restrict__ s_up, const int* __restrict__ tile_group,
+                          const int* __restrict__ tile_rows, bf16* __restrict__ H, int D, int F) {
+  static_assert(T::BM == ROW_TILE && T::BN == 2 * GU_BN && T::B_MN, "one block per row tile, g | u side by side");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int tid = threadIdx.x, wg = tid / 128;
+  int tile, cb;
+  sm90::grouped_tile(F / GU_BN, tile, cb);
+  const int row0 = tile * T::BM, n0 = cb * GU_BN;
+  const int valid = min(max(tile_rows[tile], 0), T::BM);
+  const int active = (valid + 63) / 64;  // consumer warpgroups with a valid row
+  if (active == 0) {  // empty tile: zeros, no product
+    sm90::store_zeros<T::BM, GU_BN>(H + (size_t)row0 * F + n0, F, T::THREADS);
+    return;
+  }
+  const int e = tile_group[tile];
+  const sm90::Ring<T> ring = sm90::ring_at<T>(smem_raw);
+  if (tid == 0) ring.init(4 * active);
+  __syncthreads();
+  const int n_slabs = D / T::BK;
+  if (wg == T::NWG) {  // the producer warp: one thread issues every copy
+    if (tid == T::CONSUMERS) {
+      const CUtensorMap* a_map = active == 1 ? &maps.x64 : &maps.x;
+      sm90::produce(ring, n_slabs, [&](int i, uint32_t a, uint32_t b, uint32_t bar) {
+        const int k0 = i * T::BK;
+        sm90::tma_load_3d(a, a_map, k0, row0, 0, bar);
+        sm90::tma_load_3d(b, &maps.wg, n0, k0, e, bar);
+        sm90::tma_load_3d(b + T::BK * 128, &maps.wu, n0, k0, e, bar);
+      }, active * 64 * 128 + T::B_BYTES);
+    }
+    return;
+  }
+  if (wg >= active) {  // no row of this warpgroup's: it widens its share of each slab, then stores zeros
+    sm90::widen_slabs(ring, n_slabs);
+    sm90::store_zeros<64, GU_BN>(H + (size_t)(row0 + wg * 64) * F + n0, F, 128, tid % 128);
+    return;
+  }
+  float gu[T::BN / 2];
+#pragma unroll
+  for (int i = 0; i < T::BN / 2; ++i) gu[i] = 0.f;
+  sm90::consume_s8(ring, n_slabs, wg, gu);
+  const int rows = valid - wg * 64;  // this warpgroup's valid rows
+  const int warp = (tid % 128) / 32, g8 = (tid % 32) / 4, t = tid % 4;
+  // scales of columns n0 + 8j + 2t, +1 at pair 4j, loaded a column pair at a time after the K loop
+  const __nv_bfloat162* sg = reinterpret_cast<const __nv_bfloat162*>(s_gate + (size_t)e * F + n0 + 2 * t);
+  const __nv_bfloat162* su = reinterpret_cast<const __nv_bfloat162*>(s_up + (size_t)e * F + n0 + 2 * t);
+  uint32_t* h = reinterpret_cast<uint32_t*>(H + (size_t)(row0 + wg * 64 + warp * 16 + g8) * F + n0 + 2 * t);
+#pragma unroll
+  for (int j = 0; j < GU_BN / 8; ++j) {
+    const float2 a = __bfloat1622float2(sg[4 * j]), b = __bfloat1622float2(su[4 * j]);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int k = 4 * j + 2 * hh;
+      const bool ok = warp * 16 + g8 + 8 * hh < rows;
+      h[(size_t)4 * hh * F + 4 * j] =
+          ok ? sm90::pack_bf16(swiglu(gu[k] * a.x, gu[GU_BN / 2 + k] * b.x),
+                               swiglu(gu[k + 1] * a.y, gu[GU_BN / 2 + k + 1] * b.y))
+             : 0u;
+    }
+  }
+}
 
 template <class T>
-int launch_fused_down_q8(const void* h, const void* w_down, const void* s_down, const int* row_out,
-                         const float* gate_pad, const int* tile_group, const int* tile_rows, void* partials,
-                         int n_pad, int f, int d, cudaStream_t s) {
+int launch_gate_up_q8(const void* xs, const void* w_gate, const void* w_up, const void* s_gate, const void* s_up,
+                      const int* tile_group, const int* tile_rows, void* h, int n_pad, int d, int f,
+                      cudaStream_t s) {
   static const cudaError_t attr =  // once per process and tile shape
-      cudaFuncSetAttribute(grouped_down_fused_q8_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+      cudaFuncSetAttribute(grouped_gate_up_q8_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  FusedDownQ8Maps maps;
-  if (!sm90::map_3d(&maps.h, h, f, n_pad, 1, T::BM) || !sm90::map_3d(&maps.h64, h, f, n_pad, 1, 64) ||
-      !sm90::map_3d(&maps.wd, w_down, d, f, sm90::MAX_EXPERTS, 64, 1))
+  GateUpQ8Maps maps;
+  if (reinterpret_cast<uintptr_t>(h) % 16 || !sm90::map_3d(&maps.x, xs, d, n_pad, 1, T::BM) ||
+      !sm90::map_3d(&maps.x64, xs, d, n_pad, 1, 64) ||
+      !sm90::map_3d(&maps.wg, w_gate, f, d, sm90::MAX_EXPERTS, 64, 1) ||
+      !sm90::map_3d(&maps.wu, w_up, f, d, sm90::MAX_EXPERTS, 64, 1))
     return (int)cudaErrorInvalidValue;
-  return sm90::launch_grouped(grouped_down_fused_q8_kernel<T>, (n_pad / T::BM) * (d / T::BN), T::THREADS, T::SMEM,
-                              s, maps, (const bf16*)s_down, row_out, gate_pad, tile_group, tile_rows, (bf16*)partials,
-                              f, d);
+  return sm90::launch_grouped(grouped_gate_up_q8_kernel<T>, (n_pad / T::BM) * (f / GU_BN), T::THREADS, T::SMEM, s,
+                              maps, (const bf16*)s_gate, (const bf16*)s_up, tile_group, tile_rows, (bf16*)h, d, f);
 }
 
 int sorted_blocks(int n_pad) { return n_pad / BM; }
@@ -832,23 +992,27 @@ extern "C" int expert_down_q8(const void* h, const void* w_down, const void* s_d
   return (int)cudaGetLastError();
 }
 
+// xs (n_pad, d) bf16; w_gate/w_up (E, d, f) int8; s_gate/s_up (E, f) bf16 -> h (n_pad, f): the
+// wgmma/TMA kernel above
 extern "C" int grouped_gate_up_q8(const void* xs, const void* w_gate, const void* w_up,
                                   const void* s_gate, const void* s_up, const int* tile_group,
                                   const int* tile_rows, void* h, int n_pad, int d, int f, void* stream) {
-  dim3 grid(sorted_blocks(n_pad), f / BN);
-  ffn_kernel<2, SORTED, true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)xs, w_gate, w_up, (const bf16*)s_gate, (const bf16*)s_up, tile_group, tile_rows, 0, nullptr,
-      nullptr, (bf16*)h, d, f);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_pad % ROW_TILE || d % 64 || f % GU_BN) return (int)cudaErrorInvalidValue;
+  return launch_gate_up_q8<Q8Tile<2 * GU_BN>>(xs, w_gate, w_up, s_gate, s_up, tile_group, tile_rows, h, n_pad, d, f,
+                                              s);
 }
 
+// h (n_pad, f) bf16; w_down (E, f, d) int8; s_down (E, d) bf16 -> y (n_pad, d): the wgmma/TMA kernel
+// above, BN 256 where d allows it
 extern "C" int grouped_down_q8(const void* h, const void* w_down, const void* s_down, const int* tile_group,
                                const int* tile_rows, void* y, int n_pad, int f, int d, void* stream) {
-  dim3 grid(sorted_blocks(n_pad), d / BN);
-  ffn_kernel<1, SORTED, true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)h, w_down, w_down, (const bf16*)s_down, (const bf16*)s_down, tile_group, tile_rows, 0, nullptr,
-      nullptr, (bf16*)y, f, d);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_pad % ROW_TILE || f % 64 || d % 128) return (int)cudaErrorInvalidValue;
+  return d % 256 == 0 ? launch_down_q8<Q8Tile<256>, false>(h, w_down, s_down, nullptr, nullptr, tile_group,
+                                                           tile_rows, y, n_pad, f, d, s)
+                      : launch_down_q8<Q8Tile<128>, false>(h, w_down, s_down, nullptr, nullptr, tile_group,
+                                                           tile_rows, y, n_pad, f, d, s);
 }
 
 // x (T, d) token-major; tok_pad (n_pad,) source token of each buffer row -> h (n_pad, f)
@@ -889,8 +1053,8 @@ extern "C" int grouped_down_fused_q8(const void* h, const void* w_down, const vo
                                      void* partials, int n_pad, int f, int d, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n_pad % ROW_TILE || f % 64 || d % 128) return (int)cudaErrorInvalidValue;
-  return d % 256 == 0 ? launch_fused_down_q8<FusedQ8Tile<256>>(h, w_down, s_down, row_out, gate_pad, tile_group,
-                                                               tile_rows, partials, n_pad, f, d, s)
-                      : launch_fused_down_q8<FusedQ8Tile<128>>(h, w_down, s_down, row_out, gate_pad, tile_group,
-                                                               tile_rows, partials, n_pad, f, d, s);
+  return d % 256 == 0 ? launch_down_q8<Q8Tile<256>, true>(h, w_down, s_down, row_out, gate_pad, tile_group,
+                                                          tile_rows, partials, n_pad, f, d, s)
+                      : launch_down_q8<Q8Tile<128>, true>(h, w_down, s_down, row_out, gate_pad, tile_group,
+                                                          tile_rows, partials, n_pad, f, d, s);
 }

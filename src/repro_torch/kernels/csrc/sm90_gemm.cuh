@@ -1,6 +1,7 @@
 // A warp-specialised wgmma + TMA GEMM mainloop for Hopper (sm_90a), shared
 // by the expert GEMMs on it: expert_gate_up (#1), expert_down (#2),
-// grouped_down (#4) and, with int8 weights, grouped_down_fused_q8 (#15) in
+// grouped_down (#4) and, with int8 weights, grouped_gate_up_q8 (#10),
+// grouped_down_q8 (#11) and grouped_down_fused_q8 (#15) in
 // grouped_gemm.cu, and grouped_bwd_dh (#5), grouped_bwd_dx (#6) and
 // grouped_bwd_wgrad (#7) in grouped_gemm_bwd.cu. Header only: each .cu
 // that includes it instantiates the tiles it needs; each caller's note
@@ -16,11 +17,11 @@
 // or adds to its sum, wgmma with a register A at n64 and n128, pack_a,
 // fence_frags, exp2_approx).
 //
-// int8 weights (#15; the pattern for #8-#11 and #14). map_3d takes 1-byte
-// elements (a UINT8 map: boxes of 128 columns x rows, 128B-swizzled like
-// the others), and a Tile with B_ELEM 1 keeps B in its slots as int8
-// N-major boxes of 128 columns x 64 K rows: half the bytes of bf16 per
-// slab. wgmma has no bf16 x int8 product, so a widening stage runs between
+// int8 weights (#10, #11, #15; the pattern for #8, #9 and #14). map_3d
+// takes 1-byte elements (a UINT8 map: boxes of 128 columns x rows,
+// 128B-swizzled like the others), and a Tile with B_ELEM 1 keeps B in its
+// slots as int8 N-major boxes of 128 columns x 64 K rows: half the bytes
+// of bf16 per slab. wgmma has no bf16 x int8 product, so a widening stage runs between
 // a slot's arrival and its product: widen_s8 turns each int8 box into the
 // two 64-column bf16 boxes that an N-major B descriptor reads (exact, |q|
 // <= 127) in one of three bf16 buffers in the Tile's EXTRA area, then a
@@ -664,11 +665,16 @@ __device__ __forceinline__ void store_rows(const float (&acc)[T::BN / 2], Out* o
   }
 }
 
-// BM x W bf16 zeros at out (row stride ld), by `threads` threads
+// BM x W bf16 zeros at out (row stride ld), by `threads` threads, of which
+// this one is `tid` (threadIdx.x where the whole block stores)
+template <int BM, int W>
+__device__ __forceinline__ void store_zeros(bf16* out, size_t ld, int threads, int tid) {
+  for (int c = tid; c < BM * W / 8; c += threads)
+    *reinterpret_cast<uint4*>(out + (c / (W / 8)) * ld + (c % (W / 8)) * 8) = make_uint4(0, 0, 0, 0);
+}
 template <int BM, int W>
 __device__ __forceinline__ void store_zeros(bf16* out, size_t ld, int threads) {
-  for (int c = threadIdx.x; c < BM * W / 8; c += threads)
-    *reinterpret_cast<uint4*>(out + (c / (W / 8)) * ld + (c % (W / 8)) * 8) = make_uint4(0, 0, 0, 0);
+  store_zeros<BM, W>(out, ld, threads, threadIdx.x);
 }
 
 // A 1D grid of nr x nc blocks over the sorted buffer's row tiles, in groups

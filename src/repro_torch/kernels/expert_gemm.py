@@ -3,10 +3,10 @@ for the sorted layout in bf16 (``grouped_gemm``) and int8
 (``grouped_gemm_q8``), the padded layout in bf16 (``expert_gemm``) and int8
 (``expert_gemm_q8``) and the fused dispatch-in-kernel path in bf16
 (``grouped_gemm_fused``) and int8 (``grouped_gemm_fused_q8``). All twelve
-forward kernels live in ``csrc/grouped_gemm.cu``: #1, #2, #4 and #15 on
-the wgmma/TMA mainloop of ``csrc/sm90_gemm.cuh`` (#15 widens its int8
-weight slabs to bf16 in shared memory before each product), the other
-eight on one templated WMMA tile loop.
+forward kernels live in ``csrc/grouped_gemm.cu``: #1, #2, #4, #10, #11 and
+#15 on the wgmma/TMA mainloop of ``csrc/sm90_gemm.cuh`` (#10, #11 and #15
+widen their int8 weight slabs to bf16 in shared memory before each
+product), the other six on one templated WMMA tile loop.
 
 Sorted, bf16 (``_grouped_fwd_impl``: ``_grouped_gate_up_kernel`` and
 ``_grouped_down_kernel``):
@@ -33,12 +33,13 @@ C`` (``_expert_gemm_bwd``), copied into 128-row-aligned regions because the
 backward kernels need that alignment, and runs the three backward kernels.
 
 Sorted, int8 weights (``_grouped_fwd_q8_impl``: ``_grouped_gate_up_kernel_q8``,
-``_grouped_down_kernel_q8``): ``grouped_gate_up_q8`` and ``grouped_down_q8``
-widen int8 weight slabs to bf16 in shared memory and apply the bf16
-per-column scales to the fp32 sums. Forward only, as in the JAX package.
-Padded, int8 weights (``_expert_fwd_q8_impl``: ``_gate_up_kernel_q8``,
-``_down_kernel_q8``): ``expert_gate_up_q8`` (#8) and ``expert_down_q8``
-(#9), the same int8 tile loop over the padded row mapping; forward only.
+``_grouped_down_kernel_q8``): ``grouped_gate_up_q8`` (#10) and
+``grouped_down_q8`` (#11) widen int8 weight slabs to bf16 in shared memory
+and apply the bf16 per-column scales to the fp32 sums. Forward only, as in
+the JAX package. Padded, int8 weights (``_expert_fwd_q8_impl``:
+``_gate_up_kernel_q8``, ``_down_kernel_q8``): ``expert_gate_up_q8`` (#8)
+and ``expert_down_q8`` (#9) on the WMMA tile loop over the padded row
+mapping; forward only.
 
 Fused dispatch (``_fused_fwd_impl``: ``_fused_gate_up_kernel``,
 ``_fused_down_kernel``; int8 ``_fused_fwd_q8_impl``): the input is the
@@ -299,11 +300,41 @@ def expert_gemm_cuda(xe, w_gate, w_up, w_down) -> torch.Tensor:
     return expert_down_cuda(expert_gate_up_cuda(xe, w_gate, w_up), w_down)
 
 
-def gate_up_q8_cuda(xs, w_gate, w_up, s_gate, s_up, tile_group, tile_rows) -> torch.Tensor:
-    """Launch ``grouped_gate_up_q8`` on the current stream -> h (N_pad, F)."""
+def _check_q8(what, device, weights, scales):
+    """int8 weights and bf16 per-column scales: contiguous, on ``device``;
+    the scales start on a 4-byte boundary (the kernels read them in bf16
+    pairs)."""
+    for name, t in weights.items():
+        if t.dtype != torch.int8 or t.device != device or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous int8 tensor on {device}")
+    _check_bf16(what, device, **scales)
+    for name, t in scales.items():
+        if t.data_ptr() % 4:
+            raise ValueError(f"{what}: {name} must start on a 4-byte boundary, got {t.data_ptr():#x}")
+
+
+def gate_up_q8_cuda(xs, w_gate, w_up, s_gate, s_up, tile_group, tile_rows, out=None) -> torch.Tensor:
+    """Launch ``grouped_gate_up_q8`` (#10) on the current stream -> h
+    (N_pad, F), into ``out`` if it is given. Every check runs before the
+    library is loaded."""
+    _check_bf16("grouped_gate_up_q8", xs.device, xs=xs)
+    _check_q8("grouped_gate_up_q8", xs.device, dict(w_gate=w_gate, w_up=w_up), dict(s_gate=s_gate, s_up=s_up))
+    if xs.dim() != 2 or w_gate.dim() != 3:
+        raise ValueError(f"grouped_gate_up_q8: xs {tuple(xs.shape)} must be (N_pad, D) and w_gate "
+                         f"{tuple(w_gate.shape)} (E, D, F)")
     N_pad, D = xs.shape
-    F = w_gate.shape[2]
-    h = torch.empty((N_pad, F), dtype=xs.dtype, device=xs.device)
+    E, F = w_gate.shape[0], w_gate.shape[2]
+    if (w_gate.shape != (E, D, F) or w_up.shape != (E, D, F) or s_gate.shape != (E, F)
+            or s_up.shape != (E, F)):
+        raise ValueError(f"grouped_gate_up_q8: w_gate {tuple(w_gate.shape)}, w_up {tuple(w_up.shape)}, s_gate "
+                         f"{tuple(s_gate.shape)} and s_up {tuple(s_up.shape)} for xs {tuple(xs.shape)}")
+    if N_pad % ROW_TILE or D % COL_TILE or F % COL_TILE:
+        raise ValueError(f"grouped_gate_up_q8: N_pad={N_pad} must be a multiple of {ROW_TILE}, D={D} and F={F} "
+                         f"of {COL_TILE}")
+    _check_tiles("grouped_gate_up_q8", N_pad // ROW_TILE, xs.device, tile_group=tile_group, tile_rows=tile_rows)
+    _check_out("grouped_gate_up_q8", out, (N_pad, F), xs)
+    h = torch.empty((N_pad, F), dtype=xs.dtype, device=xs.device) if out is None else out
+    _check_tma("grouped_gate_up_q8", xs=xs, w_gate=w_gate, w_up=w_up, out=h)
     lib = _build.load("grouped_gemm", _SIGS)
     _build.check(lib.grouped_gate_up_q8(
         xs.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), s_gate.data_ptr(), s_up.data_ptr(),
@@ -313,11 +344,26 @@ def gate_up_q8_cuda(xs, w_gate, w_up, s_gate, s_up, tile_group, tile_rows) -> to
     return h
 
 
-def down_q8_cuda(h, w_down, s_down, tile_group, tile_rows) -> torch.Tensor:
-    """Launch ``grouped_down_q8`` on the current stream -> y (N_pad, D)."""
+def down_q8_cuda(h, w_down, s_down, tile_group, tile_rows, out=None) -> torch.Tensor:
+    """Launch ``grouped_down_q8`` (#11) on the current stream -> y (N_pad,
+    D), into ``out`` if it is given. Every check runs before the library
+    is loaded."""
+    _check_bf16("grouped_down_q8", h.device, h=h)
+    _check_q8("grouped_down_q8", h.device, dict(w_down=w_down), dict(s_down=s_down))
+    if h.dim() != 2 or w_down.dim() != 3 or w_down.shape[1] != h.shape[1]:
+        raise ValueError(f"grouped_down_q8: h {tuple(h.shape)} must be (N_pad, F) and w_down "
+                         f"{tuple(w_down.shape)} (E, F, D)")
     N_pad, F = h.shape
-    D = w_down.shape[2]
-    y = torch.empty((N_pad, D), dtype=h.dtype, device=h.device)
+    E, D = w_down.shape[0], w_down.shape[2]
+    if s_down.shape != (E, D):
+        raise ValueError(f"grouped_down_q8: s_down {tuple(s_down.shape)} must be ({E}, {D})")
+    if N_pad % ROW_TILE or F % COL_TILE or D % COL_TILE:
+        raise ValueError(f"grouped_down_q8: N_pad={N_pad} must be a multiple of {ROW_TILE}, F={F} and D={D} of "
+                         f"{COL_TILE}")
+    _check_tiles("grouped_down_q8", N_pad // ROW_TILE, h.device, tile_group=tile_group, tile_rows=tile_rows)
+    _check_out("grouped_down_q8", out, (N_pad, D), h)
+    y = torch.empty((N_pad, D), dtype=h.dtype, device=h.device) if out is None else out
+    _check_tma("grouped_down_q8", h=h, w_down=w_down, out=y)
     lib = _build.load("grouped_gemm", _SIGS)
     _build.check(lib.grouped_down_q8(
         h.data_ptr(), w_down.data_ptr(), s_down.data_ptr(), tile_group.data_ptr(), tile_rows.data_ptr(),
@@ -714,12 +760,11 @@ def fused_down_q8_cuda(h, w_down, s_down, row_out, gate_pad, tile_group, tile_ro
     partials (k, T, D), every row written exactly once (``out``, a
     contiguous (k, T, D) tensor of h's dtype, is written in its place).
     Every check runs before the library is loaded."""
-    _check_bf16("grouped_down_fused_q8", h.device, h=h, s_down=s_down)
+    _check_bf16("grouped_down_fused_q8", h.device, h=h)
+    _check_q8("grouped_down_fused_q8", h.device, dict(w_down=w_down), dict(s_down=s_down))
     if h.dim() != 2 or w_down.dim() != 3 or w_down.shape[1] != h.shape[1]:
         raise ValueError(f"grouped_down_fused_q8: h {tuple(h.shape)} must be (N_pad, F) and w_down "
                          f"{tuple(w_down.shape)} (E, F, D)")
-    if w_down.dtype != torch.int8 or w_down.device != h.device or not w_down.is_contiguous():
-        raise ValueError(f"grouped_down_fused_q8: w_down must be a contiguous int8 tensor on {h.device}")
     N_pad, F = h.shape
     E, D = w_down.shape[0], w_down.shape[2]
     if s_down.shape != (E, D):

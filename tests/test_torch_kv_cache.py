@@ -160,3 +160,18 @@ def test_prefix_refcount_invariant_case_pinned():
         j_simulate(1640, **PINNED)
     steps, compared, diverged_at = simulate_side_by_side(1640, **PINNED)
     assert diverged_at is not None and compared == diverged_at < steps
+
+
+PINNED_2 = dict(num_pages=8, ps=4, max_batch=2, chunk=8, window=None, n_req=6, prefix=True)
+
+
+def test_prefix_refcount_invariant_second_case_pinned():
+    """A second stream on which the JAX prefix cache breaks the same
+    invariant (larger pages and prefill chunks than the first pinned case).
+    The port keeps every invariant through it, and its plans equal the JAX
+    package's up to the step at which its insert declines to graft under an
+    unreferenced page."""
+    with pytest.raises(AssertionError, match="refcount not monotone"):
+        j_simulate(127, **PINNED_2)
+    steps, compared, diverged_at = simulate_side_by_side(127, **PINNED_2)
+    assert diverged_at is not None and compared == diverged_at < steps
