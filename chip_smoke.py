@@ -20,12 +20,11 @@ Phases (each failure exits non-zero; nothing is swallowed):
    groups, an empty expert in each; #4, #10 and #11 also launched into a
    NaN-filled output, where padding rows and empty tiles must come back 0,
    twice, bit-equal, and on input with NaN in its padding rows; each with
-   its CUDA-graph device time beside its host-timed one), the padded #1/#2 at C
-   4, 300, 512 and 100 and the padded int8-weight #8/#9 at C 4, 300 and
-   512 (#1, #2, #8 and #9 also launched over all but the last expert into a
-   NaN-filled output: the last expert's rows must stay NaN, so no block
-   writes past C; #1 and #2 launched twice, bit-equal, #1's second launch
-   into NaN coming back finite), the flash forward #16 (B 1, H 32, KV 8,
+   its CUDA-graph device time beside its host-timed one), the padded #1/#2 and the
+   padded int8-weight #8/#9 at C 4, 300, 512 and 100 (each also launched
+   over all but the last expert into a NaN-filled output: the last
+   expert's rows must stay NaN, so no block writes past C; launched twice,
+   bit-equal; #1, #8 and #9 once into NaN, coming back finite), the flash forward #16 (B 1, H 32, KV 8,
    causal) at S 16, 340, 512, 512 with window 128, 2048 (the training
    length) and 1000 with d 64, launched twice into NaN-filled ``out=`` and
    ``lse=`` (finite, bit-equal), each (batch, query, head) row of the
@@ -38,8 +37,8 @@ Phases (each failure exits non-zero; nothing is swallowed):
    (int8: NaN scales) in every pool row outside the rows' live ranges,
    launched twice into NaN-filled outputs (finite, bit-equal, the idle
    row 0); prints kernel, plain and library times (CUDA events; for
-   #8/#9 also the bf16 twin #1/#2; for #16, #19 and #20 also CUDA-graph
-   replay, kernel and SDPA) beside the bound, and for #1, #2, #4, #16, #19
+   #8/#9 also the bf16 twin #1/#2 and CUDA-graph replay of both; for #16,
+   #19 and #20 also CUDA-graph replay, kernel and SDPA) beside the bound, and for #1, #2, #4, #16, #19
    and #20 the time over the library's and the bound over the time;
 3. serve — llama3-e8t2 at full width, 4 layers (the only cut), sorted
    dispatcher, kernels on, random weights from ``--seed`` drawn on the card:
@@ -152,8 +151,9 @@ Phases (each failure exits non-zero; nothing is swallowed):
 serving, ``--phases 1,9`` at fused dispatch. ``--digest SRC`` prints a
 SHA-256 of every expert GEMM's and the flash forward's outputs on seeded
 inputs for the kernels of the tree whose ``src`` is SRC; ``--times SRC``
-prints the device and host-inclusive times of #16 at phase 2's lengths
-and of #15, #11, #10 and #4 at phase 9a's routings for that tree's kernels:
+prints the device and host-inclusive times of #16 at phase 2's lengths,
+of #15, #11, #10 and #4 at phase 9a's routings and of #8, #9, #1 and #2 at
+C 4 and 300 for that tree's kernels:
 run either on two trees in one call to compare them. The last two lines are the card's
 ``nvidia-smi`` name and power limit and the result JSON; the lines before
 them list the launches by path, the serve and train figures and the
@@ -417,67 +417,79 @@ def check_expert(gen, C: int, label: str, E=8, D=4096, F=14336):
 
 def check_expert_q8(gen, C: int, label: str, E=8, D=4096, F=14336):
     """The padded int8-weight kernels #8/#9 on an (E, C, D) buffer against
-    their plain versions (GG_TOL x max|plain|). Each kernel is also
-    launched (through its C entry point, uncounted) over the first E - 1
-    experts into a full (E, C, .) output filled with NaN: the rows of the
-    last expert, which no block of that launch owns, must stay NaN, so the
-    block that straddles C writes no row past it. Beside the kernel: its
-    bf16 twin (#1/#2) on the same shapes with the dequantised weights, and
-    ``torch.bmm`` on those bf16 weights as the library yardstick (no
-    single library call computes the int8 function)."""
+    their plain versions (GG_TOL x max|plain|). Each kernel is launched
+    into a NaN-filled ``out=`` (every element must come back finite), a
+    second time (bit-equal to the first: no atomics, fixed-order sums), and
+    over the first E - 1 experts into a full (E, C, .) output filled with
+    NaN: the rows of the last expert, which no block of that launch owns,
+    must stay NaN, so the block that straddles C writes no row past it.
+    Beside the kernel: its bf16 twin (#1/#2) on the same shapes with the
+    dequantised weights, and ``torch.bmm`` on those bf16 weights as the
+    library yardstick (no single library call computes the int8
+    function); CUDA events around back-to-back calls (``ms``) and CUDA-graph
+    replay (``device_ms``) for the kernel and its twin."""
     import torch
     from repro_torch.core.quant import dequantize_weight, quantize_weight
-    from repro_torch.kernels import _build
     from repro_torch.kernels import expert_gemm as eg
     from repro_torch.kernels.ref import expert_down_q8_ref, expert_gate_up_q8_ref
 
     dev = torch.device("cuda")
+    nan = lambda *shape: torch.full(shape, float("nan"), dtype=torch.bfloat16, device=dev)
     xe = torch.randn((E, C, D), generator=gen, device=dev).bfloat16()
     (wg, sg), (wu, su), (wd, sd) = (
         quantize_weight((torch.randn(shape, generator=gen, device=dev) * shape[1] ** -0.5).bfloat16())
         for shape in ((E, D, F), (E, D, F), (E, F, D)))
     bg, bu, bd = (dequantize_weight(q, s, torch.bfloat16) for q, s in ((wg, sg), (wu, su), (wd, sd)))
-    h = eg.expert_gate_up_q8_cuda(xe, wg, wu, sg, su)
+    h = eg.expert_gate_up_q8_cuda(xe, wg, wu, sg, su, out=nan(E, C, F))
+    h_again = eg.expert_gate_up_q8_cuda(xe, wg, wu, sg, su)
+    h_part = nan(E, C, F)
+    eg.expert_gate_up_q8_cuda(xe[:E - 1], wg[:E - 1], wu[:E - 1], sg[:E - 1], su[:E - 1], out=h_part[:E - 1])
     h_ref = expert_gate_up_q8_ref(xe, wg, wu, sg, su)
-    y = eg.expert_down_q8_cuda(h_ref, wd, sd)
+    y = eg.expert_down_q8_cuda(h_ref, wd, sd, out=nan(E, C, D))
+    y_again = eg.expert_down_q8_cuda(h_ref, wd, sd)
+    y_part = nan(E, C, D)
+    eg.expert_down_q8_cuda(h_ref[:E - 1], wd[:E - 1], sd[:E - 1], out=y_part[:E - 1])
     y_ref = expert_down_q8_ref(h_ref, wd, sd)
-    lib = _build.load("grouped_gemm", eg._SIGS)
-    stream = torch.cuda.current_stream().cuda_stream
-    h_part = torch.full((E, C, F), float("nan"), dtype=torch.bfloat16, device=dev)
-    _build.check(lib.expert_gate_up_q8(xe.data_ptr(), wg.data_ptr(), wu.data_ptr(), sg.data_ptr(), su.data_ptr(),
-                                       h_part.data_ptr(), E - 1, C, D, F, stream), "expert_gate_up_q8")
-    y_part = torch.full((E, C, D), float("nan"), dtype=torch.bfloat16, device=dev)
-    _build.check(lib.expert_down_q8(h_ref.data_ptr(), wd.data_ptr(), sd.data_ptr(), y_part.data_ptr(), E - 1, C,
-                                    F, D, stream), "expert_down_q8")
     torch.cuda.synchronize()
+    h_dst, y_dst, h_twin, y_twin = (torch.empty_like(t) for t in (h, y, h, y))
     rows = []
-    for name, out, ref_out, part, nbytes, flops, fn, plain, twin, lib_calls, lib_name in (
-        ("expert_gate_up_q8", h, h_ref, h_part,
+    for name, out, again, ref_out, part, nbytes, flops, fn, plain, twin, lib_calls, lib_name in (
+        ("expert_gate_up_q8", h, h_again, h_ref, h_part,
          E * C * D * 2 + 2 * E * D * F + 2 * E * F * 2 + E * C * F * 2, 4 * E * C * D * F,
-         lambda: eg.expert_gate_up_q8_cuda(xe, wg, wu, sg, su), lambda: expert_gate_up_q8_ref(xe, wg, wu, sg, su),
-         lambda: eg.expert_gate_up_cuda(xe, bg, bu), [lambda: torch.bmm(xe, bg), lambda: torch.bmm(xe, bu)],
+         lambda: eg.expert_gate_up_q8_cuda(xe, wg, wu, sg, su, out=h_dst),
+         lambda: expert_gate_up_q8_ref(xe, wg, wu, sg, su), lambda: eg.expert_gate_up_cuda(xe, bg, bu, out=h_twin),
+         [lambda: torch.bmm(xe, bg), lambda: torch.bmm(xe, bu)],
          "sum of two torch.bmm (x Wg, x Wu) on the bf16-dequantised weights"),
-        ("expert_down_q8", y, y_ref, y_part, E * C * F * 2 + E * F * D + E * D * 2 + E * C * D * 2,
-         2 * E * C * F * D, lambda: eg.expert_down_q8_cuda(h_ref, wd, sd), lambda: expert_down_q8_ref(h_ref, wd, sd),
-         lambda: eg.expert_down_cuda(h_ref, bd), [lambda: torch.bmm(h_ref, bd)],
-         "torch.bmm on the bf16-dequantised weights"),
+        ("expert_down_q8", y, y_again, y_ref, y_part, E * C * F * 2 + E * F * D + E * D * 2 + E * C * D * 2,
+         2 * E * C * F * D, lambda: eg.expert_down_q8_cuda(h_ref, wd, sd, out=y_dst),
+         lambda: expert_down_q8_ref(h_ref, wd, sd), lambda: eg.expert_down_cuda(h_ref, bd, out=y_twin),
+         [lambda: torch.bmm(h_ref, bd)], "torch.bmm on the bf16-dequantised weights"),
     ):
         err, rel = rel_err(out, ref_out)
-        part_err = rel_err(part[:E - 1], ref_out[:E - 1])[1]
-        untouched = bool(torch.isnan(part[E - 1].float()).all())
-        ok = rel <= GG_TOL and part_err <= GG_TOL and untouched and bool(torch.isfinite(out.float()).all())
+        flags = {"into NaN: every element finite": bool(torch.isfinite(out.float()).all()),
+                 "two launches bit-equal": torch.equal(out.view(torch.int16), again.view(torch.int16)),
+                 "over E-1 experts into NaN: within tol": rel_err(part[:E - 1], ref_out[:E - 1])[1] <= GG_TOL,
+                 "over E-1 experts into NaN: last expert's rows untouched":
+                     bool(torch.isnan(part[E - 1].float()).all())}
+        ok = rel <= GG_TOL and all(flags.values())
         b_ms, b_by = bound(nbytes, flops)
-        row = dict(name=name, max_abs_err=err, rel_err=rel, ok=ok, next_expert_untouched=untouched,
-                   ms=time_ms(fn), plain_ms=time_ms(plain, reps=3, warmup=1), bound_ms=b_ms, bound_by=b_by,
-                   twin_ms=time_ms(twin), library_ms=sum(time_ms(f) for f in lib_calls), library=lib_name,
+        row = dict(name=name, max_abs_err=err, rel_err=rel, ok=ok, checks=flags,
+                   next_expert_untouched=flags["over E-1 experts into NaN: last expert's rows untouched"],
+                   ms=time_ms(fn), device_ms=graph_ms(fn), plain_ms=time_ms(plain, reps=3, warmup=1),
+                   bound_ms=b_ms, bound_by=b_by, twin_ms=time_ms(twin), twin_device_ms=graph_ms(twin),
+                   library_ms=sum(time_ms(f) for f in lib_calls), library=lib_name,
                    shape=f"{label}: E={E} C={C} D={D} F={F} int8 weights")
         rows.append(row)
-        print(f"  {name} [{label}, C={C}] err {err:.4g} (rel {rel:.3g}; over E-1 experts {part_err:.3g}; "
-              f"tol {GG_TOL}) last expert's rows untouched {untouched} kernel {row['ms']:.4f} ms "
-              f"plain {row['plain_ms']:.4f} ms bf16 twin {row['twin_ms']:.4f} ms library ({lib_name}) "
-              f"{row['library_ms']:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+        print(f"  {name} [{label}, C={C}] err {err:.4g} (rel {rel:.3g}, tol {GG_TOL}) {flags}")
+        print(f"  {name} [{label}, C={C}] kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}) plain "
+              f"{row['plain_ms']:.4f} ms bf16 twin {row['twin_ms']:.4f} ms (device {row['twin_device_ms']:.4f}) "
+              f"library ({lib_name}) {row['library_ms']:.4f} ms bound {b_ms:.4f} ms ({b_by}); kernel / library "
+              f"{row['ms'] / row['library_ms']:.3f}, kernel / twin (device) "
+              f"{row['device_ms'] / row['twin_device_ms']:.3f}, bound / kernel (device) "
+              f"{b_ms / row['device_ms']:.3f}")
         if not ok:
-            raise SystemExit(f"{name} [{label}, C={C}] disagrees with its plain version or wrote past C")
+            raise SystemExit(f"{name} [{label}, C={C}] disagrees with its plain version, differs between two "
+                             f"launches, left NaN or wrote past C")
     return rows
 
 
@@ -934,7 +946,8 @@ def digests(seed: int) -> dict:
     """SHA-256 (first 16 hex digits) of the outputs of the expert GEMM
     kernels (#1-#15) and the flash forward (#16) at llama3-e8t2 widths on
     inputs drawn from ``seed``, each kernel fed its own random inputs (#10
-    and #11 at the decode and prefill groups). Two trees whose digests
+    and #11 at the decode and prefill groups, #8 and #9 at C 4, 300 and
+    512). Two trees whose digests
     agree compute bit-equal outputs (``--digest``)."""
     import hashlib
 
@@ -973,7 +986,7 @@ def digests(seed: int) -> dict:
     h = eg.gate_up_q8_cuda(xs, qg, qu, sg, su, tg, tr)
     out["grouped_gate_up_q8 decode"] = sha(h)
     out["grouped_down_q8 decode"] = sha(eg.down_q8_cuda(h, qd, sd, tg, tr))
-    for C in (4, 300):
+    for C in (4, 300, 512):
         xe = rand(8, C, 4096)
         he = eg.expert_gate_up_q8_cuda(xe, qg, qu, sg, su)
         out[f"expert_gate_up_q8 C={C}"] = sha(he)
@@ -1010,9 +1023,10 @@ def digests(seed: int) -> dict:
 
 
 def kernel_times(seed: int) -> dict:
-    """Times (ms) of the kernels the last slices redesigned, #16, #15, #11
-    and #10, and of their yardstick #4 (the bf16 twin of #11 and #15), at
-    phase 2's flash shapes and phase 9a's decode and prefill routings, for
+    """Times (ms) of the kernels the last slices redesigned, #16, #15, #11,
+    #10, #9 and #8, and of their yardsticks #4 (the bf16 twin of #11 and
+    #15), #2 and #1 (the twins of #9 and #8), at phase 2's flash shapes,
+    phase 9a's decode and prefill routings and the padded C 4 and 300, for
     the kernels of the tree whose ``src`` is on the path (``--times``; the
     calls are ones every tree since the fused slice takes): CUDA-graph
     device time and CUDA events around back-to-back wrapper calls (host
@@ -1046,6 +1060,15 @@ def kernel_times(seed: int) -> dict:
                          ("grouped_down", lambda: eg.down_cuda(h, wd, tg, tr)),
                          ("grouped_gate_up_q8", lambda: eg.gate_up_q8_cuda(xs, qg, qu, sg, su, tg, tr))):
             out[f"{name} {label}"] = {"device_ms": graph_ms(fn), "ms": time_ms(fn)}
+    del h, xs
+    wg, wu = (rand(8, 4096, 14336, scale=4096 ** -0.5) for _ in range(2))
+    for C in (4, 300):
+        xe, he = rand(8, C, 4096), rand(8, C, 14336)
+        for name, fn in (("expert_gate_up_q8", lambda: eg.expert_gate_up_q8_cuda(xe, qg, qu, sg, su)),
+                         ("expert_gate_up", lambda: eg.expert_gate_up_cuda(xe, wg, wu)),
+                         ("expert_down_q8", lambda: eg.expert_down_q8_cuda(he, qd, sd)),
+                         ("expert_down", lambda: eg.expert_down_cuda(he, wd))):
+            out[f"{name} C={C}"] = {"device_ms": graph_ms(fn), "ms": time_ms(fn)}
     return out
 
 
@@ -2648,10 +2671,12 @@ def main(argv=None) -> int:
         check_expert(gen, 100, "partial")  # one 128-row block, 36 rows past its first 64
         torch.cuda.empty_cache()
         # the int8-weight padded kernels at the same shapes (C 4 and 300
-        # end inside a 64-row block, 512 on its edge)
+        # end inside a 64-row block, 512 on its edge, 100 in the second
+        # warpgroup of its one block)
         pad_dec_q8 = check_expert_q8(gen, 4, "decode")
         check_expert_q8(gen, 300, "prefill")
         check_expert_q8(gen, 512, "train")
+        check_expert_q8(gen, 100, "partial")  # one 128-row block, 36 rows past its first 64
         torch.cuda.empty_cache()
         for row in dec + dec_q8 + pad_dec + pad_dec_q8:
             kernels[row["name"]] = row

@@ -1,12 +1,13 @@
 // Expert FFN GEMMs with fused SwiGLU for Hopper (sm_90a): twelve entry
-// points. Six run on the warp-specialised wgmma/TMA mainloop of
+// points. Eight run on the warp-specialised wgmma/TMA mainloop of
 // sm90_gemm.cuh: expert_gate_up (#1), expert_down (#2), grouped_down (#4)
 // and, with int8 weights widened by the header's widening stage,
-// grouped_gate_up_q8 (#10), grouped_down_q8 (#11) and
-// grouped_down_fused_q8 (#15), each with its note below. The other six
-// (#3, #8, #9 and #12-#14) run on one WMMA tile loop (ffn_kernel),
-// templated over the row mapping and the weight type. Each entry point has
-// its own launch counter in kernels/expert_gemm.py.
+// expert_gate_up_q8 (#8), expert_down_q8 (#9), grouped_gate_up_q8 (#10),
+// grouped_down_q8 (#11) and grouped_down_fused_q8 (#15), each with its
+// note below. The other four (#3 and #12-#14) run on one WMMA tile loop
+// (ffn_kernel), templated over the row mapping (sorted or fused) and the
+// weight type. Each entry point has its own launch counter in
+// kernels/expert_gemm.py.
 //
 // Replaces the TPU kernels of src/repro/kernels/expert_gemm.py:
 //   grouped_gate_up           _grouped_gate_up_kernel     (#3)  sorted, bf16          :335
@@ -32,9 +33,8 @@
 // writes zeros and does no product. Padded: the dense (E, C, D) buffer read in
 // place; every slot r < C is computed (empty slots hold token 0's row and
 // are zeroed by the combine's gate), and no row at or past C is written,
-// so a launch never touches the next expert's rows. The int8 padded
-// kernels (#8/#9) read the scale row of that same padded expert e, and
-// their A tile stays bf16, so the clamp is the bf16 one. Fused (the sorted
+// so a launch never touches the next expert's rows (#1, #2, #8, #9; the
+// int8 #8/#9 read the scale row of that same padded expert e). Fused (the sorted
 // dispatcher's dispatch-in-kernel path): the sorted mapping's tiles, but
 // the (N_pad, D) buffer never exists. The gate/up kernel gathers row r of
 // its block from the token-major x (T, D) at tok_pad[row0 + r] (padding
@@ -60,7 +60,7 @@
 // the combine writes k*T*D*2 bytes of partials in place of the sorted
 // buffer's N_pad rows.
 //
-// ffn_kernel (#3, #8, #9, #12-#14): one block per (64-row block, 128 output
+// ffn_kernel (#3, #12-#14): one block per (64-row block, 128 output
 // columns); blocks that share a weight column block are launched next to
 // each other (the row block is the fastest grid dim) so the second reads
 // the weights from L2. The contraction loop streams 32-deep slabs of x
@@ -77,9 +77,9 @@
 // the TPU epilogue does (loaded into accumulator fragments from a
 // shared-memory tile of repeated rows, so they line up). No wgmma, TMA
 // or warp specialisation: its entry points are ROADMAP queue 2's next
-// redesigns (the int8 ones, #8, #9 and #14, onto the mainloop with the
-// widening stage). Its <1, FUSED, true> (#15) and <2 / 1, SORTED, true>
-// (#10, #11) instantiations are gone.
+// redesigns (#3 and #14, then #12 and #13). Its <1, FUSED, true> (#15),
+// <2 / 1, SORTED, true> (#10, #11) instantiations and its padded row
+// mapping (#8, #9) are gone.
 //
 // expert_down (#2): y[e] = h[e] @ Wd[e]. Bound at decode (C 4) by the
 // weight bytes (940 MB at llama3-e8t2 widths, 0.281 ms at 3.35 TB/s), at
@@ -206,15 +206,60 @@
 // byte bound. Per block: 168 registers, 20 B spilled; 230,464 B of shared
 // memory.
 //
+// expert_down_q8 (#9): y[e] = (h[e] @ Wd[e]) * s_down[e], Wd int8, the
+// scale on the fp32 sums, rounded to bf16 once. Bound by bytes at C 4
+// (int8 Wd, 470 MB, 0.1406 ms) and C 100, by operations at C 300 and 512
+// (0.2850, 0.4864 ms). The design is #2's padded grid, even row split and
+// row-block clusters (h through the 3D map over (E, C, F), so a box past
+// C arrives as zeros) with #11's slab: two 128-column int8 boxes of Wd[e]
+// a slab at BN 256 (UINT8 map over the real (E, F, D), the expert from the
+// grid), widened by consume_s8 into three bf16 buffers. The epilogue
+// scales the fp32 sums in registers (bf16x2 scale loads) and stores only
+// rows below C (store_rows); a warpgroup with no row below C (at C <= 64
+// the second one) widens its share of each slab (widen_slabs) and stores
+// nothing. At C 4: 8 experts x 16 column blocks = 128 blocks, one wave.
+// Per block: 168 registers, 16 B spilled at BN 256 (108, none at BN 128);
+// 230,464 B of shared memory (Q8Tile<256>; 7 slots at BN 128).
+//
+// expert_gate_up_q8 (#8): h[e] = silu((x[e] Wg[e]) * s_gate[e]) * ((x[e]
+// Wu[e]) * s_up[e]), Wg and Wu int8, the scales on the fp32 sums before
+// silu, rounded to bf16 once. Bound by bytes at C 4 (939 MB, 0.2809 ms)
+// and C 100, by operations at C 300 and 512 (0.5700, 0.9728 ms). #1's
+// padded grid, row split and clusters with #10's slab: x[e] through the 3D
+// map over (E, C, D), one 128-column int8 box of Wg[e] and one of Wu[e] (UINT8
+// maps over the real (E, D, F)) that widen_s8 turns into #1's four bf16
+// boxes, g in accumulator columns 0-127 and u in 128-255; #10's epilogue
+// (scales a column pair at a time after the K loop, swiglu, bf16 pairs
+// from registers), storing only rows below C; a warpgroup with no row
+// below C widens and stores nothing. At C 4: 8 x 112 = 896 blocks of 64
+// slabs (~6.8 waves). Per block: 168 registers, 20 B spilled; 230,464 B.
+//
+// #8 and #9 run two consumer warpgroups at every C (Q8Tile), where #1 and
+// #2 run one at C <= 64: the warpgroup without rows widens half of every
+// slab. A one-warpgroup variant for C <= 64 (Tile<1, 256> with the three
+// bf16 buffers: 5 slots, 222,288 B, 243-244 registers, no spill) measured
+// 2-4% slower for #8 and 8% slower for #9 at C 4 in a variant build on the
+// card (PERF.md), so it was dropped. At C 4 both beat their library
+// calls and bf16 twins. At C 300 and 512 both stay 1.33-1.57x their bf16
+// twins: in variant builds without the widening the products alone ran
+// level with the twins, and the widening alone took ~0.9x the products'
+// time, so the widening, which each block of a cluster repeats for the
+// same weight slab (3 blocks at C 300, 4 at 512), is what holds them back.
+// Sharing one widening across the cluster (distributed shared memory) or
+// weights as the register A of a transposed product would remove it; not
+// tried.
+//
 // Left for later: #1 at C 300 (a block of 100 rows on a 128-row tile) and
 // the mainloop's ~60-67% of the tensor-core peak at C 512 and in training
 // (sm90_gemm.cuh); the padded decode computes all 8 experts at C 4 (#1,
-// #2: skip empty ones); a fixed-order split over F for #2 at C 300; the
-// six ffn_kernel entry points onto the mainloop (the int8 ones with the
-// widening stage); the widening costs shared-memory traffic (16 KB read
-// and 32 KB written a slab at BN 256, beside the products' reads) that
-// the products do not fully hide, which holds #15 and #11 above #4 at
-// prefill and all three int8 kernels under ~60% of their byte bounds.
+// #2, #8, #9: skipping empty ones changes the function, so it needs a
+// per-expert count and a rule for what empty slots hold); a fixed-order
+// split over F for #2 at C 300; the four ffn_kernel entry points onto
+// the mainloop (#14 with the widening stage); the widening costs
+// shared-memory traffic (16 KB read and 32 KB written a slab at BN 256,
+// beside the products' reads) that the products do not fully hide, which
+// holds the int8 kernels above their bf16 twins at prefill and under
+// ~60% of their byte bounds at decode.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -269,19 +314,18 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
-enum RowMap { SORTED = 0, PADDED = 1, FUSED = 2 };
+enum RowMap { SORTED = 0, FUSED = 2 };
 
 // NB = 2: out = silu(A@W0[e] * S0[e]) * (A@W1[e] * S1[e]); NB = 1: out = A@W0[e] * S0[e]
 // (no S without Q8). A (rows, K) bf16; W (E, K, N) bf16 or int8; S (E, N) bf16;
-// out (rows, N) bf16. PADDED: rows = E * cap, blockIdx.x = e * ceil(cap/BM) + row block;
-// otherwise the sorted mapping through tile_group / tile_rows. FUSED, NB = 2: block row r
-// reads A (T, K) at row row_idx[row0 + r]; FUSED, NB = 1: valid row r is stored times
-// row_gate[row0 + r] at out row row_idx[row0 + r].
+// out (rows, N) bf16. The sorted mapping through tile_group / tile_rows. FUSED, NB = 2:
+// block row r reads A (T, K) at row row_idx[row0 + r]; FUSED, NB = 1: valid row r is
+// stored times row_gate[row0 + r] at out row row_idx[row0 + r].
 template <int NB, int MAP, bool Q8>
 __global__ void __launch_bounds__(THREADS)
 ffn_kernel(const bf16* __restrict__ A, const void* __restrict__ W0v, const void* __restrict__ W1v,
            const bf16* __restrict__ S0, const bf16* __restrict__ S1,
-           const int* __restrict__ tile_group, const int* __restrict__ tile_rows, int cap,
+           const int* __restrict__ tile_group, const int* __restrict__ tile_rows,
            const int* __restrict__ row_idx, const float* __restrict__ row_gate,
            bf16* __restrict__ out, int K, int N) {
   using WT = typename std::conditional<Q8, int8_t, bf16>::type;
@@ -293,31 +337,21 @@ ffn_kernel(const bf16* __restrict__ A, const void* __restrict__ W0v, const void*
 
   const int tid = threadIdx.x;
   const int n0 = blockIdx.y * BN;
-  int e, valid;
-  size_t row0;  // first row of this block in A and out
-  if constexpr (MAP == PADDED) {
-    const int nsub = (cap + BM - 1) / BM;
-    e = blockIdx.x / nsub;
-    const int sub = blockIdx.x % nsub;
-    valid = min(BM, cap - sub * BM);
-    row0 = (size_t)e * cap + (size_t)sub * BM;
-  } else {
-    const int sub = blockIdx.x;
-    const int tile = sub / (ROW_TILE / BM);
-    row0 = (size_t)sub * BM;
-    valid = tile_rows[tile] - (sub % (ROW_TILE / BM)) * BM;
-    valid = valid < 0 ? 0 : (valid > BM ? BM : valid);
-    if (valid == 0) {  // empty half tile: no product; zeros, or nothing for the combine
-      if constexpr (!COMBINE) {
-        for (int c = tid; c < BM * BN / 8; c += THREADS) {
-          const int r = c / (BN / 8), col = (c % (BN / 8)) * 8;
-          *reinterpret_cast<uint4*>(out + (row0 + r) * N + n0 + col) = make_uint4(0, 0, 0, 0);
-        }
+  const int sub = blockIdx.x;
+  const int tile = sub / (ROW_TILE / BM);
+  const size_t row0 = (size_t)sub * BM;  // first row of this block in A and out
+  int valid = tile_rows[tile] - (sub % (ROW_TILE / BM)) * BM;
+  valid = valid < 0 ? 0 : (valid > BM ? BM : valid);
+  if (valid == 0) {  // empty half tile: no product; zeros, or nothing for the combine
+    if constexpr (!COMBINE) {
+      for (int c = tid; c < BM * BN / 8; c += THREADS) {
+        const int r = c / (BN / 8), col = (c % (BN / 8)) * 8;
+        *reinterpret_cast<uint4*>(out + (row0 + r) * N + n0 + col) = make_uint4(0, 0, 0, 0);
       }
-      return;
     }
-    e = tile_group[tile];
+    return;
   }
+  const int e = tile_group[tile];
 
   const size_t e_off = (size_t)e * K * N + n0;
   const WT* Wb[2] = {static_cast<const WT*>(W0v) + e_off, static_cast<const WT*>(W1v) + e_off};
@@ -453,7 +487,6 @@ ffn_kernel(const bf16* __restrict__ A, const void* __restrict__ W0v, const void*
   }
   for (int c = tid; c < BM * BN / 2; c += THREADS) {
     const int r = c / (BN / 2), col = (c % (BN / 2)) * 2;
-    if (MAP == PADDED && r >= valid) continue;  // the next expert's rows
     float v0 = 0.0f, v1 = 0.0f;
     if (r < valid) {
       v0 = ctile[r * C_LD + col];
@@ -476,7 +509,8 @@ __host__ __device__ inline int down_rows(int c, int bm) {
 }
 
 // h (E, C, F) read in boxes of 64 columns x down_rows rows of one expert;
-// Wd (E, F, D) in boxes of 64 output columns x 64 rows of F (N-major B)
+// Wd (E, F, D) in boxes of 64 output columns x 64 rows of F (N-major B),
+// or, int8 (#9), of 128 output columns (widened by consume_s8)
 struct DownMaps {
   CUtensorMap h, wd;
 };
@@ -529,13 +563,15 @@ int down_cluster(int nsub) {
   return 1;
 }
 
-// the padded grid of #1 and #2: (e * ceil(c / BM) row blocks, `cols`
-// column blocks), an expert's row blocks as one cluster
-template <class T, class K, class Maps>
-int launch_padded(K kernel, const Maps& maps, void* out, int e, int c, int cols, int k, int n, cudaStream_t s) {
+// the padded grid of #1, #2, #8 and #9: (e * ceil(c / BM) row blocks,
+// `cols` column blocks), an expert's row blocks as one cluster; the int8
+// kernels' scale pointers (`scales`) go between the maps and the output
+template <class T, class K, class Maps, class... Scales>
+int launch_padded(K kernel, const Maps& maps, void* out, int e, int c, int cols, int k, int n, cudaStream_t s,
+                  Scales... scales) {
   const int nsub = (c + T::BM - 1) / T::BM;
   return sm90::launch_cluster(kernel, dim3(e * nsub, cols), down_cluster(nsub), T::THREADS, T::SMEM, s, maps,
-                              (bf16*)out, c, k, n);
+                              scales..., (bf16*)out, c, k, n);
 }
 
 template <class T>
@@ -561,7 +597,8 @@ constexpr int GU_BN = 128;  // h columns per block: g and u, 128 each, side by s
 __device__ __forceinline__ float swiglu(float g, float u) { return g * __fdividef(1.0f, 1.0f + expf(-g)) * u; }
 
 // x (E, C, D) in boxes of 64 columns x down_rows rows of one expert; Wg,
-// Wu (E, D, F) in boxes of 64 F columns x 64 D rows (N-major B)
+// Wu (E, D, F) in boxes of 64 F columns x 64 D rows (N-major B), or, int8
+// (#8), of 128 F columns (widened by consume_s8)
 struct GateUpMaps {
   CUtensorMap x, wg, wu;
 };
@@ -924,8 +961,151 @@ int launch_gate_up_q8(const void* xs, const void* w_gate, const void* w_up, cons
                               maps, (const bf16*)s_gate, (const bf16*)s_up, tile_group, tile_rows, (bf16*)h, d, f);
 }
 
+// ---------------------------------------------------------------------------
+// #9 expert_down_q8 and #8 expert_gate_up_q8: #2's and #1's padded grid with
+// #11's and #10's int8 slabs, widened in shared memory
+// ---------------------------------------------------------------------------
+
+// #2's grid, row split and clusters with #11's slab: each slab's int8 boxes
+// are widened to bf16 by all consumer threads before the product
+// warpgroups' wgmma. The epilogue scales the fp32 sums by s_down[e] in
+// registers and stores only rows below C; a warpgroup with no row below C
+// widens its share of each slab and stores nothing.
+template <class T>
+__global__ void __launch_bounds__(T::THREADS, 1)
+expert_down_q8_kernel(const __grid_constant__ DownMaps maps, const bf16* __restrict__ S,
+                      bf16* __restrict__ Y, int C, int F, int D) {
+  static_assert(T::B_MN, "an N-major B");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int nsub = (C + T::BM - 1) / T::BM, R = down_rows(C, T::BM);
+  const int e = blockIdx.x / nsub, r0 = (blockIdx.x % nsub) * R;
+  const int n0 = blockIdx.y * T::BN;
+  const int valid = min(R, C - r0);
+  const int active = (valid + 63) / 64;  // consumer warpgroups with a row below C
+  const sm90::Ring<T> ring = sm90::ring_at<T>(smem_raw);
+  if (tid == 0) ring.init(4 * active);
+  __syncthreads();
+  const int n_slabs = F / T::BK;
+  if (wg == T::NWG) {  // the producer warp: one thread issues every copy
+    if (tid == T::CONSUMERS)
+      sm90::produce(ring, n_slabs, [&](int i, uint32_t a, uint32_t b, uint32_t bar) {
+        const int k0 = i * T::BK;
+        sm90::tma_load_3d(a, &maps.h, k0, r0, e, bar);
+#pragma unroll
+        for (int c = 0; c < T::BN / 128; ++c)
+          sm90::tma_load_3d(b + c * (T::BK * 128), &maps.wd, n0 + 128 * c, k0, e, bar);
+      }, R * 128 + T::B_BYTES);
+    return;
+  }
+  if (wg >= active) {  // no row below C: it only widens its share of each slab
+    sm90::widen_slabs(ring, n_slabs);
+    return;
+  }
+  float acc[T::BN / 2];
+#pragma unroll
+  for (int i = 0; i < T::BN / 2; ++i) acc[i] = 0.f;
+  sm90::consume_s8(ring, n_slabs, wg, acc);
+  const __nv_bfloat162* scale = reinterpret_cast<const __nv_bfloat162*>(S + (size_t)e * D + n0 + 2 * (tid % 4));
+#pragma unroll
+  for (int j = 0; j < T::BN / 8; ++j) {
+    const float2 sc = __bfloat1622float2(scale[4 * j]);
+    acc[4 * j] *= sc.x;  // rows g and g + 8 of columns 8j + 2t, + 1
+    acc[4 * j + 1] *= sc.y;
+    acc[4 * j + 2] *= sc.x;
+    acc[4 * j + 3] *= sc.y;
+  }
+  sm90::store_rows<T, false>(acc, Y + ((size_t)e * C + r0 + wg * 64) * D + n0, D, valid - wg * 64);
+}
+
+template <class T>
+int launch_down_q8_padded(const void* h, const void* w_down, const void* s_down, void* y, int e, int c, int f, int d,
+                          cudaStream_t s) {
+  static const cudaError_t attr =  // once per process and tile shape
+      cudaFuncSetAttribute(expert_down_q8_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  DownMaps maps;
+  if (reinterpret_cast<uintptr_t>(y) % 16 || !sm90::map_3d(&maps.h, h, f, c, e, down_rows(c, T::BM)) ||
+      !sm90::map_3d(&maps.wd, w_down, d, f, e, 64, 1))
+    return (int)cudaErrorInvalidValue;
+  return launch_padded<T>(expert_down_q8_kernel<T>, maps, y, e, c, d / T::BN, f, d, s, (const bf16*)s_down);
+}
+
+// #1's grid, row split and clusters with #10's slab: (x[e]; Wg[e] | Wu[e])
+// with one 128-column int8 box of each, which widen_s8 turns into #1's four
+// bf16 boxes, so the m64n256 accumulator holds g in columns 0-127 and u in
+// 128-255. #10's epilogue: the scales loaded a column pair at a time after
+// the K loop, silu(g * s_gate) * (u * s_up) in fp32, bf16 pairs stored from
+// registers, only rows below C; a warpgroup with no row below C widens its
+// share of each slab and stores nothing.
+template <class T>
+__global__ void __launch_bounds__(T::THREADS, 1)
+expert_gate_up_q8_kernel(const __grid_constant__ GateUpMaps maps, const bf16* __restrict__ s_gate,
+                         const bf16* __restrict__ s_up, bf16* __restrict__ H, int C, int D, int F) {
+  static_assert(T::BN == 2 * GU_BN && T::B_MN, "g | u side by side, an N-major B");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int nsub = (C + T::BM - 1) / T::BM, R = down_rows(C, T::BM);
+  const int e = blockIdx.x / nsub, r0 = (blockIdx.x % nsub) * R;
+  const int n0 = blockIdx.y * GU_BN;
+  const int valid = min(R, C - r0);
+  const int active = (valid + 63) / 64;  // consumer warpgroups with a row below C
+  const sm90::Ring<T> ring = sm90::ring_at<T>(smem_raw);
+  if (tid == 0) ring.init(4 * active);
+  __syncthreads();
+  const int n_slabs = D / T::BK;
+  if (wg == T::NWG) {  // the producer warp: one thread issues every copy
+    if (tid == T::CONSUMERS)
+      sm90::produce(ring, n_slabs, [&](int i, uint32_t a, uint32_t b, uint32_t bar) {
+        const int k0 = i * T::BK;
+        sm90::tma_load_3d(a, &maps.x, k0, r0, e, bar);
+        sm90::tma_load_3d(b, &maps.wg, n0, k0, e, bar);
+        sm90::tma_load_3d(b + T::BK * 128, &maps.wu, n0, k0, e, bar);
+      }, R * 128 + T::B_BYTES);
+    return;
+  }
+  if (wg >= active) {  // no row below C: it only widens its share of each slab
+    sm90::widen_slabs(ring, n_slabs);
+    return;
+  }
+  float gu[T::BN / 2];
+#pragma unroll
+  for (int i = 0; i < T::BN / 2; ++i) gu[i] = 0.f;
+  sm90::consume_s8(ring, n_slabs, wg, gu);
+  const int rows = valid - wg * 64;  // this warpgroup's rows below C
+  const int warp = (tid % 128) / 32, g8 = (tid % 32) / 4, t = tid % 4;
+  // scales of columns n0 + 8j + 2t, +1 at pair 4j, loaded a column pair at a time after the K loop
+  const __nv_bfloat162* sg = reinterpret_cast<const __nv_bfloat162*>(s_gate + (size_t)e * F + n0 + 2 * t);
+  const __nv_bfloat162* su = reinterpret_cast<const __nv_bfloat162*>(s_up + (size_t)e * F + n0 + 2 * t);
+  uint32_t* h = reinterpret_cast<uint32_t*>(H + ((size_t)e * C + r0 + wg * 64 + warp * 16 + g8) * F + n0 + 2 * t);
+#pragma unroll
+  for (int j = 0; j < GU_BN / 8; ++j) {
+    const float2 a = __bfloat1622float2(sg[4 * j]), b = __bfloat1622float2(su[4 * j]);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int k = 4 * j + 2 * hh;
+      if (warp * 16 + g8 + 8 * hh < rows)
+        h[(size_t)4 * hh * F + 4 * j] = sm90::pack_bf16(swiglu(gu[k] * a.x, gu[GU_BN / 2 + k] * b.x),
+                                                        swiglu(gu[k + 1] * a.y, gu[GU_BN / 2 + k + 1] * b.y));
+    }
+  }
+}
+
+template <class T>
+int launch_gate_up_q8_padded(const void* xe, const void* w_gate, const void* w_up, const void* s_gate,
+                             const void* s_up, void* h, int e, int c, int d, int f, cudaStream_t s) {
+  static const cudaError_t attr =  // once per process and tile shape
+      cudaFuncSetAttribute(expert_gate_up_q8_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  GateUpMaps maps;
+  if (reinterpret_cast<uintptr_t>(h) % 16 || !sm90::map_3d(&maps.x, xe, d, c, e, down_rows(c, T::BM)) ||
+      !sm90::map_3d(&maps.wg, w_gate, f, d, e, 64, 1) || !sm90::map_3d(&maps.wu, w_up, f, d, e, 64, 1))
+    return (int)cudaErrorInvalidValue;
+  return launch_padded<T>(expert_gate_up_q8_kernel<T>, maps, h, e, c, f / GU_BN, d, f, s, (const bf16*)s_gate,
+                          (const bf16*)s_up);
+}
+
 int sorted_blocks(int n_pad) { return n_pad / BM; }
-int padded_blocks(int e, int c) { return e * ((c + BM - 1) / BM); }
 
 }  // namespace
 
@@ -934,7 +1114,7 @@ extern "C" int grouped_gate_up(const void* xs, const void* w_gate, const void* w
                                int n_pad, int d, int f, void* stream) {
   dim3 grid(sorted_blocks(n_pad), f / BN);
   ffn_kernel<2, SORTED, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)xs, w_gate, w_up, nullptr, nullptr, tile_group, tile_rows, 0, nullptr, nullptr, (bf16*)h, d, f);
+      (const bf16*)xs, w_gate, w_up, nullptr, nullptr, tile_group, tile_rows, nullptr, nullptr, (bf16*)h, d, f);
   return (int)cudaGetLastError();
 }
 
@@ -972,24 +1152,23 @@ extern "C" int expert_down(const void* h, const void* w_down, void* y, int e, in
               : launch_down<sm90::Tile<2, 128, true>>(h, w_down, y, e, c, f, d, s);
 }
 
-// xe (E, c, d) bf16; w_gate/w_up (E, d, f) int8; s_gate/s_up (E, f) bf16 -> h (E, c, f)
+// xe (E, c, d) bf16; w_gate/w_up (E, d, f) int8; s_gate/s_up (E, f) bf16 -> h (E, c, f): the
+// wgmma/TMA kernel above
 extern "C" int expert_gate_up_q8(const void* xe, const void* w_gate, const void* w_up, const void* s_gate,
                                  const void* s_up, void* h, int e, int c, int d, int f, void* stream) {
-  dim3 grid(padded_blocks(e, c), f / BN);
-  ffn_kernel<2, PADDED, true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)xe, w_gate, w_up, (const bf16*)s_gate, (const bf16*)s_up, nullptr, nullptr, c, nullptr, nullptr,
-      (bf16*)h, d, f);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (e < 1 || c < 1 || d % 64 || f % GU_BN) return (int)cudaErrorInvalidValue;
+  return launch_gate_up_q8_padded<Q8Tile<2 * GU_BN>>(xe, w_gate, w_up, s_gate, s_up, h, e, c, d, f, s);
 }
 
-// h (E, c, f) bf16; w_down (E, f, d) int8; s_down (E, d) bf16 -> y (E, c, d)
+// h (E, c, f) bf16; w_down (E, f, d) int8; s_down (E, d) bf16 -> y (E, c, d): the wgmma/TMA
+// kernel above, BN 256 where d allows it
 extern "C" int expert_down_q8(const void* h, const void* w_down, const void* s_down, void* y, int e, int c, int f,
                               int d, void* stream) {
-  dim3 grid(padded_blocks(e, c), d / BN);
-  ffn_kernel<1, PADDED, true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)h, w_down, w_down, (const bf16*)s_down, (const bf16*)s_down, nullptr, nullptr, c, nullptr,
-      nullptr, (bf16*)y, f, d);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (e < 1 || c < 1 || f % 64 || d % 128) return (int)cudaErrorInvalidValue;
+  return d % 256 == 0 ? launch_down_q8_padded<Q8Tile<256>>(h, w_down, s_down, y, e, c, f, d, s)
+                      : launch_down_q8_padded<Q8Tile<128>>(h, w_down, s_down, y, e, c, f, d, s);
 }
 
 // xs (n_pad, d) bf16; w_gate/w_up (E, d, f) int8; s_gate/s_up (E, f) bf16 -> h (n_pad, f): the
@@ -1021,7 +1200,7 @@ extern "C" int grouped_gate_up_fused(const void* x, const void* w_gate, const vo
                                      void* stream) {
   dim3 grid(sorted_blocks(n_pad), f / BN);
   ffn_kernel<2, FUSED, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)x, w_gate, w_up, nullptr, nullptr, tile_group, tile_rows, 0, tok_pad, nullptr, (bf16*)h, d, f);
+      (const bf16*)x, w_gate, w_up, nullptr, nullptr, tile_group, tile_rows, tok_pad, nullptr, (bf16*)h, d, f);
   return (int)cudaGetLastError();
 }
 
@@ -1031,7 +1210,7 @@ extern "C" int grouped_down_fused(const void* h, const void* w_down, const int* 
                                   int d, void* stream) {
   dim3 grid(sorted_blocks(n_pad), d / BN);
   ffn_kernel<1, FUSED, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)h, w_down, w_down, nullptr, nullptr, tile_group, tile_rows, 0, row_out, gate_pad,
+      (const bf16*)h, w_down, w_down, nullptr, nullptr, tile_group, tile_rows, row_out, gate_pad,
       (bf16*)partials, f, d);
   return (int)cudaGetLastError();
 }
@@ -1041,7 +1220,7 @@ extern "C" int grouped_gate_up_fused_q8(const void* x, const void* w_gate, const
                                         const int* tile_rows, void* h, int n_pad, int d, int f, void* stream) {
   dim3 grid(sorted_blocks(n_pad), f / BN);
   ffn_kernel<2, FUSED, true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)x, w_gate, w_up, (const bf16*)s_gate, (const bf16*)s_up, tile_group, tile_rows, 0, tok_pad,
+      (const bf16*)x, w_gate, w_up, (const bf16*)s_gate, (const bf16*)s_up, tile_group, tile_rows, tok_pad,
       nullptr, (bf16*)h, d, f);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,8 @@
 // A warp-specialised wgmma + TMA GEMM mainloop for Hopper (sm_90a), shared
 // by the expert GEMMs on it: expert_gate_up (#1), expert_down (#2),
-// grouped_down (#4) and, with int8 weights, grouped_gate_up_q8 (#10),
-// grouped_down_q8 (#11) and grouped_down_fused_q8 (#15) in
-// grouped_gemm.cu, and grouped_bwd_dh (#5), grouped_bwd_dx (#6) and
+// grouped_down (#4) and, with int8 weights, expert_gate_up_q8 (#8),
+// expert_down_q8 (#9), grouped_gate_up_q8 (#10), grouped_down_q8 (#11)
+// and grouped_down_fused_q8 (#15) in grouped_gemm.cu, and grouped_bwd_dh (#5), grouped_bwd_dx (#6) and
 // grouped_bwd_wgrad (#7) in grouped_gemm_bwd.cu. Header only: each .cu
 // that includes it instantiates the tiles it needs; each caller's note
 // gives its design and ptxas's counts. Besides the mainloop it holds what
@@ -17,7 +17,7 @@
 // or adds to its sum, wgmma with a register A at n64 and n128, pack_a,
 // fence_frags, exp2_approx).
 //
-// int8 weights (#10, #11, #15; the pattern for #8, #9 and #14). map_3d
+// int8 weights (#8-#11, #15; the pattern for #14). map_3d
 // takes 1-byte elements (a UINT8 map: boxes of 128 columns x rows,
 // 128B-swizzled like the others), and a Tile with B_ELEM 1 keeps B in its
 // slots as int8 N-major boxes of 128 columns x 64 K rows: half the bytes

@@ -3,10 +3,10 @@ for the sorted layout in bf16 (``grouped_gemm``) and int8
 (``grouped_gemm_q8``), the padded layout in bf16 (``expert_gemm``) and int8
 (``expert_gemm_q8``) and the fused dispatch-in-kernel path in bf16
 (``grouped_gemm_fused``) and int8 (``grouped_gemm_fused_q8``). All twelve
-forward kernels live in ``csrc/grouped_gemm.cu``: #1, #2, #4, #10, #11 and
-#15 on the wgmma/TMA mainloop of ``csrc/sm90_gemm.cuh`` (#10, #11 and #15
+forward kernels live in ``csrc/grouped_gemm.cu``: #1, #2, #4, #8-#11 and
+#15 on the wgmma/TMA mainloop of ``csrc/sm90_gemm.cuh`` (#8-#11 and #15
 widen their int8 weight slabs to bf16 in shared memory before each
-product), the other six on one templated WMMA tile loop.
+product), the other four on one templated WMMA tile loop.
 
 Sorted, bf16 (``_grouped_fwd_impl``: ``_grouped_gate_up_kernel`` and
 ``_grouped_down_kernel``):
@@ -38,8 +38,8 @@ Sorted, int8 weights (``_grouped_fwd_q8_impl``: ``_grouped_gate_up_kernel_q8``,
 and apply the bf16 per-column scales to the fp32 sums. Forward only, as in
 the JAX package. Padded, int8 weights (``_expert_fwd_q8_impl``:
 ``_gate_up_kernel_q8``, ``_down_kernel_q8``): ``expert_gate_up_q8`` (#8)
-and ``expert_down_q8`` (#9) on the WMMA tile loop over the padded row
-mapping; forward only.
+and ``expert_down_q8`` (#9), #1's and #2's padded grid with #10's and
+#11's widened int8 slabs; forward only.
 
 Fused dispatch (``_fused_fwd_impl``: ``_fused_gate_up_kernel``,
 ``_fused_down_kernel``; int8 ``_fused_fwd_q8_impl``): the input is the
@@ -381,12 +381,26 @@ def grouped_gemm_q8_cuda(xs, w_gate, w_up, w_down, s_gate, s_up, s_down, group_s
     return down_q8_cuda(h, w_down, s_down, tg, tr)
 
 
-def expert_gate_up_q8_cuda(xe, w_gate, w_up, s_gate, s_up) -> torch.Tensor:
+def expert_gate_up_q8_cuda(xe, w_gate, w_up, s_gate, s_up, out=None) -> torch.Tensor:
     """Launch ``expert_gate_up_q8`` (#8) on the current stream: (E, C, D)
-    -> h (E, C, F)."""
+    -> h (E, C, F), into ``out`` if it is given. Every check runs before
+    the library is loaded."""
+    _check_bf16("expert_gate_up_q8", xe.device, xe=xe)
+    _check_q8("expert_gate_up_q8", xe.device, dict(w_gate=w_gate, w_up=w_up), dict(s_gate=s_gate, s_up=s_up))
+    if xe.dim() != 3 or w_gate.dim() != 3 or xe.shape[1] < 1:
+        raise ValueError(f"expert_gate_up_q8: xe {tuple(xe.shape)} must be (E, C>=1, D) and w_gate "
+                         f"{tuple(w_gate.shape)} (E, D, F)")
     E, C, D = xe.shape
     F = w_gate.shape[2]
-    h = torch.empty((E, C, F), dtype=xe.dtype, device=xe.device)
+    if (w_gate.shape != (E, D, F) or w_up.shape != (E, D, F) or s_gate.shape != (E, F)
+            or s_up.shape != (E, F)):
+        raise ValueError(f"expert_gate_up_q8: w_gate {tuple(w_gate.shape)}, w_up {tuple(w_up.shape)}, s_gate "
+                         f"{tuple(s_gate.shape)} and s_up {tuple(s_up.shape)} for xe {tuple(xe.shape)}")
+    if D % COL_TILE or F % COL_TILE:
+        raise ValueError(f"expert_gate_up_q8: D={D} and F={F} must be multiples of {COL_TILE}")
+    _check_out("expert_gate_up_q8", out, (E, C, F), xe)
+    h = torch.empty((E, C, F), dtype=xe.dtype, device=xe.device) if out is None else out
+    _check_tma("expert_gate_up_q8", xe=xe, w_gate=w_gate, w_up=w_up, out=h)
     lib = _build.load("grouped_gemm", _SIGS)
     _build.check(lib.expert_gate_up_q8(
         xe.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), s_gate.data_ptr(), s_up.data_ptr(), h.data_ptr(),
@@ -395,12 +409,25 @@ def expert_gate_up_q8_cuda(xe, w_gate, w_up, s_gate, s_up) -> torch.Tensor:
     return h
 
 
-def expert_down_q8_cuda(h, w_down, s_down) -> torch.Tensor:
+def expert_down_q8_cuda(h, w_down, s_down, out=None) -> torch.Tensor:
     """Launch ``expert_down_q8`` (#9) on the current stream: (E, C, F) ->
-    y (E, C, D)."""
+    y (E, C, D), into ``out`` if it is given. Every check runs before the
+    library is loaded."""
+    _check_bf16("expert_down_q8", h.device, h=h)
+    _check_q8("expert_down_q8", h.device, dict(w_down=w_down), dict(s_down=s_down))
+    if h.dim() != 3 or w_down.dim() != 3 or h.shape[1] < 1:
+        raise ValueError(f"expert_down_q8: h {tuple(h.shape)} must be (E, C>=1, F) and w_down "
+                         f"{tuple(w_down.shape)} (E, F, D)")
     E, C, F = h.shape
     D = w_down.shape[2]
-    y = torch.empty((E, C, D), dtype=h.dtype, device=h.device)
+    if w_down.shape != (E, F, D) or s_down.shape != (E, D):
+        raise ValueError(f"expert_down_q8: w_down {tuple(w_down.shape)} and s_down {tuple(s_down.shape)} for h "
+                         f"{tuple(h.shape)}")
+    if F % COL_TILE or D % COL_TILE:
+        raise ValueError(f"expert_down_q8: F={F} and D={D} must be multiples of {COL_TILE}")
+    _check_out("expert_down_q8", out, (E, C, D), h)
+    y = torch.empty((E, C, D), dtype=h.dtype, device=h.device) if out is None else out
+    _check_tma("expert_down_q8", h=h, w_down=w_down, out=y)
     lib = _build.load("grouped_gemm", _SIGS)
     _build.check(lib.expert_down_q8(
         h.data_ptr(), w_down.data_ptr(), s_down.data_ptr(), y.data_ptr(), E, C, F, D,

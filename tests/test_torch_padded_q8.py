@@ -4,7 +4,10 @@ Pallas kernels (interpret mode) and their oracle, its forward-only
 refusal, the ``AllGatherDispatcher`` on the int8 kernel path (also reached
 through the ``alltoall`` fallback), the greedy-parity probe
 ``sharpen_for_parity`` and exact greedy parity of the padded int8 path on
-it, the int8 budgets, and the serve CLI.
+it, the int8 budgets, the serve CLI, and the argument checks of #8's and
+#9's wrappers (each wrong input or ``out=`` raises ValueError before a
+library is loaded or a stream looked up; arguments the kernels take reach
+the library load).
 
 Every test draws its inputs from its own ``np.random.default_rng(seed)``.
 
@@ -32,6 +35,8 @@ from repro.kernels import ops as jops
 from repro.kernels.ref import expert_gemm_q8_ref as j_q8_ref
 from repro_torch.core import quant as tq
 from repro_torch.core.dispatch import get_dispatcher
+from repro_torch.kernels import _build
+from repro_torch.kernels import expert_gemm as teg
 from repro_torch.kernels import ops as tops
 from repro_torch.params import tree_leaves
 from repro_torch.serving.engine import Request as TRequest
@@ -208,3 +213,155 @@ def test_serve_cli_padded_int8_kernel_path_on_cpu(capsys):
     assert sorted(out) == [0, 1] and all(len(v) == 3 for v in out.values())
     text = capsys.readouterr().out
     assert "served 2 requests (0 shed), 6 tokens" in text and "quant: weights=int8, kv=none" in text
+
+
+# ---------------------------------------------------------------------------
+# argument checks of the CUDA wrappers of #8 and #9 (no card needed)
+# ---------------------------------------------------------------------------
+
+AE, AC, AD, AF = 2, 5, 256, 128  # E, C, D, F of the argument-check cases
+
+
+def _misaligned(shape, dtype, by: int = 1):
+    """A contiguous tensor whose data starts ``by`` elements past an aligned base."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + by, dtype=dtype)[by:].view(shape)
+
+
+def _gate_up_q8_args(**faults):
+    """#8's wrapper arguments at a small shape (E 2, C 5, D 256, F 128),
+    each replaced by ``faults[name]`` where given."""
+    args = dict(xe=torch.zeros((AE, AC, AD), dtype=torch.bfloat16),
+                w_gate=torch.zeros((AE, AD, AF), dtype=torch.int8), w_up=torch.zeros((AE, AD, AF), dtype=torch.int8),
+                s_gate=torch.zeros((AE, AF), dtype=torch.bfloat16), s_up=torch.zeros((AE, AF), dtype=torch.bfloat16),
+                out=None)
+    args.update(faults)
+    return args
+
+
+def _down_q8_args(**faults):
+    """#9's wrapper arguments at the same shape (h (2, 5, 128), Wd (2, 128,
+    256)), each replaced by ``faults[name]`` where given."""
+    args = dict(h=torch.zeros((AE, AC, AF), dtype=torch.bfloat16), w_down=torch.zeros((AE, AF, AD), dtype=torch.int8),
+                s_down=torch.zeros((AE, AD), dtype=torch.bfloat16), out=None)
+    args.update(faults)
+    return args
+
+
+_GATE_UP_Q8_FAULTS = {
+    ("xe", "shape"): torch.zeros((AE, AC, 2 * AD), dtype=torch.bfloat16),
+    ("xe", "experts"): torch.zeros((AE + 1, AC, AD), dtype=torch.bfloat16),
+    ("xe", "rows"): torch.zeros((AE, 0, AD), dtype=torch.bfloat16),
+    ("xe", "rank"): torch.zeros((AC, AD), dtype=torch.bfloat16),
+    ("xe", "width"): dict(xe=torch.zeros((AE, AC, 192), dtype=torch.bfloat16),
+                          w_gate=torch.zeros((AE, 192, AF), dtype=torch.int8),
+                          w_up=torch.zeros((AE, 192, AF), dtype=torch.int8)),
+    ("xe", "dtype"): torch.zeros((AE, AC, AD)),
+    ("xe", "layout"): torch.zeros((AE, AC, 2 * AD), dtype=torch.bfloat16)[..., ::2],
+    ("xe", "device"): torch.zeros((AE, AC, AD), dtype=torch.bfloat16, device="meta"),
+    ("xe", "align"): _misaligned((AE, AC, AD), torch.bfloat16),
+    ("w_gate", "shape"): torch.zeros((AE, 2 * AD, AF), dtype=torch.int8),
+    ("w_gate", "rank"): torch.zeros((AD, AF), dtype=torch.int8),
+    ("w_gate", "width"): dict(w_gate=torch.zeros((AE, AD, 64), dtype=torch.int8),
+                              w_up=torch.zeros((AE, AD, 64), dtype=torch.int8),
+                              s_gate=torch.zeros((AE, 64), dtype=torch.bfloat16),
+                              s_up=torch.zeros((AE, 64), dtype=torch.bfloat16)),
+    ("w_gate", "dtype"): torch.zeros((AE, AD, AF), dtype=torch.bfloat16),
+    ("w_gate", "layout"): torch.zeros((AE, AD, 2 * AF), dtype=torch.int8)[..., ::2],
+    ("w_gate", "device"): torch.zeros((AE, AD, AF), dtype=torch.int8, device="meta"),
+    ("w_gate", "align"): _misaligned((AE, AD, AF), torch.int8),
+    ("w_up", "shape"): torch.zeros((AE + 1, AD, AF), dtype=torch.int8),
+    ("w_up", "dtype"): torch.zeros((AE, AD, AF), dtype=torch.uint8),
+    ("w_up", "layout"): torch.zeros((AE, AF, AD), dtype=torch.int8).transpose(1, 2),
+    ("w_up", "device"): torch.zeros((AE, AD, AF), dtype=torch.int8, device="meta"),
+    ("w_up", "align"): _misaligned((AE, AD, AF), torch.int8),
+    ("s_gate", "shape"): torch.zeros((AE, AD), dtype=torch.bfloat16),
+    ("s_gate", "dtype"): torch.zeros((AE, AF)),
+    ("s_gate", "layout"): torch.zeros((AE, 2 * AF), dtype=torch.bfloat16)[:, ::2],
+    ("s_gate", "device"): torch.zeros((AE, AF), dtype=torch.bfloat16, device="meta"),
+    ("s_gate", "align"): _misaligned((AE, AF), torch.bfloat16),
+    ("s_up", "shape"): torch.zeros((AE, AF, 1), dtype=torch.bfloat16),
+    ("s_up", "dtype"): torch.zeros((AE, AF), dtype=torch.float16),
+    ("s_up", "device"): torch.zeros((AE, AF), dtype=torch.bfloat16, device="meta"),
+    ("s_up", "align"): _misaligned((AE, AF), torch.bfloat16),
+    ("out", "shape"): torch.zeros((AE, AC, AD), dtype=torch.bfloat16),
+    ("out", "dtype"): torch.zeros((AE, AC, AF)),
+    ("out", "layout"): torch.zeros((AE, AC, 2 * AF), dtype=torch.bfloat16)[..., ::2],
+    ("out", "device"): torch.zeros((AE, AC, AF), dtype=torch.bfloat16, device="meta"),
+    ("out", "align"): _misaligned((AE, AC, AF), torch.bfloat16),
+}
+
+_DOWN_Q8_FAULTS = {
+    ("h", "shape"): torch.zeros((AE, AC, 2 * AF), dtype=torch.bfloat16),
+    ("h", "experts"): torch.zeros((AE + 1, AC, AF), dtype=torch.bfloat16),
+    ("h", "rows"): torch.zeros((AE, 0, AF), dtype=torch.bfloat16),
+    ("h", "rank"): torch.zeros((AC, AF), dtype=torch.bfloat16),
+    ("h", "dtype"): torch.zeros((AE, AC, AF)),
+    ("h", "layout"): torch.zeros((AE, AC, 2 * AF), dtype=torch.bfloat16)[..., ::2],
+    ("h", "device"): torch.zeros((AE, AC, AF), dtype=torch.bfloat16, device="meta"),
+    ("h", "align"): _misaligned((AE, AC, AF), torch.bfloat16),
+    ("w_down", "shape"): torch.zeros((AE, 2 * AF, AD), dtype=torch.int8),
+    ("w_down", "width"): dict(w_down=torch.zeros((AE, AF, 192), dtype=torch.int8),
+                              s_down=torch.zeros((AE, 192), dtype=torch.bfloat16)),
+    ("w_down", "rank"): torch.zeros((AF, AD), dtype=torch.int8),
+    ("w_down", "dtype"): torch.zeros((AE, AF, AD), dtype=torch.bfloat16),
+    ("w_down", "layout"): torch.zeros((AE, AF, 2 * AD), dtype=torch.int8)[..., ::2],
+    ("w_down", "device"): torch.zeros((AE, AF, AD), dtype=torch.int8, device="meta"),
+    ("w_down", "align"): _misaligned((AE, AF, AD), torch.int8),
+    ("s_down", "shape"): torch.zeros((AE, AF), dtype=torch.bfloat16),
+    ("s_down", "dtype"): torch.zeros((AE, AD)),
+    ("s_down", "layout"): torch.zeros((AE, 2 * AD), dtype=torch.bfloat16)[:, ::2],
+    ("s_down", "device"): torch.zeros((AE, AD), dtype=torch.bfloat16, device="meta"),
+    ("s_down", "align"): _misaligned((AE, AD), torch.bfloat16),
+    ("out", "shape"): torch.zeros((AE, AC, AF), dtype=torch.bfloat16),
+    ("out", "dtype"): torch.zeros((AE, AC, AD)),
+    ("out", "layout"): torch.zeros((AE, AC, 2 * AD), dtype=torch.bfloat16)[..., ::2],
+    ("out", "device"): torch.zeros((AE, AC, AD), dtype=torch.bfloat16, device="meta"),
+    ("out", "align"): _misaligned((AE, AC, AD), torch.bfloat16),
+}
+
+_PADDED_Q8_FAULTS = {**{("expert_gate_up_q8",) + k: v for k, v in _GATE_UP_Q8_FAULTS.items()},
+                     **{("expert_down_q8",) + k: v for k, v in _DOWN_Q8_FAULTS.items()}}
+
+
+def _forbid_library(monkeypatch, stream: bool = True):
+    def forbidden(*_a, **_k):
+        raise AssertionError("reached past the argument checks")
+
+    monkeypatch.setattr(_build, "load", forbidden)
+    if stream:
+        monkeypatch.setattr(torch.cuda, "current_stream", forbidden)
+
+
+def _call_padded_q8(kernel, a):
+    if kernel == "expert_gate_up_q8":
+        return teg.expert_gate_up_q8_cuda(a["xe"], a["w_gate"], a["w_up"], a["s_gate"], a["s_up"], out=a["out"])
+    return teg.expert_down_q8_cuda(a["h"], a["w_down"], a["s_down"], out=a["out"])
+
+
+@pytest.mark.parametrize("kernel,arg,fault", sorted(_PADDED_Q8_FAULTS))
+def test_padded_q8_args_checked_before_any_library(monkeypatch, kernel, arg, fault):
+    """A wrong input or ``out=`` of #8's or #9's wrapper (dtype, shape,
+    layout, device, or a base the kernel cannot read: off the 16-byte
+    boundary that TMA needs, or a scale off the 4-byte boundary of its bf16
+    pairs) raises ValueError from the argument checks, before a library is
+    loaded or a stream looked up."""
+    _forbid_library(monkeypatch)
+    make = _gate_up_q8_args if kernel == "expert_gate_up_q8" else _down_q8_args
+    fault_value = _PADDED_Q8_FAULTS[(kernel, arg, fault)]
+    with pytest.raises(ValueError, match=kernel):
+        _call_padded_q8(kernel, make(**(fault_value if isinstance(fault_value, dict) else {arg: fault_value})))
+
+
+@pytest.mark.parametrize("out", [False, True])
+@pytest.mark.parametrize("kernel", ["expert_gate_up_q8", "expert_down_q8"])
+def test_padded_q8_good_args_reach_the_library(monkeypatch, kernel, out):
+    """Arguments the kernels take (with or without ``out=``) pass every
+    check of #8's and #9's wrappers and reach the library load."""
+    _forbid_library(monkeypatch, stream=False)
+    if kernel == "expert_gate_up_q8":
+        a = _gate_up_q8_args(out=torch.zeros((AE, AC, AF), dtype=torch.bfloat16) if out else None)
+    else:
+        a = _down_q8_args(out=torch.zeros((AE, AC, AD), dtype=torch.bfloat16) if out else None)
+    with pytest.raises(AssertionError, match="reached past"):
+        _call_padded_q8(kernel, a)
