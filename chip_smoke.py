@@ -17,10 +17,11 @@ Phases (each failure exits non-zero; nothing is swallowed):
    paged-attention kernels' idle row exactly 0, the grouped kernels'
    padding rows exactly 0 (bf16 #3/#4 at the decode, prefill and
    training groups and int8-weight #10/#11 at the decode and prefill
-   groups, an empty expert in each; #4, #10 and #11 also launched into a
-   NaN-filled output, where padding rows and empty tiles must come back 0,
-   twice, bit-equal, and on input with NaN in its padding rows; each with
-   its CUDA-graph device time beside its host-timed one), the padded #1/#2 and the
+   groups, an empty expert in each; each also launched into a NaN-filled
+   output, where padding rows and empty tiles must come back 0, twice,
+   bit-equal, and on input with NaN in its padding rows; each with its
+   CUDA-graph device time beside its host-timed one; #3 beside the sum of
+   two ``torch._grouped_mm``, gate and up), the padded #1/#2 and the
    padded int8-weight #8/#9 at C 4, 300, 512 and 100 (each also launched
    over all but the last expert into a NaN-filled output: the last
    expert's rows must stay NaN, so no block writes past C; launched twice,
@@ -127,9 +128,11 @@ Phases (each failure exits non-zero; nothing is swallowed):
    of phase 2 and #12/#13 at phase 6's training routing (2048 tokens)
    against their plain versions (2e-2 x max|plain|; h's padding rows
    exactly 0; the partials buffer filled with NaN before the down launch
-   comes back finite, twice bit-equal), with kernel, plain and bound times
+   comes back finite, twice bit-equal; #14 also launched twice into a
+   NaN-filled h, bit-equal, and its whole h bit-equal to #10's on the
+   scattered buffer), with kernel, plain and bound times
    (for #15 also the bf16 #4 on the same h and weights, and CUDA-graph
-   device times of #15, #11 and #4) and the whole fused path beside the
+   device times of #14 and #10, #15, #11 and #4) and the whole fused path beside the
    port's unfused path on the same routing; (b)
    phase 3's model and requests through the ring engine with
    ``fused_dispatch=True``: #12/#13 launch and #3/#4 do not, every kernel
@@ -152,8 +155,9 @@ serving, ``--phases 1,9`` at fused dispatch. ``--digest SRC`` prints a
 SHA-256 of every expert GEMM's and the flash forward's outputs on seeded
 inputs for the kernels of the tree whose ``src`` is SRC; ``--times SRC``
 prints the device and host-inclusive times of #16 at phase 2's lengths,
-of #15, #11, #10 and #4 at phase 9a's routings and of #8, #9, #1 and #2 at
-C 4 and 300 for that tree's kernels:
+of #15, #14, #11, #10, #4 and #3 at phase 9a's routings (#3 also at the
+training groups) and of #8, #9, #1 and #2 at C 4 and 300 for that tree's
+kernels:
 run either on two trees in one call to compare them. The last two lines are the card's
 ``nvidia-smi`` name and power limit and the result JSON; the lines before
 them list the launches by path, the serve and train figures and the
@@ -247,12 +251,12 @@ def check_grouped(gen, group_sizes, label: str, D=4096, F=14336, q8: bool = Fals
     """The sorted gate/up and down kernels (bf16 #3/#4, or with ``q8`` the
     int8-weight #10/#11) against their plain versions on the same inputs:
     within GG_TOL x max|plain| on the valid rows, padding rows exactly 0.
-    The down kernel (#4; #11) and the int8 gate/up kernel #10 are also
-    checked by ``masked_launch_flags``: launched into a NaN-filled output,
-    a second time (bit-equal) and on input with NaN in its padding rows.
-    Each kernel's time is printed as CUDA events around back-to-back
-    wrapper calls (``ms``) and as CUDA-graph device time (``device_ms``),
-    beside its bound, and #4's over ``torch._grouped_mm``'s."""
+    Every one of them is also checked by ``masked_launch_flags``: launched
+    into a NaN-filled output, a second time (bit-equal) and on input with
+    NaN in its padding rows. Each kernel's time is printed as CUDA events
+    around back-to-back wrapper calls (``ms``) and as CUDA-graph device
+    time (``device_ms``), beside its bound, #4's over ``torch._grouped_mm``'s
+    and #3's over the sum of two (gate and up)."""
     import torch
     from repro_torch.core.dispatch import aligned_rows
     from repro_torch.core.quant import quantize_weight
@@ -276,7 +280,6 @@ def check_grouped(gen, group_sizes, label: str, D=4096, F=14336, q8: bool = Fals
     w = {k: (torch.randn(shape, generator=gen, device=dev) * shape[1] ** -0.5).bfloat16()
          for k, shape in (("w_gate", (E, D, F)), ("w_up", (E, D, F)), ("w_down", (E, F, D)))}
     tg, tr = eg.group_tiling(gs, N_pad // eg.ROW_TILE)
-    gate_up_into = None
     if q8:
         (wg, sg), (wu, su), (wd, sd) = (quantize_weight(w[k]) for k in ("w_gate", "w_up", "w_down"))
         del w
@@ -285,13 +288,13 @@ def check_grouped(gen, group_sizes, label: str, D=4096, F=14336, q8: bool = Fals
         down_into = lambda h, out: eg.down_q8_cuda(h, wd, sd, tg, tr, out=out)
         down_plain = lambda h: ref.grouped_down_q8_ref(h, wd, sd, gs, eg.ROW_TILE)
         names, w_bytes = ("grouped_gate_up_q8", "grouped_down_q8"), 1
-        gate_up = lambda: gate_up_into(xs, None)
     else:
-        gate_up = lambda: eg.gate_up_cuda(xs, w["w_gate"], w["w_up"], tg, tr)
+        gate_up_into = lambda x, out: eg.gate_up_cuda(x, w["w_gate"], w["w_up"], tg, tr, out=out)
         gate_up_plain = lambda: ref.grouped_gate_up_ref(xs, w["w_gate"], w["w_up"], gs, eg.ROW_TILE)
         down_into = lambda h, out: eg.down_cuda(h, w["w_down"], tg, tr, out=out)
         down_plain = lambda h: ref.grouped_down_ref(h, w["w_down"], gs, eg.ROW_TILE)
         names, w_bytes = ("grouped_gate_up", "grouped_down"), 2
+    gate_up = lambda: gate_up_into(xs, None)
     down = lambda h: down_into(h, None)
 
     h = gate_up()
@@ -304,8 +307,6 @@ def check_grouped(gen, group_sizes, label: str, D=4096, F=14336, q8: bool = Fals
         (names[0], gate_up_into, xs, h, h_ref, (N_pad, F)),
         (names[1], down_into, h_ref, y, y_ref, (N_pad, D)),
     ):
-        if launch is None:
-            continue
         flags = masked_launch_flags(launch, x, first, ref_out, valid, shape)
         print(f"  {name} [{label}] {flags}")
         flags_ok[name] = all(flags.values())
@@ -331,6 +332,10 @@ def check_grouped(gen, group_sizes, label: str, D=4096, F=14336, q8: bool = Fals
                          + (" int8 weights" if q8 else ""))
         if name == "grouped_down":
             row["library_ms"] = grouped_mm_ms(h_ref[valid].contiguous(), w["w_down"], gs)
+        if name == "grouped_gate_up":  # g and u as two products; no single call applies the SwiGLU
+            lib = [grouped_mm_ms(xs[valid].contiguous(), w[k], gs) for k in ("w_gate", "w_up")]
+            row["library_ms"] = None if None in lib else sum(lib)
+            row["library"] = "sum of 2 torch._grouped_mm (gate, up)"
         rows.append(row)
         print(f"  {name} [{label}] err {err:.4g} (rel {rel:.3g}, tol {GG_TOL}) pad-zero {pad_zero} "
               f"kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f} ms) plain {row['plain_ms']:.4f} ms "
@@ -945,9 +950,9 @@ def check_grouped_bwd(gen, group_sizes, label: str, D=4096, F=14336):
 def digests(seed: int) -> dict:
     """SHA-256 (first 16 hex digits) of the outputs of the expert GEMM
     kernels (#1-#15) and the flash forward (#16) at llama3-e8t2 widths on
-    inputs drawn from ``seed``, each kernel fed its own random inputs (#10
-    and #11 at the decode and prefill groups, #8 and #9 at C 4, 300 and
-    512). Two trees whose digests
+    inputs drawn from ``seed``, each kernel fed its own random inputs (#3,
+    #10, #11 and #14 at the decode and prefill groups, #3 also at the
+    training groups, #8 and #9 at C 4, 300 and 512). Two trees whose digests
     agree compute bit-equal outputs (``--digest``)."""
     import hashlib
 
@@ -980,6 +985,7 @@ def digests(seed: int) -> dict:
     del wg, wu
     xs, _, (wg, wu, wd), gs, _, _, N_pad = grouped_bwd_case(gen, (3, 0, 2, 1, 0, 1, 1, 0))
     tg, tr = eg.group_tiling(gs, N_pad // eg.ROW_TILE)
+    out["grouped_gate_up decode"] = sha(eg.gate_up_cuda(xs, wg, wu, tg, tr))
     out["grouped_down decode"] = sha(eg.down_cuda(rand(N_pad, 14336), wd, tg, tr))
     (qg, sg), (qu, su), (qd, sd) = (quantize_weight(w) for w in (wg, wu, wd))
     del wg, wu, wd
@@ -998,6 +1004,7 @@ def digests(seed: int) -> dict:
         x = rand(T, 4096)
         h = eg.fused_gate_up_q8_cuda(x, qg, qu, sg, su, tok_pad, tg, tr)
         out[f"grouped_gate_up_fused_q8 {label}"] = sha(h)
+        h = rand(tok_pad.shape[0], 14336)  # #15's own input, not #14's output
         out[f"grouped_down_fused_q8 {label}"] = sha(eg.fused_down_q8_cuda(h, qd, sd, row_out, gate_pad, tg, tr, k, T))
     del qg, qu, qd
     wg, wu = (rand(8, 4096, 14336, scale=4096 ** -0.5) for _ in range(2))
@@ -1014,6 +1021,7 @@ def digests(seed: int) -> dict:
     del q, kk, v
     xs, _, (wg, wu, wd), gs, _, _, N_pad = grouped_bwd_case(gen, (200, 0, 131, 77, 64, 50, 40, 38))
     tg, tr = eg.group_tiling(gs, N_pad // eg.ROW_TILE)
+    out["grouped_gate_up prefill"] = sha(eg.gate_up_cuda(xs, wg, wu, tg, tr))
     (qg, sg), (qu, su), (qd, sd) = (quantize_weight(w) for w in (wg, wu, wd))
     del wg, wu, wd
     h = eg.gate_up_q8_cuda(xs, qg, qu, sg, su, tg, tr)
@@ -1023,10 +1031,11 @@ def digests(seed: int) -> dict:
 
 
 def kernel_times(seed: int) -> dict:
-    """Times (ms) of the kernels the last slices redesigned, #16, #15, #11,
-    #10, #9 and #8, and of their yardsticks #4 (the bf16 twin of #11 and
-    #15), #2 and #1 (the twins of #9 and #8), at phase 2's flash shapes,
-    phase 9a's decode and prefill routings and the padded C 4 and 300, for
+    """Times (ms) of the kernels the last slices redesigned, #16, #15, #14,
+    #11, #10, #9, #8 and #3, and of their yardsticks #4 (the bf16 twin of
+    #11 and #15), #10 (#14's), #2 and #1 (the twins of #9 and #8), at phase
+    2's flash shapes, phase 9a's decode and prefill routings (#3 also at
+    phase 2's training groups) and the padded C 4 and 300, for
     the kernels of the tree whose ``src`` is on the path (``--times``; the
     calls are ones every tree since the fused slice takes): CUDA-graph
     device time and CUDA events around back-to-back wrapper calls (host
@@ -1047,21 +1056,31 @@ def kernel_times(seed: int) -> dict:
     wd = rand(8, 14336, 4096, scale=14336 ** -0.5)
     qd, sd = quantize_weight(wd)
     (qg, sg), (qu, su) = (quantize_weight(rand(8, 4096, 14336, scale=4096 ** -0.5)) for _ in range(2))
+    wg, wu = (rand(8, 4096, 14336, scale=4096 ** -0.5) for _ in range(2))
     for groups, T in (((3, 0, 2, 1, 0, 1, 1, 0), 4), ((200, 0, 131, 77, 64, 50, 40, 38), 300)):
         label = "decode" if T == 4 else "prefill"
         token, slot, dest, gate_sorted, gs = fused_routing(gen, groups, T)
         tok_pad, row_out, gate_pad, tg, tr, k = eg.fused_tables(qd, gs, token, dest, slot, gate_sorted, T)
         h = rand(tok_pad.shape[0], 14336)
         xs = rand(tok_pad.shape[0], 4096)
+        x = rand(T, 4096)
         dst = torch.empty((k, T, 4096), dtype=torch.bfloat16, device="cuda")
         for name, fn in (("grouped_down_fused_q8", lambda: eg.fused_down_q8_cuda(h, qd, sd, row_out, gate_pad, tg, tr,
                                                                                  k, T, dst)),
                          ("grouped_down_q8", lambda: eg.down_q8_cuda(h, qd, sd, tg, tr)),
                          ("grouped_down", lambda: eg.down_cuda(h, wd, tg, tr)),
-                         ("grouped_gate_up_q8", lambda: eg.gate_up_q8_cuda(xs, qg, qu, sg, su, tg, tr))):
+                         ("grouped_gate_up_q8", lambda: eg.gate_up_q8_cuda(xs, qg, qu, sg, su, tg, tr)),
+                         ("grouped_gate_up_fused_q8", lambda: eg.fused_gate_up_q8_cuda(x, qg, qu, sg, su, tok_pad,
+                                                                                       tg, tr)),
+                         ("grouped_gate_up", lambda: eg.gate_up_cuda(xs, wg, wu, tg, tr))):
             out[f"{name} {label}"] = {"device_ms": graph_ms(fn), "ms": time_ms(fn)}
     del h, xs
-    wg, wu = (rand(8, 4096, 14336, scale=4096 ** -0.5) for _ in range(2))
+    gs = torch.tensor((1100, 0, 517, 803, 64, 700, 431, 481), dtype=torch.int32, device="cuda")
+    tg, tr = eg.group_tiling(gs, 5120 // eg.ROW_TILE)
+    xs = rand(5120, 4096)
+    fn = lambda: eg.gate_up_cuda(xs, wg, wu, tg, tr)
+    out["grouped_gate_up train"] = {"device_ms": graph_ms(fn), "ms": time_ms(fn)}
+    del xs
     for C in (4, 300):
         xe, he = rand(8, C, 4096), rand(8, C, 14336)
         for name, fn in (("expert_gate_up_q8", lambda: eg.expert_gate_up_q8_cuda(xe, qg, qu, sg, su)),
@@ -2320,7 +2339,11 @@ def check_fused(gen, group_sizes, T: int, label: str, D=4096, F=14336, q8: bool 
     """Kernels #12/#13 (``q8``: #14/#15) on one routing against their plain
     versions (GG_TOL x max|plain|): h's padding rows exactly 0, and the
     partials buffer filled with NaN before the down launch comes back
-    finite (every (slot, token) row written once), twice, bit-equal. Then
+    finite (every (slot, token) row written once), twice, bit-equal. With
+    ``q8``, #14 is also launched twice into a NaN-filled ``out=`` (padding
+    rows 0, bit-equal to each other and to the first launch) and its whole
+    h must equal #10's on the scattered buffer bit for bit (the same slabs
+    in the same order); both are timed as CUDA-graph device time. Then
     kernel, plain and bound times, the unfused twin kernel's time (#3/#4 or
     #10/#11 on the scattered buffer; with ``q8`` also the bf16 #4 on the
     same h and the weights before quantisation, and CUDA-graph device times
@@ -2349,7 +2372,8 @@ def check_fused(gen, group_sizes, T: int, label: str, D=4096, F=14336, q8: bool 
         (wg, sg), (wu, su), (wd, sd) = (quantize_weight(w[n]) for n in ("w_gate", "w_up", "w_down"))
         wd_bf16 = w["w_down"]  # #4's operand: the same product in bf16
         del w
-        gate_up = lambda: eg.fused_gate_up_q8_cuda(x, wg, wu, sg, su, tok_pad, tg, tr)
+        gate_up_into = lambda out: eg.fused_gate_up_q8_cuda(x, wg, wu, sg, su, tok_pad, tg, tr, out=out)
+        gate_up = lambda: gate_up_into(None)
         gate_up_plain = lambda: ref.fused_gate_up_q8_ref(x, wg, wu, sg, su, tok_pad, tg, tr)
         down = lambda h, out=None: eg.fused_down_q8_cuda(h, wd, sd, row_out, gate_pad, tg, tr, k, T, out)
         down_plain = lambda h: ref.fused_down_q8_ref(h, wd, sd, row_out, gate_pad, tg, tr, k, T)
@@ -2382,6 +2406,19 @@ def check_fused(gen, group_sizes, T: int, label: str, D=4096, F=14336, q8: bool 
 
     h = gate_up()
     h_ref = gate_up_plain()
+    gate_up_flags = {}
+    if q8:  # #14 into NaN twice, and against #10 on the scattered buffer
+        h_nan = [gate_up_into(torch.full((N_pad, F), float("nan"), dtype=torch.bfloat16, device=dev))
+                 for _ in range(2)]
+        h_twin = twins[0](scatter())
+        torch.cuda.synchronize()
+        bits = lambda t: t.view(torch.int16)
+        gate_up_flags = {"into NaN: padding rows 0": all(bool((t[~valid] == 0).all()) for t in h_nan),
+                         "into NaN: two launches bit-equal to the first": all(torch.equal(bits(t), bits(h))
+                                                                              for t in h_nan),
+                         "bit-equal to #10 on the scattered buffer": torch.equal(bits(h), bits(h_twin))}
+        print(f"  {names[0]} [{label}] {gate_up_flags}")
+        del h_nan, h_twin
     parts = [down(h_ref, torch.full((k, T, D), float("nan"), dtype=torch.bfloat16, device=dev)) for _ in range(2)]
     part = parts[0]
     part_ref = down_plain(h_ref)
@@ -2393,8 +2430,9 @@ def check_fused(gen, group_sizes, T: int, label: str, D=4096, F=14336, q8: bool 
     fused_ms, unfused_ms = time_ms(fused_path), time_ms(unfused_path)
     xs = scatter()
     twin_ms = (time_ms(lambda: twins[0](xs)), time_ms(lambda: twins[1](h_ref)))
-    extra = {}
-    if q8:  # the same product in bf16 (#4), and device times of #15, #11 and #4
+    extra, gate_up_extra = {}, {}
+    if q8:  # the same product in bf16 (#4), and device times of #14, #10, #15, #11 and #4
+        gate_up_extra = dict(device_ms=graph_ms(gate_up), unfused_twin_device_ms=graph_ms(lambda: twins[0](xs)))
         dst = torch.empty((k, T, D), dtype=torch.bfloat16, device=dev)
         extra = dict(grouped_down_ms=time_ms(lambda: eg.down_cuda(h_ref, wd_bf16, tg, tr)),
                      device_ms=graph_ms(lambda: down(h_ref, dst)),
@@ -2404,7 +2442,7 @@ def check_fused(gen, group_sizes, T: int, label: str, D=4096, F=14336, q8: bool 
     scale_bytes = lambda n_w, n_out: touched * n_w * n_out * 2 if q8 else 0
     rows = []
     for name, twin, out, ref_out, side_ok, nbytes, flops, fn, plain in (
-        (names[0], twin_ms[0], h[valid], h_ref[valid], bool((h[~valid] == 0).all()),
+        (names[0], twin_ms[0], h[valid], h_ref[valid], bool((h[~valid] == 0).all()) and all(gate_up_flags.values()),
          # x (each token's row once), the touched experts' weights (and scales), h (all N_pad rows), tok_pad
          T * D * 2 + touched * 2 * D * F * w_bytes + scale_bytes(2, F) + N_pad * F * 2 + N_pad * 4,
          N * 4 * D * F, gate_up, gate_up_plain),
@@ -2422,9 +2460,15 @@ def check_fused(gen, group_sizes, T: int, label: str, D=4096, F=14336, q8: bool 
                    unfused_path_ms=unfused_ms,
                    shape=f"{label}: T={T} k={k} N={N} N_pad={N_pad} D={D} F={F} E={E} groups={list(group_sizes)}"
                          + (" int8 weights" if q8 else ""))
-        side = "padding rows of h zero" if name == names[0] else \
+        side = "padding rows of h zero (q8: also into NaN, bit-equal to #10)" if name == names[0] else \
             "every partial row written (NaN-filled before), twice bit-equal"
         more = ""
+        if name == names[0] and gate_up_extra:
+            row.update(gate_up_extra)
+            more = (f"; device: kernel {gate_up_extra['device_ms']:.4f} #10 "
+                    f"{gate_up_extra['unfused_twin_device_ms']:.4f} ms, kernel / #10 "
+                    f"{gate_up_extra['device_ms'] / gate_up_extra['unfused_twin_device_ms']:.3f}, bound / kernel "
+                    f"{b_ms / gate_up_extra['device_ms']:.3f}")
         if name == names[1] and extra:
             row.update(extra)
             more = (f"; #4 (bf16 weights) {extra['grouped_down_ms']:.4f} ms; device: kernel {extra['device_ms']:.4f} "

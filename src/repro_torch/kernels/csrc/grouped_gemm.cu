@@ -1,12 +1,12 @@
 // Expert FFN GEMMs with fused SwiGLU for Hopper (sm_90a): twelve entry
-// points. Eight run on the warp-specialised wgmma/TMA mainloop of
-// sm90_gemm.cuh: expert_gate_up (#1), expert_down (#2), grouped_down (#4)
-// and, with int8 weights widened by the header's widening stage,
-// expert_gate_up_q8 (#8), expert_down_q8 (#9), grouped_gate_up_q8 (#10),
-// grouped_down_q8 (#11) and grouped_down_fused_q8 (#15), each with its
-// note below. The other four (#3 and #12-#14) run on one WMMA tile loop
-// (ffn_kernel), templated over the row mapping (sorted or fused) and the
-// weight type. Each entry point has its own launch counter in
+// points. Ten run on the warp-specialised wgmma/TMA mainloop of
+// sm90_gemm.cuh: expert_gate_up (#1), expert_down (#2), grouped_gate_up
+// (#3), grouped_down (#4) and, with int8 weights widened by the header's
+// widening stage, expert_gate_up_q8 (#8), expert_down_q8 (#9),
+// grouped_gate_up_q8 (#10), grouped_down_q8 (#11), grouped_gate_up_fused_q8
+// (#14) and grouped_down_fused_q8 (#15), each with its note below. The
+// other two, the bf16 fused #12 and #13, run on one WMMA tile loop
+// (ffn_kernel). Each entry point has its own launch counter in
 // kernels/expert_gemm.py.
 //
 // Replaces the TPU kernels of src/repro/kernels/expert_gemm.py:
@@ -29,8 +29,8 @@
 // regions are aligned to 128 rows; per 128-row tile, tile_group[t] is its
 // expert and tile_rows[t] its valid rows (computed on the device by the
 // wrapper, as group_tiling does). Rows past the valid count come out zero;
-// a tile (#4, #10, #11) or 64-row half tile (ffn_kernel) with no valid row
-// writes zeros and does no product. Padded: the dense (E, C, D) buffer read in
+// a tile (#3, #4, #10, #11, #14) or 64-row half tile (ffn_kernel) with no
+// valid row writes zeros and does no product. Padded: the dense (E, C, D) buffer read in
 // place; every slot r < C is computed (empty slots hold token 0's row and
 // are zeroed by the combine's gate), and no row at or past C is written,
 // so a launch never touches the next expert's rows (#1, #2, #8, #9; the
@@ -38,8 +38,8 @@
 // dispatcher's dispatch-in-kernel path): the sorted mapping's tiles, but
 // the (N_pad, D) buffer never exists. The gate/up kernel gathers row r of
 // its block from the token-major x (T, D) at tok_pad[row0 + r] (padding
-// rows hold token 0 and are masked like the sorted kernel's: they re-read
-// the last valid row and store zeros), and writes h (N_pad, F) as the
+// rows hold token 0 and store zeros: #12 re-reads the last valid row for
+// them, #14 copies nothing into them), and writes h (N_pad, F) as the
 // sorted kernel does. The down kernel reads h in the sorted mapping and
 // stores valid row r, times its fp32 gate gate_pad[row0 + r], rounded to
 // bf16 once, at row row_out[row0 + r] = slot*T + token of a (k*T, D)
@@ -60,26 +60,18 @@
 // the combine writes k*T*D*2 bytes of partials in place of the sorted
 // buffer's N_pad rows.
 //
-// ffn_kernel (#3, #12-#14): one block per (64-row block, 128 output
-// columns); blocks that share a weight column block are launched next to
-// each other (the row block is the fastest grid dim) so the second reads
-// the weights from L2. The contraction loop streams 32-deep slabs of x
-// and of the weights through shared memory with a two-stage cp.async
-// pipeline and multiplies them with WMMA bf16 16x16x16 into fp32
-// accumulators. The gate/up kernels keep both accumulators and apply
-// silu(g)*u elementwise on the fragments before one fp32 staging pass
-// through shared memory masks the rows and stores bf16. int8 weights
-// (per-output-channel bf16 scales): WMMA has no bf16 x int8 product, so
-// each 32 x 128 int8 slab is staged by cp.async (16 weights per 16-byte
-// copy) and widened to bf16 in shared memory before the fragment loads
-// (|q| <= 127: exact); the scales multiply the fp32 accumulators in the
-// epilogue, before silu for gate and up, before the store for down, as
-// the TPU epilogue does (loaded into accumulator fragments from a
-// shared-memory tile of repeated rows, so they line up). No wgmma, TMA
-// or warp specialisation: its entry points are ROADMAP queue 2's next
-// redesigns (#3 and #14, then #12 and #13). Its <1, FUSED, true> (#15),
-// <2 / 1, SORTED, true> (#10, #11) instantiations and its padded row
-// mapping (#8, #9) are gone.
+// ffn_kernel (#12, #13; the fused row mapping, bf16 weights): one block
+// per (64-row block, 128 output columns); blocks that share a weight
+// column block are launched next to each other (the row block is the
+// fastest grid dim) so the second reads the weights from L2. The
+// contraction loop streams 32-deep slabs of x and of the weights through
+// shared memory with a two-stage cp.async pipeline and multiplies them
+// with WMMA bf16 16x16x16 into fp32 accumulators. #12 keeps both
+// accumulators and applies silu(g)*u elementwise on the fragments before
+// one fp32 staging pass through shared memory masks the rows and stores
+// bf16. No wgmma, TMA or warp specialisation: its two entry points are
+// ROADMAP queue 2's next redesigns. Its sorted row mapping (#3), its int8
+// branch (#10, #11, #14, #15) and its padded mapping (#8, #9) are gone.
 //
 // expert_down (#2): y[e] = h[e] @ Wd[e]. Bound at decode (C 4) by the
 // weight bytes (940 MB at llama3-e8t2 widths, 0.281 ms at 3.35 TB/s), at
@@ -204,7 +196,37 @@
 // stores zeros; an empty tile stores zeros. At decode: 5 busy row tiles x
 // 112 column blocks = 560 blocks of 64 slabs (~4.2 waves), ~60% of the
 // byte bound. Per block: 168 registers, 20 B spilled; 230,464 B of shared
-// memory.
+// memory. One kernel template, grouped_gate_up_kernel<T, Q8, GATHER>,
+// serves #10 (<Q8Tile<256>, true, false>), #3 and #14.
+//
+// grouped_gate_up (#3): #10's kernel with bf16 weights (<Tile<2, 256,
+// true>, false, false>): a slab's B is #1's four N-major 64-column boxes,
+// Wg[e][k, n0:n0+64], Wg[e][k, n0+64:n0+128], then Wu[e]'s two, through
+// bf16 maps over (E, D, F); no widening, no scales; the warpgroup without
+// rows runs nothing and stores zeros. Bound by bytes at decode (5 experts'
+// bf16 Wg and Wu, 1.17 GB, 0.3594 ms) and prefill (0.5065), by operations
+// in training (4096 rows, 962 GFLOP, 0.9728 ms). At decode 560 busy blocks
+// stream 2 MB each, ~87% of the byte bound; in training ~57% of the
+// tensor-core peak, as #1 at C 512. Per block: 154 registers, no spill;
+// 197,696 B of shared memory (4 slots of 48 KB, as #4).
+//
+// grouped_gate_up_fused_q8 (#14): #10's kernel (<Q8Tile<256>, true,
+// true>) with row r of a tile read from the token-major x (T, D) at
+// tok_pad[row0 + r] in place of the scattered (N_pad, D) buffer. TMA
+// cannot gather rows on sm_90, so the producer warp's 32 lanes copy the
+// valid rows of each slab's A half by cp.async into the slot's 128B
+// swizzle and arrive on its full barrier, beside lane 0's TMA of the int8
+// weight boxes (produce_gathered; the slot fills on 1 + 32 arrivals).
+// Rows of the slot past the valid count are not copied and are left as
+// they are. The slabs, their order and the epilogue are #10's, so h is
+// bit-equal to #10's on the scattered buffer. Bound by bytes: 0.1841 ms
+// at decode, 0.2605 at prefill (x read once, not the N_pad rows). At
+// decode (up to 3 rows a tile) it runs within ~3% of #10; at prefill
+// (up to 128 rows) ~1.14x #10, the cost of the copies one warp issues.
+// One TMA box of one row a row (a 64 x 1 box at a + 128 r, the 128B
+// swizzle taken from the 1024-aligned slot address) lands right too,
+// bit-equal, but ran 2.1x slower at prefill. Per block: 168 registers, 20
+// B spilled (as #10); 230,464 B of shared memory.
 //
 // expert_down_q8 (#9): y[e] = (h[e] @ Wd[e]) * s_down[e], Wd int8, the
 // scale on the fp32 sums, rounded to bf16 once. Bound by bytes at C 4
@@ -254,8 +276,10 @@
 // (sm90_gemm.cuh); the padded decode computes all 8 experts at C 4 (#1,
 // #2, #8, #9: skipping empty ones changes the function, so it needs a
 // per-expert count and a rule for what empty slots hold); a fixed-order
-// split over F for #2 at C 300; the four ffn_kernel entry points onto
-// the mainloop (#14 with the widening stage); the widening costs
+// split over F for #2 at C 300; the two ffn_kernel entry points (#12,
+// #13) onto the mainloop (#12 as #3 with #14's gather); #14's gather at
+// prefill (two gather warps, or 4 lanes a row, measured 3-5% faster, within
+// twice the spread between turns; not taken); the widening costs
 // shared-memory traffic (16 KB read and 32 KB written a slab at BN 256,
 // beside the products' reads) that the products do not fully hide, which
 // holds the int8 kernels above their bf16 twins at prefill and under
@@ -264,7 +288,6 @@
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <cstdint>
-#include <type_traits>
 
 #include "sm90_gemm.cuh"
 
@@ -281,30 +304,18 @@ constexpr int THREADS = 256;   // 8 warps: 2 (rows) x 4 (columns), 32x32 each
 constexpr int A_LD = BK + 8;   // padded smem strides (bank spread, 32-byte
 constexpr int B_LD = BN + 8;   // aligned WMMA fragment pointers)
 constexpr int C_LD = BN + 4;
-constexpr int S_LD = BN + 4;   // int8 scale tile (16 repeated rows per weight)
 
-template <int NB, bool Q8>
-struct Pipe;
 template <int NB>
-struct Pipe<NB, false> {  // two stages of bf16 x and weight slabs
+struct Pipe {  // two stages of bf16 x and weight slabs
   bf16 a[2][BM * A_LD];
   bf16 b[2][NB][BK * B_LD];
 };
-template <int NB>
-struct Pipe<NB, true> {  // two stages of int8 weight slabs, one widened bf16 slab
-  bf16 a[2][BM * A_LD];
-  int8_t q[2][NB][BK * BN];
-  bf16 b[1][NB][BK * B_LD];
-};
 
-template <int NB, bool Q8>
+template <int NB>
 __host__ __device__ constexpr int smem_bytes() {
-  return sizeof(Pipe<NB, Q8>) > BM * C_LD * sizeof(float) ? (int)sizeof(Pipe<NB, Q8>)
-                                                           : (int)(BM * C_LD * sizeof(float));
+  return sizeof(Pipe<NB>) > BM * C_LD * sizeof(float) ? (int)sizeof(Pipe<NB>) : (int)(BM * C_LD * sizeof(float));
 }
-static_assert(smem_bytes<2, false>() <= 48 * 1024 && smem_bytes<2, true>() <= 48 * 1024,
-              "static shared memory above 48 KB");
-static_assert(2 * 16 * S_LD * sizeof(float) <= BM * C_LD * sizeof(float), "scale tiles exceed the smem");
+static_assert(smem_bytes<2>() <= 48 * 1024, "static shared memory above 48 KB");
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -314,25 +325,20 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
-enum RowMap { SORTED = 0, FUSED = 2 };
-
-// NB = 2: out = silu(A@W0[e] * S0[e]) * (A@W1[e] * S1[e]); NB = 1: out = A@W0[e] * S0[e]
-// (no S without Q8). A (rows, K) bf16; W (E, K, N) bf16 or int8; S (E, N) bf16;
-// out (rows, N) bf16. The sorted mapping through tile_group / tile_rows. FUSED, NB = 2:
-// block row r reads A (T, K) at row row_idx[row0 + r]; FUSED, NB = 1: valid row r is
-// stored times row_gate[row0 + r] at out row row_idx[row0 + r].
-template <int NB, int MAP, bool Q8>
+// NB = 2 (#12): out = silu(A@W0[e]) * (A@W1[e]), block row r reading A (T,
+// K) at row row_idx[row0 + r]; NB = 1 (#13): out = A@W0[e], valid row r
+// stored times row_gate[row0 + r] at out row row_idx[row0 + r]. W (E, K,
+// N) bf16; the sorted mapping's tiles through tile_group / tile_rows.
+template <int NB>
 __global__ void __launch_bounds__(THREADS)
-ffn_kernel(const bf16* __restrict__ A, const void* __restrict__ W0v, const void* __restrict__ W1v,
-           const bf16* __restrict__ S0, const bf16* __restrict__ S1,
+ffn_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W0, const bf16* __restrict__ W1,
            const int* __restrict__ tile_group, const int* __restrict__ tile_rows,
            const int* __restrict__ row_idx, const float* __restrict__ row_gate,
            bf16* __restrict__ out, int K, int N) {
-  using WT = typename std::conditional<Q8, int8_t, bf16>::type;
-  constexpr bool GATHER = MAP == FUSED && NB == 2;   // gather prologue (#12, #14)
-  constexpr bool COMBINE = MAP == FUSED && NB == 1;  // combine epilogue (#13, #15)
-  __shared__ __align__(128) unsigned char smem_raw[smem_bytes<NB, Q8>()];
-  Pipe<NB, Q8>& pipe = *reinterpret_cast<Pipe<NB, Q8>*>(smem_raw);
+  constexpr bool GATHER = NB == 2;   // gather prologue (#12)
+  constexpr bool COMBINE = NB == 1;  // combine epilogue (#13)
+  __shared__ __align__(128) unsigned char smem_raw[smem_bytes<NB>()];
+  Pipe<NB>& pipe = *reinterpret_cast<Pipe<NB>*>(smem_raw);
   float* ctile = reinterpret_cast<float*>(smem_raw);  // epilogue reuses the pipe
 
   const int tid = threadIdx.x;
@@ -354,7 +360,7 @@ ffn_kernel(const bf16* __restrict__ A, const void* __restrict__ W0v, const void*
   const int e = tile_group[tile];
 
   const size_t e_off = (size_t)e * K * N + n0;
-  const WT* Wb[2] = {static_cast<const WT*>(W0v) + e_off, static_cast<const WT*>(W1v) + e_off};
+  const bf16* Wb[2] = {W0 + e_off, W1 + e_off};
   // this thread's x row of every slab: BM x BK = one 16-byte chunk per thread.
   // Rows past `valid` re-read the last valid row (their results are never
   // stored as data); the gather reads the row of the block row's token.
@@ -366,16 +372,11 @@ ffn_kernel(const bf16* __restrict__ A, const void* __restrict__ W0v, const void*
     cp_async16(&pipe.a[stage][a_r * A_LD + a_c], a_src + k0);
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) {
-      if constexpr (Q8) {  // int8 slab: BK x BN bytes = one 16-byte chunk per thread
-        const int r = tid / (BN / 16), c = (tid % (BN / 16)) * 16;
-        cp_async16(&pipe.q[stage][nb][r * BN + c], Wb[nb] + (size_t)(k0 + r) * N + c);
-      } else {
 #pragma unroll
-        for (int i = 0; i < BK * BN / 8 / THREADS; ++i) {
-          const int ch = tid + i * THREADS;
-          const int r = ch / (BN / 8), c = (ch % (BN / 8)) * 8;
-          cp_async16(&pipe.b[stage][nb][r * B_LD + c], Wb[nb] + (size_t)(k0 + r) * N + c);
-        }
+      for (int i = 0; i < BK * BN / 8 / THREADS; ++i) {
+        const int ch = tid + i * THREADS;
+        const int r = ch / (BN / 8), c = (ch % (BN / 8)) * 8;
+        cp_async16(&pipe.b[stage][nb][r * B_LD + c], Wb[nb] + (size_t)(k0 + r) * N + c);
       }
     }
   };
@@ -399,22 +400,6 @@ ffn_kernel(const bf16* __restrict__ A, const void* __restrict__ W0v, const void*
     cp_async_wait<1>();  // slab kt has landed
     __syncthreads();
     const int st = kt & 1;
-    if constexpr (Q8) {  // widen the int8 slab to bf16 (exact), 16 weights a thread
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        const int r = tid / (BN / 16), c = (tid % (BN / 16)) * 16;
-        const int4 raw = *reinterpret_cast<const int4*>(&pipe.q[st][nb][r * BN + c]);
-        const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
-        __nv_bfloat162 w2[8];
-#pragma unroll
-        for (int t = 0; t < 8; ++t) w2[t] = __floats2bfloat162_rn((float)v[2 * t], (float)v[2 * t + 1]);
-        uint4* dst = reinterpret_cast<uint4*>(&pipe.b[0][nb][r * B_LD + c]);
-        dst[0] = *reinterpret_cast<const uint4*>(&w2[0]);
-        dst[1] = *reinterpret_cast<const uint4*>(&w2[4]);
-      }
-      __syncthreads();
-    }
-    const int bst = Q8 ? 0 : st;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
@@ -426,7 +411,7 @@ ffn_kernel(const bf16* __restrict__ A, const void* __restrict__ W0v, const void*
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-          wmma::load_matrix_sync(bfr, &pipe.b[bst][nb][kk * B_LD + wn * 32 + j * 16], B_LD);
+          wmma::load_matrix_sync(bfr, &pipe.b[st][nb][kk * B_LD + wn * 32 + j * 16], B_LD);
 #pragma unroll
           for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[nb][i][j], af[i], bfr, acc[nb][i][j]);
         }
@@ -436,29 +421,6 @@ ffn_kernel(const bf16* __restrict__ A, const void* __restrict__ W0v, const void*
   }
   cp_async_wait<0>();
   __syncthreads();
-
-  if constexpr (Q8) {  // per-column scales on the fp32 sums, before silu
-    float* stile = reinterpret_cast<float*>(smem_raw);  // NB x 16 x S_LD, rows repeated
-    const bf16* S[2] = {S0, S1};
-    for (int i = tid; i < NB * 16 * BN; i += THREADS) {
-      const int nb = i / (16 * BN), r = (i / BN) % 16, c = i % BN;
-      stile[(nb * 16 + r) * S_LD + c] = __bfloat162float(S[nb][(size_t)e * N + n0 + c]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> sc;
-        wmma::load_matrix_sync(sc, &stile[nb * 16 * S_LD + wn * 32 + j * 16], S_LD, wmma::mem_row_major);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int t = 0; t < sc.num_elements; ++t) acc[nb][i][j].x[t] *= sc.x[t];
-      }
-    }
-    __syncthreads();  // the scale tiles are read before ctile overwrites them
-  }
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -839,7 +801,7 @@ grouped_down_q8_kernel(const __grid_constant__ DownQ8Maps maps, const bf16* __re
 }
 
 // Tiles with int8 B slots and three bf16 buffers of a widened slab after
-// the ring (consume_s8): #10, #11, #15
+// the ring (consume_s8): #8-#11, #14, #15
 template <int BN_>
 using Q8Tile = sm90::Tile<2, BN_, true, 3 * BN_ * 64 * 2, 1>;
 
@@ -861,31 +823,85 @@ int launch_down_q8(const void* h, const void* w_down, const void* s_down, const 
 }
 
 // ---------------------------------------------------------------------------
-// #10 grouped_gate_up_q8: #1's g | u product on #4's sorted tiles, with Wg
-// and Wu widened in shared memory as #15 widens Wd
+// #10 grouped_gate_up_q8, #3 grouped_gate_up and #14 grouped_gate_up_fused_q8:
+// #1's g | u product on #4's sorted tiles, one kernel template; int8 Wg and
+// Wu widened in shared memory as #15 widens Wd (#10, #14); #14's A rows
+// gathered from the token-major x into the slot
 // ---------------------------------------------------------------------------
 
 // xs (N_pad, D) in boxes of 64 columns x 128 rows, or x 64 rows for a tile
-// whose valid rows fit the first warpgroup; Wg, Wu (E, D, F) int8 in boxes
-// of 128 F columns x 64 D rows (N-major B, widened by consume_s8)
-struct GateUpQ8Maps {
+// whose valid rows fit the first warpgroup (#3, #10; #14 gathers its rows
+// and reads no map of x); Wg, Wu (E, D, F) in boxes of 64 D rows (N-major
+// B) of 64 bf16 F columns (#3) or of 128 int8 ones (#10, #14: widened by
+// consume_s8)
+struct GateUpSortedMaps {
   CUtensorMap x, x64, wg, wu;
 };
 
+// #14's producer warp: slab i's A half is gathered from the token-major x
+// (T, D), row r < valid of the tile being x[tok[r]][k0 .. k0 + 63]. TMA
+// cannot gather rows on sm_90 (tile::gather4 is sm_100's), so the warp's 32
+// lanes copy them by cp.async, lane l the 8 16-byte chunks of rows l + 32m,
+// into the 128B swizzle the A descriptor reads (chunk c of row r at chunk c
+// ^ (r % 8)), and each lane then arrives on the slot's full barrier (noinc:
+// 1 + 32 arrivals fill a slot). Lane 0 first expects the weight boxes'
+// bytes and issues them by TMA (load_b) against the same barrier. Rows of
+// the slot past the valid count are left as they are: wgmma rows are
+// independent, and those rows are stored as zeros. consume_s8's
+// fence_async_smem, after the full barrier and before the wgmma, makes
+// the copies visible to it. The gathered rows come from L2 after the first
+// of the 112 column blocks of a tile reads them. Measured on the card
+// (PERF.md): a row a lane, with its source found once and the chunks at
+// immediate offsets, beat 8 lanes a row (fewer instructions a copy for the
+// one warp that issues them all) and one TMA box of one row a row (the TMA
+// unit's rate for 128-byte boxes).
+template <class T, class LoadB>
+__device__ __forceinline__ void produce_gathered(const sm90::Ring<T>& ring, int n_slabs, const bf16* X,
+                                                 const int* tok, int valid, int D, LoadB&& load_b) {
+  const int lane = threadIdx.x % 32;
+  const bf16* src[T::BM / 32];  // rows lane + 32m of x, or nothing past the valid count
+#pragma unroll
+  for (int m = 0; m < T::BM / 32; ++m)
+    src[m] = lane + 32 * m < valid ? X + (size_t)tok[lane + 32 * m] * D : nullptr;
+  for (int i = 0; i < n_slabs; ++i) {
+    const int s = i % T::STAGES;
+    if (i >= T::STAGES) sm90::mbar_wait(ring.empty(s), (i / T::STAGES - 1) & 1);
+    const uint32_t full = ring.full(s), a = ring.a(s);
+    const int k0 = i * T::BK;
+    if (lane == 0) {
+      sm90::mbar_expect_tx(full, T::B_BYTES);
+      load_b(ring.b(s), k0, full);
+    }
+#pragma unroll
+    for (int m = 0; m < T::BM / 32; ++m) {
+      if (!src[m]) continue;
+      const uint32_t row = a + (lane + 32 * m) * 128;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) sm90::cp_async_16(row + ((c ^ (lane % 8)) * 16), src[m] + k0 + 8 * c);
+    }
+    sm90::cp_async_arrive(full);
+  }
+  sm90::cp_async_wait_all();
+}
+
 // One block per (128-row tile, 128 h columns) in grouped_tile order. A
-// slab is (xs; Wg[e] | Wu[e]): two int8 boxes that widen_s8 turns into the
-// four 64-column bf16 boxes of #1's slab, so one m64n256 accumulator holds
-// g in columns 0-127 and u in 128-255 (element 4j + e of g and 4(j + 16) +
-// e of u at the same row and column). The epilogue scales each by its
-// column's bf16 scale in fp32, applies silu(g) * u and stores bf16 pairs
-// from registers: rows past the valid count, all of an idle warpgroup's
-// among them, store zeros; an empty tile stores zeros and loads nothing.
-template <class T>
+// slab is (xs; Wg[e] | Wu[e]): #1's four 64-column bf16 boxes (#3), or two
+// int8 boxes that widen_s8 turns into those four (#10, #14), so one
+// m64n256 accumulator holds g in columns 0-127 and u in 128-255 (element
+// 4j + e of g and 4(j + 16) + e of u at the same row and column). The
+// epilogue scales each by its column's bf16 scale in fp32 (Q8), applies
+// silu(g) * u and stores bf16 pairs from registers: rows past the valid
+// count, all of an idle warpgroup's among them, store zeros; an empty tile
+// stores zeros and loads nothing. GATHER (#14): row r of the tile is x[
+// tok_pad[row0 + r]] (produce_gathered), and h is stored as #10 stores it.
+template <class T, bool Q8, bool GATHER>
 __global__ void __launch_bounds__(T::THREADS, 1)
-grouped_gate_up_q8_kernel(const __grid_constant__ GateUpQ8Maps maps, const bf16* __restrict__ s_gate,
-                          const bf16* __restrict__ s_up, const int* __restrict__ tile_group,
-                          const int* __restrict__ tile_rows, bf16* __restrict__ H, int D, int F) {
+grouped_gate_up_kernel(const __grid_constant__ GateUpSortedMaps maps, const bf16* __restrict__ s_gate,
+                       const bf16* __restrict__ s_up, const bf16* __restrict__ X, const int* __restrict__ tok_pad,
+                       const int* __restrict__ tile_group, const int* __restrict__ tile_rows,
+                       bf16* __restrict__ H, int D, int F) {
   static_assert(T::BM == ROW_TILE && T::BN == 2 * GU_BN && T::B_MN, "one block per row tile, g | u side by side");
+  static_assert(Q8 || !GATHER, "the gathered rows are fenced for wgmma by consume_s8");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int tid = threadIdx.x, wg = tid / 128;
   int tile, cb;
@@ -899,30 +915,46 @@ grouped_gate_up_q8_kernel(const __grid_constant__ GateUpQ8Maps maps, const bf16*
   }
   const int e = tile_group[tile];
   const sm90::Ring<T> ring = sm90::ring_at<T>(smem_raw);
-  if (tid == 0) ring.init(4 * active);
+  if (tid == 0) ring.init(4 * active, GATHER ? 33 : 1);
   __syncthreads();
   const int n_slabs = D / T::BK;
-  if (wg == T::NWG) {  // the producer warp: one thread issues every copy
-    if (tid == T::CONSUMERS) {
+  // a slab's weight boxes: int8, one of 128 columns each of Wg and Wu; bf16, two of 64 each
+  auto load_b = [&](uint32_t b, int k0, uint32_t bar) {
+    if constexpr (Q8) {
+      sm90::tma_load_3d(b, &maps.wg, n0, k0, e, bar);
+      sm90::tma_load_3d(b + T::BK * 128, &maps.wu, n0, k0, e, bar);
+    } else {
+      sm90::tma_load_3d(b, &maps.wg, n0, k0, e, bar);
+      sm90::tma_load_3d(b + T::BK * 128, &maps.wg, n0 + 64, k0, e, bar);
+      sm90::tma_load_3d(b + 2 * T::BK * 128, &maps.wu, n0, k0, e, bar);
+      sm90::tma_load_3d(b + 3 * T::BK * 128, &maps.wu, n0 + 64, k0, e, bar);
+    }
+  };
+  if (wg == T::NWG) {  // the producer warp: one thread issues every copy, or all 32 gather
+    if constexpr (GATHER) {
+      produce_gathered(ring, n_slabs, X, tok_pad + row0, valid, D, load_b);
+    } else if (tid == T::CONSUMERS) {
       const CUtensorMap* a_map = active == 1 ? &maps.x64 : &maps.x;
       sm90::produce(ring, n_slabs, [&](int i, uint32_t a, uint32_t b, uint32_t bar) {
         const int k0 = i * T::BK;
         sm90::tma_load_3d(a, a_map, k0, row0, 0, bar);
-        sm90::tma_load_3d(b, &maps.wg, n0, k0, e, bar);
-        sm90::tma_load_3d(b + T::BK * 128, &maps.wu, n0, k0, e, bar);
+        load_b(b, k0, bar);
       }, active * 64 * 128 + T::B_BYTES);
     }
     return;
   }
-  if (wg >= active) {  // no row of this warpgroup's: it widens its share of each slab, then stores zeros
-    sm90::widen_slabs(ring, n_slabs);
+  if (wg >= active) {  // no row of this warpgroup's: it widens its share of each slab (int8), then stores zeros
+    if constexpr (Q8) sm90::widen_slabs(ring, n_slabs);
     sm90::store_zeros<64, GU_BN>(H + (size_t)(row0 + wg * 64) * F + n0, F, 128, tid % 128);
     return;
   }
   float gu[T::BN / 2];
 #pragma unroll
   for (int i = 0; i < T::BN / 2; ++i) gu[i] = 0.f;
-  sm90::consume_s8(ring, n_slabs, wg, gu);
+  if constexpr (Q8)
+    sm90::consume_s8(ring, n_slabs, wg, gu);
+  else
+    sm90::consume(ring, n_slabs, wg, gu);
   const int rows = valid - wg * 64;  // this warpgroup's valid rows
   const int warp = (tid % 128) / 32, g8 = (tid % 32) / 4, t = tid % 4;
   // scales of columns n0 + 8j + 2t, +1 at pair 4j, loaded a column pair at a time after the K loop
@@ -931,7 +963,11 @@ grouped_gate_up_q8_kernel(const __grid_constant__ GateUpQ8Maps maps, const bf16*
   uint32_t* h = reinterpret_cast<uint32_t*>(H + (size_t)(row0 + wg * 64 + warp * 16 + g8) * F + n0 + 2 * t);
 #pragma unroll
   for (int j = 0; j < GU_BN / 8; ++j) {
-    const float2 a = __bfloat1622float2(sg[4 * j]), b = __bfloat1622float2(su[4 * j]);
+    float2 a = make_float2(1.f, 1.f), b = a;  // bf16 weights: no scale (x * 1 is x)
+    if constexpr (Q8) {
+      a = __bfloat1622float2(sg[4 * j]);
+      b = __bfloat1622float2(su[4 * j]);
+    }
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int k = 4 * j + 2 * hh;
@@ -944,21 +980,28 @@ grouped_gate_up_q8_kernel(const __grid_constant__ GateUpQ8Maps maps, const bf16*
   }
 }
 
-template <class T>
-int launch_gate_up_q8(const void* xs, const void* w_gate, const void* w_up, const void* s_gate, const void* s_up,
-                      const int* tile_group, const int* tile_rows, void* h, int n_pad, int d, int f,
-                      cudaStream_t s) {
+// #10 (Q8: s_gate, s_up), #3 (bf16; the scales unused) or #14 (Q8, GATHER:
+// x (T, D) and tok_pad (n_pad,) in place of xs (n_pad, D)); -> h (n_pad, f)
+template <class T, bool Q8, bool GATHER>
+int launch_gate_up_sorted(const void* x, const void* w_gate, const void* w_up, const void* s_gate, const void* s_up,
+                          const int* tok_pad, const int* tile_group, const int* tile_rows, void* h, int n_pad, int d,
+                          int f, cudaStream_t s) {
+  const auto kernel = grouped_gate_up_kernel<T, Q8, GATHER>;
   static const cudaError_t attr =  // once per process and tile shape
-      cudaFuncSetAttribute(grouped_gate_up_q8_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  GateUpQ8Maps maps;
-  if (reinterpret_cast<uintptr_t>(h) % 16 || !sm90::map_3d(&maps.x, xs, d, n_pad, 1, T::BM) ||
-      !sm90::map_3d(&maps.x64, xs, d, n_pad, 1, 64) ||
-      !sm90::map_3d(&maps.wg, w_gate, f, d, sm90::MAX_EXPERTS, 64, 1) ||
-      !sm90::map_3d(&maps.wu, w_up, f, d, sm90::MAX_EXPERTS, 64, 1))
+  GateUpSortedMaps maps = {};
+  const uint32_t w_elem = Q8 ? 1 : 2;
+  const bool x_ok = GATHER ? reinterpret_cast<uintptr_t>(x) % 16 == 0
+                           : sm90::map_3d(&maps.x, x, d, n_pad, 1, T::BM) &&
+                                 sm90::map_3d(&maps.x64, x, d, n_pad, 1, 64);
+  if (reinterpret_cast<uintptr_t>(h) % 16 || !x_ok ||
+      !sm90::map_3d(&maps.wg, w_gate, f, d, sm90::MAX_EXPERTS, 64, w_elem) ||
+      !sm90::map_3d(&maps.wu, w_up, f, d, sm90::MAX_EXPERTS, 64, w_elem))
     return (int)cudaErrorInvalidValue;
-  return sm90::launch_grouped(grouped_gate_up_q8_kernel<T>, (n_pad / T::BM) * (f / GU_BN), T::THREADS, T::SMEM, s,
-                              maps, (const bf16*)s_gate, (const bf16*)s_up, tile_group, tile_rows, (bf16*)h, d, f);
+  return sm90::launch_grouped(kernel, (n_pad / T::BM) * (f / GU_BN), T::THREADS, T::SMEM, s, maps,
+                              (const bf16*)s_gate, (const bf16*)s_up, (const bf16*)x, tok_pad, tile_group, tile_rows,
+                              (bf16*)h, d, f);
 }
 
 // ---------------------------------------------------------------------------
@@ -1109,13 +1152,13 @@ int sorted_blocks(int n_pad) { return n_pad / BM; }
 
 }  // namespace
 
+// xs (n_pad, d) -> h (n_pad, f): the wgmma/TMA kernel above
 extern "C" int grouped_gate_up(const void* xs, const void* w_gate, const void* w_up,
                                const int* tile_group, const int* tile_rows, void* h,
                                int n_pad, int d, int f, void* stream) {
-  dim3 grid(sorted_blocks(n_pad), f / BN);
-  ffn_kernel<2, SORTED, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)xs, w_gate, w_up, nullptr, nullptr, tile_group, tile_rows, nullptr, nullptr, (bf16*)h, d, f);
-  return (int)cudaGetLastError();
+  if (n_pad % ROW_TILE || d % 64 || f % GU_BN) return (int)cudaErrorInvalidValue;
+  return launch_gate_up_sorted<sm90::Tile<2, 2 * GU_BN, true>, false, false>(
+      xs, w_gate, w_up, nullptr, nullptr, nullptr, tile_group, tile_rows, h, n_pad, d, f, (cudaStream_t)stream);
 }
 
 // h (n_pad, f) -> y (n_pad, d): the wgmma/TMA kernel above, BN 256 where d allows it
@@ -1178,8 +1221,8 @@ extern "C" int grouped_gate_up_q8(const void* xs, const void* w_gate, const void
                                   const int* tile_rows, void* h, int n_pad, int d, int f, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n_pad % ROW_TILE || d % 64 || f % GU_BN) return (int)cudaErrorInvalidValue;
-  return launch_gate_up_q8<Q8Tile<2 * GU_BN>>(xs, w_gate, w_up, s_gate, s_up, tile_group, tile_rows, h, n_pad, d, f,
-                                              s);
+  return launch_gate_up_sorted<Q8Tile<2 * GU_BN>, true, false>(xs, w_gate, w_up, s_gate, s_up, nullptr, tile_group,
+                                                                tile_rows, h, n_pad, d, f, s);
 }
 
 // h (n_pad, f) bf16; w_down (E, f, d) int8; s_down (E, d) bf16 -> y (n_pad, d): the wgmma/TMA kernel
@@ -1199,8 +1242,8 @@ extern "C" int grouped_gate_up_fused(const void* x, const void* w_gate, const vo
                                      const int* tile_group, const int* tile_rows, void* h, int n_pad, int d, int f,
                                      void* stream) {
   dim3 grid(sorted_blocks(n_pad), f / BN);
-  ffn_kernel<2, FUSED, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)x, w_gate, w_up, nullptr, nullptr, tile_group, tile_rows, tok_pad, nullptr, (bf16*)h, d, f);
+  ffn_kernel<2><<<grid, THREADS, 0, (cudaStream_t)stream>>>((const bf16*)x, (const bf16*)w_gate, (const bf16*)w_up,
+                                                           tile_group, tile_rows, tok_pad, nullptr, (bf16*)h, d, f);
   return (int)cudaGetLastError();
 }
 
@@ -1209,20 +1252,21 @@ extern "C" int grouped_down_fused(const void* h, const void* w_down, const int* 
                                   const int* tile_group, const int* tile_rows, void* partials, int n_pad, int f,
                                   int d, void* stream) {
   dim3 grid(sorted_blocks(n_pad), d / BN);
-  ffn_kernel<1, FUSED, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)h, w_down, w_down, nullptr, nullptr, tile_group, tile_rows, row_out, gate_pad,
-      (bf16*)partials, f, d);
+  ffn_kernel<1><<<grid, THREADS, 0, (cudaStream_t)stream>>>((const bf16*)h, (const bf16*)w_down,
+                                                           (const bf16*)w_down, tile_group, tile_rows, row_out,
+                                                           gate_pad, (bf16*)partials, f, d);
   return (int)cudaGetLastError();
 }
 
+// x (T, d) token-major; w_gate/w_up (E, d, f) int8; s_gate/s_up (E, f) bf16; tok_pad (n_pad,) source token of
+// each buffer row -> h (n_pad, f): the wgmma/TMA kernel above, its A rows gathered into the slot
 extern "C" int grouped_gate_up_fused_q8(const void* x, const void* w_gate, const void* w_up, const void* s_gate,
                                         const void* s_up, const int* tok_pad, const int* tile_group,
                                         const int* tile_rows, void* h, int n_pad, int d, int f, void* stream) {
-  dim3 grid(sorted_blocks(n_pad), f / BN);
-  ffn_kernel<2, FUSED, true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)x, w_gate, w_up, (const bf16*)s_gate, (const bf16*)s_up, tile_group, tile_rows, tok_pad,
-      nullptr, (bf16*)h, d, f);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_pad % ROW_TILE || d % 64 || f % GU_BN) return (int)cudaErrorInvalidValue;
+  return launch_gate_up_sorted<Q8Tile<2 * GU_BN>, true, true>(x, w_gate, w_up, s_gate, s_up, tok_pad, tile_group,
+                                                               tile_rows, h, n_pad, d, f, s);
 }
 
 // h (n_pad, f); w_down (E, f, d) int8; s_down (E, d) bf16; row_out / gate_pad (n_pad,) -> partials

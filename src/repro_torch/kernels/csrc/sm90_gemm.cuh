@@ -1,8 +1,9 @@
 // A warp-specialised wgmma + TMA GEMM mainloop for Hopper (sm_90a), shared
 // by the expert GEMMs on it: expert_gate_up (#1), expert_down (#2),
-// grouped_down (#4) and, with int8 weights, expert_gate_up_q8 (#8),
-// expert_down_q8 (#9), grouped_gate_up_q8 (#10), grouped_down_q8 (#11)
-// and grouped_down_fused_q8 (#15) in grouped_gemm.cu, and grouped_bwd_dh (#5), grouped_bwd_dx (#6) and
+// grouped_gate_up (#3), grouped_down (#4) and, with int8 weights,
+// expert_gate_up_q8 (#8), expert_down_q8 (#9), grouped_gate_up_q8 (#10),
+// grouped_down_q8 (#11), grouped_gate_up_fused_q8 (#14) and
+// grouped_down_fused_q8 (#15) in grouped_gemm.cu, and grouped_bwd_dh (#5), grouped_bwd_dx (#6) and
 // grouped_bwd_wgrad (#7) in grouped_gemm_bwd.cu. Header only: each .cu
 // that includes it instantiates the tiles it needs; each caller's note
 // gives its design and ptxas's counts. Besides the mainloop it holds what
@@ -17,7 +18,7 @@
 // or adds to its sum, wgmma with a register A at n64 and n128, pack_a,
 // fence_frags, exp2_approx).
 //
-// int8 weights (#8-#11, #15; the pattern for #14). map_3d
+// int8 weights (#8-#11, #14, #15). map_3d
 // takes 1-byte elements (a UINT8 map: boxes of 128 columns x rows,
 // 128B-swizzled like the others), and a Tile with B_ELEM 1 keeps B in its
 // slots as int8 N-major boxes of 128 columns x 64 K rows: half the bytes
@@ -200,12 +201,19 @@ __device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.a
 // make mbarrier inits visible to the async proxy and the cluster (after the inits, before their first use)
 __device__ __forceinline__ void fence_mbar_init() { asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory"); }
 
-// Non-bulk copy of 4 bytes into shared memory, and an arrival on an
-// mbarrier once every such copy this thread has started has landed (noinc:
-// the arrival counts against the count the barrier was initialised with).
+// Non-bulk copies of 4 bytes (through L1) or 16 bytes (L2 only) into
+// shared memory, and an arrival on an mbarrier once every such copy this
+// thread has started has landed (noinc: the arrival counts against the
+// count the barrier was initialised with). They write through the generic
+// proxy: a wgmma that reads them needs fence_async_smem first.
 __device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
 }
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+// until every cp.async this thread has started has landed
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
@@ -437,10 +445,12 @@ struct Ring {
   __device__ uint32_t extra() const { return base + T::STAGES * T::STAGE; }
   __device__ uint32_t full(int s) const { return base + T::BAR + 8 * s; }
   __device__ uint32_t empty(int s) const { return base + T::BAR + 8 * (T::STAGES + s); }
-  // one thread, then __syncthreads: `warps` consumer warps release each slot
-  __device__ void init(int warps) const {
+  // one thread, then __syncthreads: `warps` consumer warps release each
+  // slot; `fills` arrivals complete a slot's fill (the producer's expect_tx,
+  // and one a lane where the producer warp's lanes copy with cp.async: #14)
+  __device__ void init(int warps, int fills = 1) const {
     for (int s = 0; s < T::STAGES; ++s) {
-      mbar_init(full(s), 1);
+      mbar_init(full(s), fills);
       mbar_init(empty(s), warps);
     }
     fence_mbar_init();

@@ -3,10 +3,11 @@ for the sorted layout in bf16 (``grouped_gemm``) and int8
 (``grouped_gemm_q8``), the padded layout in bf16 (``expert_gemm``) and int8
 (``expert_gemm_q8``) and the fused dispatch-in-kernel path in bf16
 (``grouped_gemm_fused``) and int8 (``grouped_gemm_fused_q8``). All twelve
-forward kernels live in ``csrc/grouped_gemm.cu``: #1, #2, #4, #8-#11 and
-#15 on the wgmma/TMA mainloop of ``csrc/sm90_gemm.cuh`` (#8-#11 and #15
-widen their int8 weight slabs to bf16 in shared memory before each
-product), the other four on one templated WMMA tile loop.
+forward kernels live in ``csrc/grouped_gemm.cu``: #1-#4, #8-#11, #14 and
+#15 on the wgmma/TMA mainloop of ``csrc/sm90_gemm.cuh`` (#8-#11, #14 and
+#15 widen their int8 weight slabs to bf16 in shared memory before each
+product; #3, #10 and #14 are one kernel template), the bf16 fused #12 and
+#13 on one WMMA tile loop.
 
 Sorted, bf16 (``_grouped_fwd_impl``: ``_grouped_gate_up_kernel`` and
 ``_grouped_down_kernel``):
@@ -46,8 +47,9 @@ Fused dispatch (``_fused_fwd_impl``: ``_fused_gate_up_kernel``,
 token-major ``x`` (T, D) and the sorted dispatcher's routing vectors.
 :func:`fused_prefetch` turns them into per-buffer-row tables on the device
 (source token, slot-partials row, fp32 gate). ``grouped_gate_up_fused``
-(#12; ``_q8`` #14) gathers each row of its tile from x in its prologue and
-writes h (N_pad, F); ``grouped_down_fused`` (#13; #15) writes each valid
+(#12; ``_q8`` #14, which copies the rows into its shared-memory slots by
+cp.async) gathers each row of its tile from x and writes h (N_pad, F);
+``grouped_down_fused`` (#13; #15) writes each valid
 row times its gate to its (slot, token) row of a (k, T, D) partials
 buffer, which the wrapper sums over k in fp32. :class:`FusedMoe` is its
 autograd node (the JAX ``_fused_moe_p`` ``custom_vjp``): inputs-only
@@ -174,11 +176,26 @@ def _check(xs, w_gate, w_up, w_down, group_sizes, row_block, wdtype=torch.bfloat
         raise ValueError(f"grouped_gemm: the CUDA kernel needs row_block={ROW_TILE} and N_pad % {ROW_TILE} == 0")
 
 
-def gate_up_cuda(xs, w_gate, w_up, tile_group, tile_rows) -> torch.Tensor:
-    """Launch ``grouped_gate_up`` on the current stream -> h (N_pad, F)."""
+def gate_up_cuda(xs, w_gate, w_up, tile_group, tile_rows, out=None) -> torch.Tensor:
+    """Launch ``grouped_gate_up`` (#3) on the current stream -> h (N_pad,
+    F), into ``out`` if it is given. Every check runs before the library
+    is loaded."""
+    _check_bf16("grouped_gate_up", xs.device, xs=xs, w_gate=w_gate, w_up=w_up)
+    if xs.dim() != 2 or w_gate.dim() != 3:
+        raise ValueError(f"grouped_gate_up: xs {tuple(xs.shape)} must be (N_pad, D) and w_gate "
+                         f"{tuple(w_gate.shape)} (E, D, F)")
     N_pad, D = xs.shape
-    F = w_gate.shape[2]
-    h = torch.empty((N_pad, F), dtype=xs.dtype, device=xs.device)
+    E, F = w_gate.shape[0], w_gate.shape[2]
+    if w_gate.shape != (E, D, F) or w_up.shape != (E, D, F):
+        raise ValueError(f"grouped_gate_up: w_gate {tuple(w_gate.shape)} and w_up {tuple(w_up.shape)} for xs "
+                         f"{tuple(xs.shape)}")
+    if N_pad % ROW_TILE or D % COL_TILE or F % COL_TILE:
+        raise ValueError(f"grouped_gate_up: N_pad={N_pad} must be a multiple of {ROW_TILE}, D={D} and F={F} of "
+                         f"{COL_TILE}")
+    _check_tiles("grouped_gate_up", N_pad // ROW_TILE, xs.device, tile_group=tile_group, tile_rows=tile_rows)
+    _check_out("grouped_gate_up", out, (N_pad, F), xs)
+    h = torch.empty((N_pad, F), dtype=xs.dtype, device=xs.device) if out is None else out
+    _check_tma("grouped_gate_up", xs=xs, w_gate=w_gate, w_up=w_up, out=h)
     lib = _build.load("grouped_gemm", _SIGS)
     _build.check(lib.grouped_gate_up(
         xs.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), tile_group.data_ptr(),
@@ -768,10 +785,35 @@ def fused_down_cuda(h, w_down, row_out, gate_pad, tile_group, tile_rows, k: int,
     return partials
 
 
-def fused_gate_up_q8_cuda(x, w_gate, w_up, s_gate, s_up, tok_pad, tile_group, tile_rows) -> torch.Tensor:
-    """Launch ``grouped_gate_up_fused_q8`` (#14): x (T, D) -> h (N_pad, F)."""
-    N_pad, D, F = tok_pad.shape[0], x.shape[1], w_gate.shape[2]
-    h = torch.empty((N_pad, F), dtype=x.dtype, device=x.device)
+def fused_gate_up_q8_cuda(x, w_gate, w_up, s_gate, s_up, tok_pad, tile_group, tile_rows,
+                          out=None) -> torch.Tensor:
+    """Launch ``grouped_gate_up_fused_q8`` (#14) on the current stream: x
+    (T, D) -> h (N_pad, F), row r of h from x[tok_pad[r]], into ``out`` if
+    it is given. Every check runs before the library is loaded; the range
+    of ``tok_pad`` (tokens below T) is the caller's, as ``fused_tables``
+    makes it, and is not checked on the device."""
+    _check_bf16("grouped_gate_up_fused_q8", x.device, x=x)
+    _check_q8("grouped_gate_up_fused_q8", x.device, dict(w_gate=w_gate, w_up=w_up), dict(s_gate=s_gate, s_up=s_up))
+    if x.dim() != 2 or w_gate.dim() != 3 or tok_pad.dim() != 1:
+        raise ValueError(f"grouped_gate_up_fused_q8: x {tuple(x.shape)} must be (T, D), w_gate "
+                         f"{tuple(w_gate.shape)} (E, D, F) and tok_pad {tuple(tok_pad.shape)} (N_pad,)")
+    N_pad, D = tok_pad.shape[0], x.shape[1]
+    E, F = w_gate.shape[0], w_gate.shape[2]
+    if (w_gate.shape != (E, D, F) or w_up.shape != (E, D, F) or s_gate.shape != (E, F)
+            or s_up.shape != (E, F)):
+        raise ValueError(f"grouped_gate_up_fused_q8: w_gate {tuple(w_gate.shape)}, w_up {tuple(w_up.shape)}, "
+                         f"s_gate {tuple(s_gate.shape)} and s_up {tuple(s_up.shape)} for x {tuple(x.shape)}")
+    if N_pad % ROW_TILE or D % COL_TILE or F % COL_TILE:
+        raise ValueError(f"grouped_gate_up_fused_q8: N_pad={N_pad} must be a multiple of {ROW_TILE}, D={D} and "
+                         f"F={F} of {COL_TILE}")
+    if tok_pad.dtype != torch.int32 or tok_pad.device != x.device or not tok_pad.is_contiguous():
+        raise ValueError(f"grouped_gate_up_fused_q8: tok_pad must be a contiguous int32 ({N_pad},) tensor on "
+                         f"{x.device}")
+    _check_tiles("grouped_gate_up_fused_q8", N_pad // ROW_TILE, x.device, tile_group=tile_group,
+                 tile_rows=tile_rows)
+    _check_out("grouped_gate_up_fused_q8", out, (N_pad, F), x)
+    h = torch.empty((N_pad, F), dtype=x.dtype, device=x.device) if out is None else out
+    _check_tma("grouped_gate_up_fused_q8", x=x, w_gate=w_gate, w_up=w_up, out=h)
     lib = _build.load("grouped_gemm", _SIGS)
     _build.check(lib.grouped_gate_up_fused_q8(
         x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), s_gate.data_ptr(), s_up.data_ptr(), tok_pad.data_ptr(),
