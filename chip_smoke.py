@@ -128,12 +128,13 @@ Phases (each failure exits non-zero; nothing is swallowed):
    of phase 2 and #12/#13 at phase 6's training routing (2048 tokens)
    against their plain versions (2e-2 x max|plain|; h's padding rows
    exactly 0; the partials buffer filled with NaN before the down launch
-   comes back finite, twice bit-equal; #14 also launched twice into a
-   NaN-filled h, bit-equal, and its whole h bit-equal to #10's on the
-   scattered buffer), with kernel, plain and bound times
-   (for #15 also the bf16 #4 on the same h and weights, and CUDA-graph
-   device times of #14 and #10, #15, #11 and #4) and the whole fused path beside the
-   port's unfused path on the same routing; (b)
+   comes back finite, twice bit-equal; #12 and #14 also launched twice
+   into a NaN-filled h, bit-equal, and each whole h bit-equal to its
+   unfused twin's, #3's or #10's, on the scattered buffer), with kernel,
+   plain and bound times and CUDA-graph device times of each kernel and
+   its unfused twin (#3, #4, #10, #11; for #15 also the bf16 #4 on the
+   same h and weights) and the whole fused path beside the port's unfused
+   path on the same routing; (b)
    phase 3's model and requests through the ring engine with
    ``fused_dispatch=True``: #12/#13 launch and #3/#4 do not, every kernel
    call of a short serve is checked, greedy tokens against the unfused
@@ -155,10 +156,10 @@ serving, ``--phases 1,9`` at fused dispatch. ``--digest SRC`` prints a
 SHA-256 of every expert GEMM's and the flash forward's outputs on seeded
 inputs for the kernels of the tree whose ``src`` is SRC; ``--times SRC``
 prints the device and host-inclusive times of #16 at phase 2's lengths,
-of #15, #14, #11, #10, #4 and #3 at phase 9a's routings (#3 also at the
-training groups) and of #8, #9, #1 and #2 at C 4 and 300 for that tree's
-kernels:
-run either on two trees in one call to compare them. The last two lines are the card's
+of #15, #14, #13, #12, #11, #10, #4 and #3 at phase 9a's routings (#13,
+#12, #4 and #3 also at the training groups) and of #8, #9, #1 and #2 at C
+4 and 300 for that tree's kernels: run either on two trees in one call to
+compare them. The last two lines are the card's
 ``nvidia-smi`` name and power limit and the result JSON; the lines before
 them list the launches by path, the serve and train figures and the
 kernels. Imports nothing of JAX or of the JAX package.
@@ -951,9 +952,9 @@ def digests(seed: int) -> dict:
     """SHA-256 (first 16 hex digits) of the outputs of the expert GEMM
     kernels (#1-#15) and the flash forward (#16) at llama3-e8t2 widths on
     inputs drawn from ``seed``, each kernel fed its own random inputs (#3,
-    #10, #11 and #14 at the decode and prefill groups, #3 also at the
-    training groups, #8 and #9 at C 4, 300 and 512). Two trees whose digests
-    agree compute bit-equal outputs (``--digest``)."""
+    #4 and #10-#15 at the decode and prefill groups, #3 and #4 also at the
+    training groups, #1, #2, #8 and #9 at C 4, 300 and 512). Two trees
+    whose digests agree compute bit-equal outputs (``--digest``)."""
     import hashlib
 
     import torch
@@ -1009,12 +1010,14 @@ def digests(seed: int) -> dict:
     del qg, qu, qd
     wg, wu = (rand(8, 4096, 14336, scale=4096 ** -0.5) for _ in range(2))
     wd = rand(8, 14336, 4096, scale=14336 ** -0.5)
-    token, slot, dest, gate_sorted, gs = fused_routing(gen, (3, 0, 2, 1, 0, 1, 1, 0), 4)
-    tok_pad, row_out, gate_pad, tg, tr, k = eg.fused_tables(wg, gs, token, dest, slot, gate_sorted, 4)
-    h = eg.fused_gate_up_cuda(rand(4, 4096), wg, wu, tok_pad, tg, tr)
-    out["grouped_gate_up_fused decode"] = sha(h)
-    out["grouped_down_fused decode"] = sha(eg.fused_down_cuda(h, wd, row_out, gate_pad, tg, tr, k, 4))
-    del wg, wu, wd
+    for groups, T in (((3, 0, 2, 1, 0, 1, 1, 0), 4), ((200, 0, 131, 77, 64, 50, 40, 38), 300)):
+        label = "decode" if T == 4 else "prefill"
+        token, slot, dest, gate_sorted, gs = fused_routing(gen, groups, T)
+        tok_pad, row_out, gate_pad, tg, tr, k = eg.fused_tables(wg, gs, token, dest, slot, gate_sorted, T)
+        out[f"grouped_gate_up_fused {label}"] = sha(eg.fused_gate_up_cuda(rand(T, 4096), wg, wu, tok_pad, tg, tr))
+        h = rand(tok_pad.shape[0], 14336)  # #13's own input, not #12's output
+        out[f"grouped_down_fused {label}"] = sha(eg.fused_down_cuda(h, wd, row_out, gate_pad, tg, tr, k, T))
+    del wg, wu, wd, h
     for S, window, d in ((340, None, 128), (2048, None, 128), (512, 128, 128), (1000, None, 64)):
         q, kk, v = rand(1, S, 32, d), rand(1, S, 8, d), rand(1, S, 8, d)
         out[f"flash_fwd S={S} window={window} d={d}"] = sha(*fa.flash_fwd_cuda(q, kk, v, True, window, d ** -0.5))
@@ -1022,6 +1025,7 @@ def digests(seed: int) -> dict:
     xs, _, (wg, wu, wd), gs, _, _, N_pad = grouped_bwd_case(gen, (200, 0, 131, 77, 64, 50, 40, 38))
     tg, tr = eg.group_tiling(gs, N_pad // eg.ROW_TILE)
     out["grouped_gate_up prefill"] = sha(eg.gate_up_cuda(xs, wg, wu, tg, tr))
+    out["grouped_down prefill"] = sha(eg.down_cuda(rand(N_pad, 14336), wd, tg, tr))
     (qg, sg), (qu, su), (qd, sd) = (quantize_weight(w) for w in (wg, wu, wd))
     del wg, wu, wd
     h = eg.gate_up_q8_cuda(xs, qg, qu, sg, su, tg, tr)
@@ -1032,14 +1036,15 @@ def digests(seed: int) -> dict:
 
 def kernel_times(seed: int) -> dict:
     """Times (ms) of the kernels the last slices redesigned, #16, #15, #14,
-    #11, #10, #9, #8 and #3, and of their yardsticks #4 (the bf16 twin of
-    #11 and #15), #10 (#14's), #2 and #1 (the twins of #9 and #8), at phase
-    2's flash shapes, phase 9a's decode and prefill routings (#3 also at
-    phase 2's training groups) and the padded C 4 and 300, for
-    the kernels of the tree whose ``src`` is on the path (``--times``; the
-    calls are ones every tree since the fused slice takes): CUDA-graph
-    device time and CUDA events around back-to-back wrapper calls (host
-    work included)."""
+    #13, #12, #11, #10, #9, #8 and #3, and of their yardsticks #4 (the bf16
+    twin of #11, #13 and #15), #3 (#12's), #10 (#14's), #2 and #1 (the
+    twins of #9 and #8), at phase 2's flash shapes, phase 9a's decode and
+    prefill routings (#12, #13, #3 and #4 also at phase 2's training
+    groups, routed from 2048 tokens) and the padded C 4 and 300, for the
+    kernels of the tree whose ``src`` is on the path (``--times``; the calls
+    are ones every tree since the fused slice takes): CUDA-graph device
+    time and CUDA events around back-to-back wrapper calls (host work
+    included)."""
     import torch
     from repro_torch.core.quant import quantize_weight
     from repro_torch.kernels import expert_gemm as eg
@@ -1074,13 +1079,20 @@ def kernel_times(seed: int) -> dict:
                                                                                        tg, tr)),
                          ("grouped_gate_up", lambda: eg.gate_up_cuda(xs, wg, wu, tg, tr))):
             out[f"{name} {label}"] = {"device_ms": graph_ms(fn), "ms": time_ms(fn)}
-    del h, xs
-    gs = torch.tensor((1100, 0, 517, 803, 64, 700, 431, 481), dtype=torch.int32, device="cuda")
-    tg, tr = eg.group_tiling(gs, 5120 // eg.ROW_TILE)
-    xs = rand(5120, 4096)
-    fn = lambda: eg.gate_up_cuda(xs, wg, wu, tg, tr)
-    out["grouped_gate_up train"] = {"device_ms": graph_ms(fn), "ms": time_ms(fn)}
-    del xs
+    for groups, T in (((3, 0, 2, 1, 0, 1, 1, 0), 4), ((200, 0, 131, 77, 64, 50, 40, 38), 300),
+                      ((1100, 0, 517, 803, 64, 700, 431, 481), 2048)):
+        label = {4: "decode", 300: "prefill", 2048: "train"}[T]
+        token, slot, dest, gate_sorted, gs = fused_routing(gen, groups, T)
+        tok_pad, row_out, gate_pad, tg, tr, k = eg.fused_tables(wg, gs, token, dest, slot, gate_sorted, T)
+        h, xs, x = rand(tok_pad.shape[0], 14336), rand(tok_pad.shape[0], 4096), rand(T, 4096)
+        fns = [("grouped_gate_up_fused", lambda: eg.fused_gate_up_cuda(x, wg, wu, tok_pad, tg, tr)),
+               ("grouped_down_fused", lambda: eg.fused_down_cuda(h, wd, row_out, gate_pad, tg, tr, k, T))]
+        if T == 2048:  # the twins at the decode and prefill routings are timed above
+            fns += [("grouped_gate_up", lambda: eg.gate_up_cuda(xs, wg, wu, tg, tr)),
+                    ("grouped_down", lambda: eg.down_cuda(h, wd, tg, tr))]
+        for name, fn in fns:
+            out[f"{name} {label}"] = {"device_ms": graph_ms(fn), "ms": time_ms(fn)}
+    del h, xs, x
     for C in (4, 300):
         xe, he = rand(8, C, 4096), rand(8, C, 14336)
         for name, fn in (("expert_gate_up_q8", lambda: eg.expert_gate_up_q8_cuda(xe, qg, qu, sg, su)),
@@ -2339,17 +2351,18 @@ def check_fused(gen, group_sizes, T: int, label: str, D=4096, F=14336, q8: bool 
     """Kernels #12/#13 (``q8``: #14/#15) on one routing against their plain
     versions (GG_TOL x max|plain|): h's padding rows exactly 0, and the
     partials buffer filled with NaN before the down launch comes back
-    finite (every (slot, token) row written once), twice, bit-equal. With
-    ``q8``, #14 is also launched twice into a NaN-filled ``out=`` (padding
-    rows 0, bit-equal to each other and to the first launch) and its whole
-    h must equal #10's on the scattered buffer bit for bit (the same slabs
-    in the same order); both are timed as CUDA-graph device time. Then
-    kernel, plain and bound times, the unfused twin kernel's time (#3/#4 or
-    #10/#11 on the scattered buffer; with ``q8`` also the bf16 #4 on the
-    same h and the weights before quantisation, and CUDA-graph device times
-    of #15, #11 and #4), and the whole fused path (tables, both kernels,
-    k-way sum) beside the port's unfused path on the same routing (scatter
-    into the aligned buffer, #3/#4 or #10/#11, gather and combine)."""
+    finite (every (slot, token) row written once), twice, bit-equal. The
+    gate/up kernel is also launched twice into a NaN-filled ``out=``
+    (padding rows 0, bit-equal to each other and to the first launch), and
+    its whole h must equal its unfused twin's (#3's, or #10's with ``q8``)
+    on the scattered buffer bit for bit (the same slabs in the same order).
+    Then kernel, plain and bound times, the unfused twin kernel's time
+    (#3/#4 or #10/#11 on the scattered buffer; with ``q8`` also the bf16 #4
+    on the same h and the weights before quantisation), CUDA-graph device
+    times of both kernels and their twins (and, with ``q8``, of #4), and
+    the whole fused path (tables, both kernels, k-way sum) beside the
+    port's unfused path on the same routing (scatter into the aligned
+    buffer, #3/#4 or #10/#11, gather and combine)."""
     import torch
     from repro_torch.core.dispatch import SortedDispatcher
     from repro_torch.core.dispatch.base import DispatchLayout, DispatchState
@@ -2385,7 +2398,8 @@ def check_fused(gen, group_sizes, T: int, label: str, D=4096, F=14336, q8: bool 
         names, w_bytes, unfused_names = ("grouped_gate_up_fused_q8", "grouped_down_fused_q8"), 1, "#10/#11"
     else:
         wg, wu, wd = w["w_gate"], w["w_up"], w["w_down"]
-        gate_up = lambda: eg.fused_gate_up_cuda(x, wg, wu, tok_pad, tg, tr)
+        gate_up_into = lambda out: eg.fused_gate_up_cuda(x, wg, wu, tok_pad, tg, tr, out=out)
+        gate_up = lambda: gate_up_into(None)
         gate_up_plain = lambda: ref.fused_gate_up_ref(x, wg, wu, tok_pad, tg, tr)
         down = lambda h, out=None: eg.fused_down_cuda(h, wd, row_out, gate_pad, tg, tr, k, T, out)
         down_plain = lambda h: ref.fused_down_ref(h, wd, row_out, gate_pad, tg, tr, k, T)
@@ -2404,21 +2418,20 @@ def check_fused(gen, group_sizes, T: int, label: str, D=4096, F=14336, q8: bool 
 
     unfused_path = lambda: sorted_d.combine(unfused_ffn(scatter()), state)
 
+    twin_names = ("#10", "#11") if q8 else ("#3", "#4")
     h = gate_up()
     h_ref = gate_up_plain()
-    gate_up_flags = {}
-    if q8:  # #14 into NaN twice, and against #10 on the scattered buffer
-        h_nan = [gate_up_into(torch.full((N_pad, F), float("nan"), dtype=torch.bfloat16, device=dev))
-                 for _ in range(2)]
-        h_twin = twins[0](scatter())
-        torch.cuda.synchronize()
-        bits = lambda t: t.view(torch.int16)
-        gate_up_flags = {"into NaN: padding rows 0": all(bool((t[~valid] == 0).all()) for t in h_nan),
-                         "into NaN: two launches bit-equal to the first": all(torch.equal(bits(t), bits(h))
-                                                                              for t in h_nan),
-                         "bit-equal to #10 on the scattered buffer": torch.equal(bits(h), bits(h_twin))}
-        print(f"  {names[0]} [{label}] {gate_up_flags}")
-        del h_nan, h_twin
+    # #12 (#14) into NaN twice, and against #3 (#10) on the scattered buffer
+    h_nan = [gate_up_into(torch.full((N_pad, F), float("nan"), dtype=torch.bfloat16, device=dev)) for _ in range(2)]
+    h_twin = twins[0](scatter())
+    torch.cuda.synchronize()
+    bits = lambda t: t.view(torch.int16)
+    gate_up_flags = {"into NaN: padding rows 0": all(bool((t[~valid] == 0).all()) for t in h_nan),
+                     "into NaN: two launches bit-equal to the first": all(torch.equal(bits(t), bits(h))
+                                                                          for t in h_nan),
+                     f"bit-equal to {twin_names[0]} on the scattered buffer": torch.equal(bits(h), bits(h_twin))}
+    print(f"  {names[0]} [{label}] {gate_up_flags}")
+    del h_nan, h_twin
     parts = [down(h_ref, torch.full((k, T, D), float("nan"), dtype=torch.bfloat16, device=dev)) for _ in range(2)]
     part = parts[0]
     part_ref = down_plain(h_ref)
@@ -2430,13 +2443,13 @@ def check_fused(gen, group_sizes, T: int, label: str, D=4096, F=14336, q8: bool 
     fused_ms, unfused_ms = time_ms(fused_path), time_ms(unfused_path)
     xs = scatter()
     twin_ms = (time_ms(lambda: twins[0](xs)), time_ms(lambda: twins[1](h_ref)))
-    extra, gate_up_extra = {}, {}
-    if q8:  # the same product in bf16 (#4), and device times of #14, #10, #15, #11 and #4
-        gate_up_extra = dict(device_ms=graph_ms(gate_up), unfused_twin_device_ms=graph_ms(lambda: twins[0](xs)))
-        dst = torch.empty((k, T, D), dtype=torch.bfloat16, device=dev)
-        extra = dict(grouped_down_ms=time_ms(lambda: eg.down_cuda(h_ref, wd_bf16, tg, tr)),
-                     device_ms=graph_ms(lambda: down(h_ref, dst)),
-                     unfused_twin_device_ms=graph_ms(lambda: twins[1](h_ref)),
+    # device times of both kernels and their unfused twins; with q8 also the same product in bf16 (#4)
+    gate_up_extra = dict(device_ms=graph_ms(gate_up), unfused_twin_device_ms=graph_ms(lambda: twins[0](xs)))
+    dst = torch.empty((k, T, D), dtype=torch.bfloat16, device=dev)
+    extra = dict(device_ms=graph_ms(lambda: down(h_ref, dst)),
+                 unfused_twin_device_ms=graph_ms(lambda: twins[1](h_ref)))
+    if q8:
+        extra.update(grouped_down_ms=time_ms(lambda: eg.down_cuda(h_ref, wd_bf16, tg, tr)),
                      grouped_down_device_ms=graph_ms(lambda: eg.down_cuda(h_ref, wd_bf16, tg, tr)))
     touched = sum(1 for g in group_sizes if g)
     scale_bytes = lambda n_w, n_out: touched * n_w * n_out * 2 if q8 else 0
@@ -2460,21 +2473,18 @@ def check_fused(gen, group_sizes, T: int, label: str, D=4096, F=14336, q8: bool 
                    unfused_path_ms=unfused_ms,
                    shape=f"{label}: T={T} k={k} N={N} N_pad={N_pad} D={D} F={F} E={E} groups={list(group_sizes)}"
                          + (" int8 weights" if q8 else ""))
-        side = "padding rows of h zero (q8: also into NaN, bit-equal to #10)" if name == names[0] else \
-            "every partial row written (NaN-filled before), twice bit-equal"
-        more = ""
-        if name == names[0] and gate_up_extra:
-            row.update(gate_up_extra)
-            more = (f"; device: kernel {gate_up_extra['device_ms']:.4f} #10 "
-                    f"{gate_up_extra['unfused_twin_device_ms']:.4f} ms, kernel / #10 "
-                    f"{gate_up_extra['device_ms'] / gate_up_extra['unfused_twin_device_ms']:.3f}, bound / kernel "
-                    f"{b_ms / gate_up_extra['device_ms']:.3f}")
-        if name == names[1] and extra:
-            row.update(extra)
-            more = (f"; #4 (bf16 weights) {extra['grouped_down_ms']:.4f} ms; device: kernel {extra['device_ms']:.4f} "
-                    f"#11 {extra['unfused_twin_device_ms']:.4f} #4 {extra['grouped_down_device_ms']:.4f} ms, "
-                    f"kernel / #4 {extra['device_ms'] / extra['grouped_down_device_ms']:.3f}, bound / kernel "
-                    f"{b_ms / extra['device_ms']:.3f}")
+        side = (f"padding rows of h zero (also into NaN, bit-equal to {twin_names[0]})" if name == names[0] else
+                "every partial row written (NaN-filled before), twice bit-equal")
+        dev_ms = gate_up_extra if name == names[0] else extra
+        twin_name = twin_names[0] if name == names[0] else twin_names[1]
+        row.update(dev_ms)
+        more = (f"; device: kernel {dev_ms['device_ms']:.4f} {twin_name} {dev_ms['unfused_twin_device_ms']:.4f} ms, "
+                f"kernel / {twin_name} {dev_ms['device_ms'] / dev_ms['unfused_twin_device_ms']:.3f}, bound / kernel "
+                f"{b_ms / dev_ms['device_ms']:.3f}")
+        if name == names[1] and q8:
+            more += (f"; #4 (bf16 weights) {extra['grouped_down_ms']:.4f} ms, device "
+                     f"{extra['grouped_down_device_ms']:.4f} ms, kernel / #4 "
+                     f"{extra['device_ms'] / extra['grouped_down_device_ms']:.3f}")
         rows.append(row)
         print(f"  {name} [{label}] err {err:.4g} (rel {rel:.3g}, tol {GG_TOL}) {side} {side_ok} "
               f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms bound {b_ms:.4f} ms ({b_by}); its unfused "

@@ -1,12 +1,11 @@
 // Expert FFN GEMMs with fused SwiGLU for Hopper (sm_90a): twelve entry
-// points. Ten run on the warp-specialised wgmma/TMA mainloop of
-// sm90_gemm.cuh: expert_gate_up (#1), expert_down (#2), grouped_gate_up
-// (#3), grouped_down (#4) and, with int8 weights widened by the header's
-// widening stage, expert_gate_up_q8 (#8), expert_down_q8 (#9),
-// grouped_gate_up_q8 (#10), grouped_down_q8 (#11), grouped_gate_up_fused_q8
-// (#14) and grouped_down_fused_q8 (#15), each with its note below. The
-// other two, the bf16 fused #12 and #13, run on one WMMA tile loop
-// (ffn_kernel). Each entry point has its own launch counter in
+// points, all on the warp-specialised wgmma/TMA mainloop of sm90_gemm.cuh:
+// expert_gate_up (#1), expert_down (#2), grouped_gate_up (#3), grouped_down
+// (#4), grouped_gate_up_fused (#12), grouped_down_fused (#13) and, with
+// int8 weights widened by the header's widening stage, expert_gate_up_q8
+// (#8), expert_down_q8 (#9), grouped_gate_up_q8 (#10), grouped_down_q8
+// (#11), grouped_gate_up_fused_q8 (#14) and grouped_down_fused_q8 (#15),
+// each with its note below. Each entry point has its own launch counter in
 // kernels/expert_gemm.py.
 //
 // Replaces the TPU kernels of src/repro/kernels/expert_gemm.py:
@@ -29,24 +28,23 @@
 // regions are aligned to 128 rows; per 128-row tile, tile_group[t] is its
 // expert and tile_rows[t] its valid rows (computed on the device by the
 // wrapper, as group_tiling does). Rows past the valid count come out zero;
-// a tile (#3, #4, #10, #11, #14) or 64-row half tile (ffn_kernel) with no
-// valid row writes zeros and does no product. Padded: the dense (E, C, D) buffer read in
-// place; every slot r < C is computed (empty slots hold token 0's row and
-// are zeroed by the combine's gate), and no row at or past C is written,
-// so a launch never touches the next expert's rows (#1, #2, #8, #9; the
-// int8 #8/#9 read the scale row of that same padded expert e). Fused (the sorted
-// dispatcher's dispatch-in-kernel path): the sorted mapping's tiles, but
-// the (N_pad, D) buffer never exists. The gate/up kernel gathers row r of
-// its block from the token-major x (T, D) at tok_pad[row0 + r] (padding
-// rows hold token 0 and store zeros: #12 re-reads the last valid row for
-// them, #14 copies nothing into them), and writes h (N_pad, F) as the
-// sorted kernel does. The down kernel reads h in the sorted mapping and
-// stores valid row r, times its fp32 gate gate_pad[row0 + r], rounded to
-// bf16 once, at row row_out[row0 + r] = slot*T + token of a (k*T, D)
-// slot-partials buffer; padding rows and empty half tiles store nothing.
-// Each (slot, token) pair is one row of the buffer, so every row is
-// written exactly once, with no atomics; the wrapper sums the k planes in
-// fp32.
+// a tile with no valid row writes zeros and does no product. Padded: the
+// dense (E, C, D) buffer read in place; every slot r < C is computed
+// (empty slots hold token 0's row and are zeroed by the combine's gate),
+// and no row at or past C is written, so a launch never touches the next
+// expert's rows (#1, #2, #8, #9; the int8 #8/#9 read the scale row of that
+// same padded expert e). Fused (the sorted dispatcher's dispatch-in-kernel
+// path): the sorted mapping's tiles, but the (N_pad, D) buffer never
+// exists. The gate/up kernel gathers row r of its tile from the
+// token-major x (T, D) at tok_pad[row0 + r] (padding rows hold token 0;
+// nothing is copied into them and they store zeros), and writes h (N_pad,
+// F) as the sorted kernel does. The down kernel reads h in the sorted
+// mapping and stores valid row r, times its fp32 gate gate_pad[row0 + r],
+// rounded to bf16 once, at row row_out[row0 + r] = slot*T + token of a
+// (k*T, D) slot-partials buffer; padding rows and empty tiles store
+// nothing. Each (slot, token) pair is one row of the buffer, so every row
+// is written exactly once, with no atomics; the wrapper sums the k planes
+// in fp32.
 //
 // What bounds them on an H100: at decode (a few rows per expert) a kernel
 // must stream each computed expert's weights once: 3*D*F*2 bytes (352 MB
@@ -59,19 +57,6 @@
 // (each row once per output column block, from L2 after the first) and
 // the combine writes k*T*D*2 bytes of partials in place of the sorted
 // buffer's N_pad rows.
-//
-// ffn_kernel (#12, #13; the fused row mapping, bf16 weights): one block
-// per (64-row block, 128 output columns); blocks that share a weight
-// column block are launched next to each other (the row block is the
-// fastest grid dim) so the second reads the weights from L2. The
-// contraction loop streams 32-deep slabs of x and of the weights through
-// shared memory with a two-stage cp.async pipeline and multiplies them
-// with WMMA bf16 16x16x16 into fp32 accumulators. #12 keeps both
-// accumulators and applies silu(g)*u elementwise on the fragments before
-// one fp32 staging pass through shared memory masks the rows and stores
-// bf16. No wgmma, TMA or warp specialisation: its two entry points are
-// ROADMAP queue 2's next redesigns. Its sorted row mapping (#3), its int8
-// branch (#10, #11, #14, #15) and its padded mapping (#8, #9) are gone.
 //
 // expert_down (#2): y[e] = h[e] @ Wd[e]. Bound at decode (C 4) by the
 // weight bytes (940 MB at llama3-e8t2 widths, 0.281 ms at 3.35 TB/s), at
@@ -135,13 +120,29 @@
 // wave) nor a split of F over a cluster was needed. Per block: 154
 // registers at BN 256, 90 at BN 128, no spills; 197,696 B of shared
 // memory at BN 256, 230,512 B at BN 128. Tried and dropped for #1 and
-// #4: nothing; each kept its first design.
+// #4: nothing; each kept its first design. One kernel template,
+// grouped_down_kernel<T, Q8, COMBINE>, serves #4 (<Tile<2, BN, true>,
+// false, false>), #13, #11 and #15; merging #4's kernel into #11's and
+// #15's left all three bit-equal (--digest, PERF.md).
+//
+// grouped_down_fused (#13): partials[row_out[r]] = (h[r] @ Wd[e]) *
+// gate_pad[r] over the sorted row tiles, bf16 weights. Bound by bytes at
+// decode (0.1754 ms) and prefill (0.2520), by operations in training
+// (0.4864). #4's kernel (<Tile<2, 256, true>, false, true>; BN 128 where
+// D is not a multiple of 256) with #15's combine epilogue, without the
+// scale: each valid row's fp32 sums times its fp32 gate, rounded once,
+// stored as bf16 pairs from registers at its row_out row (4-byte stores
+// into scattered rows, as #15's). Padding rows (row_out -1) and empty
+// tiles store nothing; a warpgroup without rows runs nothing. At decode,
+// prefill and in training it runs 0.90-0.98x #4 on the same routing
+// (PERF.md). Per block: 154 registers at BN 256, 90 at BN 128, no spill
+// (as #4); 197,696 B of shared memory at BN 256.
 //
 // grouped_down_fused_q8 (#15): partials[row_out[r]] = (h[r] @ Wd[e] *
 // s_down[e]) * gate_pad[r] over the sorted row tiles, Wd int8. Bound by
 // bytes at decode (5 experts' int8 weights, 294 MB, 0.0877 ms) and at
-// prefill (0.1293 ms). The design (one kernel template with #11,
-// grouped_down_q8_kernel, whose COMBINE epilogue is #15's) is #4's kernel (grid, grouped_tile order,
+// prefill (0.1293 ms). The design (grouped_down_kernel<Q8Tile<256>,
+// true, true>) is #4's kernel (grid, grouped_tile order,
 // clusters of 2, the 64-row h box for tiles whose rows fit one
 // warpgroup) with an int8 B: Wd[e] comes as N-major boxes of 128 columns x
 // 64 F rows through a UINT8 tensor map (8 KB a box, two a slab at BN 256,
@@ -197,7 +198,7 @@
 // 112 column blocks = 560 blocks of 64 slabs (~4.2 waves), ~60% of the
 // byte bound. Per block: 168 registers, 20 B spilled; 230,464 B of shared
 // memory. One kernel template, grouped_gate_up_kernel<T, Q8, GATHER>,
-// serves #10 (<Q8Tile<256>, true, false>), #3 and #14.
+// serves #10 (<Q8Tile<256>, true, false>), #3, #14 and #12.
 //
 // grouped_gate_up (#3): #10's kernel with bf16 weights (<Tile<2, 256,
 // true>, false, false>): a slab's B is #1's four N-major 64-column boxes,
@@ -210,23 +211,39 @@
 // tensor-core peak, as #1 at C 512. Per block: 154 registers, no spill;
 // 197,696 B of shared memory (4 slots of 48 KB, as #4).
 //
-// grouped_gate_up_fused_q8 (#14): #10's kernel (<Q8Tile<256>, true,
-// true>) with row r of a tile read from the token-major x (T, D) at
-// tok_pad[row0 + r] in place of the scattered (N_pad, D) buffer. TMA
-// cannot gather rows on sm_90, so the producer warp's 32 lanes copy the
-// valid rows of each slab's A half by cp.async into the slot's 128B
-// swizzle and arrive on its full barrier, beside lane 0's TMA of the int8
-// weight boxes (produce_gathered; the slot fills on 1 + 32 arrivals).
-// Rows of the slot past the valid count are not copied and are left as
-// they are. The slabs, their order and the epilogue are #10's, so h is
-// bit-equal to #10's on the scattered buffer. Bound by bytes: 0.1841 ms
-// at decode, 0.2605 at prefill (x read once, not the N_pad rows). At
-// decode (up to 3 rows a tile) it runs within ~3% of #10; at prefill
-// (up to 128 rows) ~1.14x #10, the cost of the copies one warp issues.
-// One TMA box of one row a row (a 64 x 1 box at a + 128 r, the 128B
-// swizzle taken from the 1024-aligned slot address) lands right too,
-// bit-equal, but ran 2.1x slower at prefill. Per block: 168 registers, 20
-// B spilled (as #10); 230,464 B of shared memory.
+// grouped_gate_up_fused_q8 (#14): #10's kernel (<Q8Tile<256,
+// GATHER_WARPS>, true, true>) with row r of a tile read from the
+// token-major x (T, D) at tok_pad[row0 + r] in place of the scattered
+// (N_pad, D) buffer. TMA cannot gather rows on sm_90, so two producer
+// warps copy the valid rows of each slab's A half by cp.async, 8 lanes a
+// row, into the slot's 128B swizzle and arrive on its full barrier,
+// beside one thread's TMA of the int8 weight boxes (produce_gathered; the
+// slot fills on 1 + 64 arrivals). Rows of the slot past the valid count
+// are not copied and are left as they are. The slabs, their order and the
+// epilogue are #10's, so h is bit-equal to #10's on the scattered buffer.
+// Bound by bytes: 0.1841 ms at decode, 0.2605 at prefill (x read once,
+// not the N_pad rows). At decode (up to 3 rows a tile) and at prefill (up
+// to 128 rows) it runs ~1.04x #10 (PERF.md). One TMA box of one row a row
+// (a 64 x 1 box at a + 128 r, the 128B swizzle taken from the 1024-aligned
+// slot address) lands right too, bit-equal, but ran 2.1x slower at
+// prefill. Per block (320 threads): 168 registers, 20 B spilled (as #10);
+// 230,464 B of shared memory.
+//
+// grouped_gate_up_fused (#12): #3's kernel (<Tile<2, 256, true, 0, 2,
+// GATHER_WARPS>, false, true>) with #14's gather: row r of a tile is
+// copied from x[tok_pad[row0 + r]] into the slot by the two producer
+// warps, 8 lanes a row (produce_gathered; a slot fills on 1 + 64 arrivals
+// and takes no more bytes), beside one thread's TMA of #3's four bf16
+// weight boxes. consume has no proxy fence, so the consumers run
+// consume_at with a hook that fences the slot (fence_async_smem) after
+// its full barrier and before its first wgmma. Rows of the slot past the
+// valid count are left as they are and stored as zeros. The slabs, their
+// order and the epilogue are #3's, so h is bit-equal to #3's on the
+// scattered buffer. Bound by bytes at decode (0.3593 ms) and prefill
+// (0.5058), by operations in training (0.9728). It runs 0.98x #3 on the
+// same routing at decode and prefill and 1.02-1.06x in training (PERF.md):
+// the two warps' copies hide behind the products. Per block (320
+// threads): 154 registers, no spill (as #3); 197,696 B of shared memory.
 //
 // expert_down_q8 (#9): y[e] = (h[e] @ Wd[e]) * s_down[e], Wd int8, the
 // scale on the fp32 sums, rounded to bf16 once. Bound by bytes at C 4
@@ -276,187 +293,23 @@
 // (sm90_gemm.cuh); the padded decode computes all 8 experts at C 4 (#1,
 // #2, #8, #9: skipping empty ones changes the function, so it needs a
 // per-expert count and a rule for what empty slots hold); a fixed-order
-// split over F for #2 at C 300; the two ffn_kernel entry points (#12,
-// #13) onto the mainloop (#12 as #3 with #14's gather); #14's gather at
-// prefill (two gather warps, or 4 lanes a row, measured 3-5% faster, within
-// twice the spread between turns; not taken); the widening costs
+// split over F for #2 at C 300; what is left of the gather's cost (#14
+// ~1.04x #10, #12 1.02-1.06x #3 in training); the widening costs
 // shared-memory traffic (16 KB read and 32 KB written a slab at BN 256,
 // beside the products' reads) that the products do not fully hide, which
 // holds the int8 kernels above their bf16 twins at prefill and under
 // ~60% of their byte bounds at decode.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <cstdint>
 
 #include "sm90_gemm.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
 constexpr int ROW_TILE = 128;  // metadata granularity (sorted-buffer alignment)
-constexpr int BM = 64;         // rows per block
-constexpr int BN = 128;        // output columns per block
-constexpr int BK = 32;         // contraction slab
-constexpr int THREADS = 256;   // 8 warps: 2 (rows) x 4 (columns), 32x32 each
-constexpr int A_LD = BK + 8;   // padded smem strides (bank spread, 32-byte
-constexpr int B_LD = BN + 8;   // aligned WMMA fragment pointers)
-constexpr int C_LD = BN + 4;
-
-template <int NB>
-struct Pipe {  // two stages of bf16 x and weight slabs
-  bf16 a[2][BM * A_LD];
-  bf16 b[2][NB][BK * B_LD];
-};
-
-template <int NB>
-__host__ __device__ constexpr int smem_bytes() {
-  return sizeof(Pipe<NB>) > BM * C_LD * sizeof(float) ? (int)sizeof(Pipe<NB>) : (int)(BM * C_LD * sizeof(float));
-}
-static_assert(smem_bytes<2>() <= 48 * 1024, "static shared memory above 48 KB");
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-// NB = 2 (#12): out = silu(A@W0[e]) * (A@W1[e]), block row r reading A (T,
-// K) at row row_idx[row0 + r]; NB = 1 (#13): out = A@W0[e], valid row r
-// stored times row_gate[row0 + r] at out row row_idx[row0 + r]. W (E, K,
-// N) bf16; the sorted mapping's tiles through tile_group / tile_rows.
-template <int NB>
-__global__ void __launch_bounds__(THREADS)
-ffn_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W0, const bf16* __restrict__ W1,
-           const int* __restrict__ tile_group, const int* __restrict__ tile_rows,
-           const int* __restrict__ row_idx, const float* __restrict__ row_gate,
-           bf16* __restrict__ out, int K, int N) {
-  constexpr bool GATHER = NB == 2;   // gather prologue (#12)
-  constexpr bool COMBINE = NB == 1;  // combine epilogue (#13)
-  __shared__ __align__(128) unsigned char smem_raw[smem_bytes<NB>()];
-  Pipe<NB>& pipe = *reinterpret_cast<Pipe<NB>*>(smem_raw);
-  float* ctile = reinterpret_cast<float*>(smem_raw);  // epilogue reuses the pipe
-
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.y * BN;
-  const int sub = blockIdx.x;
-  const int tile = sub / (ROW_TILE / BM);
-  const size_t row0 = (size_t)sub * BM;  // first row of this block in A and out
-  int valid = tile_rows[tile] - (sub % (ROW_TILE / BM)) * BM;
-  valid = valid < 0 ? 0 : (valid > BM ? BM : valid);
-  if (valid == 0) {  // empty half tile: no product; zeros, or nothing for the combine
-    if constexpr (!COMBINE) {
-      for (int c = tid; c < BM * BN / 8; c += THREADS) {
-        const int r = c / (BN / 8), col = (c % (BN / 8)) * 8;
-        *reinterpret_cast<uint4*>(out + (row0 + r) * N + n0 + col) = make_uint4(0, 0, 0, 0);
-      }
-    }
-    return;
-  }
-  const int e = tile_group[tile];
-
-  const size_t e_off = (size_t)e * K * N + n0;
-  const bf16* Wb[2] = {W0 + e_off, W1 + e_off};
-  // this thread's x row of every slab: BM x BK = one 16-byte chunk per thread.
-  // Rows past `valid` re-read the last valid row (their results are never
-  // stored as data); the gather reads the row of the block row's token.
-  const int a_r = tid / (BK / 8), a_c = (tid % (BK / 8)) * 8;
-  const int a_rs = a_r < valid ? a_r : valid - 1;
-  const bf16* a_src = GATHER ? A + (size_t)row_idx[row0 + a_rs] * K + a_c : A + (row0 + a_rs) * K + a_c;
-
-  auto load_stage = [&](int stage, int k0) {
-    cp_async16(&pipe.a[stage][a_r * A_LD + a_c], a_src + k0);
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-#pragma unroll
-      for (int i = 0; i < BK * BN / 8 / THREADS; ++i) {
-        const int ch = tid + i * THREADS;
-        const int r = ch / (BN / 8), c = (ch % (BN / 8)) * 8;
-        cp_async16(&pipe.b[stage][nb][r * B_LD + c], Wb[nb] + (size_t)(k0 + r) * N + c);
-      }
-    }
-  };
-
-  const int warp = tid / 32;
-  const int wm = warp / 4, wn = warp % 4;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NB][2][2];
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[nb][i][j], 0.0f);
-
-  const int nk = K / BK;
-  load_stage(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load_stage((kt + 1) & 1, (kt + 1) * BK);
-    cp_async_commit();
-    cp_async_wait<1>();  // slab kt has landed
-    __syncthreads();
-    const int st = kt & 1;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(af[i], &pipe.a[st][(wm * 32 + i * 16) * A_LD + kk], A_LD);
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-          wmma::load_matrix_sync(bfr, &pipe.b[st][nb][kk * B_LD + wn * 32 + j * 16], B_LD);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[nb][i][j], af[i], bfr, acc[nb][i][j]);
-        }
-      }
-    }
-    __syncthreads();  // slab kt consumed before its buffers are refilled
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      if constexpr (NB == 2) {
-        for (int t = 0; t < acc[0][i][j].num_elements; ++t) {
-          const float g = acc[0][i][j].x[t], u = acc[NB - 1][i][j].x[t];
-          acc[0][i][j].x[t] = g / (1.0f + expf(-g)) * u;  // silu(g) * u in fp32
-        }
-      }
-      wmma::store_matrix_sync(&ctile[(wm * 32 + i * 16) * C_LD + wn * 32 + j * 16], acc[0][i][j],
-                              C_LD, wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
-  if constexpr (COMBINE) {  // valid rows only, gate-weighted in fp32, to their slot-partials row
-    for (int c = tid; c < BM * BN / 2; c += THREADS) {
-      const int r = c / (BN / 2), col = (c % (BN / 2)) * 2;
-      if (r >= valid) continue;
-      const float g = row_gate[row0 + r];
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row_idx[row0 + r] * N + n0 + col) =
-          __floats2bfloat162_rn(ctile[r * C_LD + col] * g, ctile[r * C_LD + col + 1] * g);
-    }
-    return;
-  }
-  for (int c = tid; c < BM * BN / 2; c += THREADS) {
-    const int r = c / (BN / 2), col = (c % (BN / 2)) * 2;
-    float v0 = 0.0f, v1 = 0.0f;
-    if (r < valid) {
-      v0 = ctile[r * C_LD + col];
-      v1 = ctile[r * C_LD + col + 1];
-    }
-    *reinterpret_cast<__nv_bfloat162*>(out + (row0 + r) * N + n0 + col) = __floats2bfloat162_rn(v0, v1);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // #2 expert_down: y[e] = h[e] @ Wd[e] on the shared wgmma/TMA mainloop
@@ -634,24 +487,38 @@ int launch_gate_up(const void* xe, const void* w_gate, const void* w_up, void* h
 }
 
 // ---------------------------------------------------------------------------
-// #4 grouped_down: y = h @ Wd[e] over the sorted row tiles on the shared mainloop
+// #4 grouped_down, #11 grouped_down_q8, #13 grouped_down_fused and #15
+// grouped_down_fused_q8: y = h @ Wd[e] over the sorted row tiles on the
+// shared mainloop, one kernel template; int8 Wd widened in shared memory
+// (#11, #15); #13 and #15 end in the gate-weighted combine into the slot
+// partials
 // ---------------------------------------------------------------------------
 
 // h (N_pad, F) in boxes of 64 columns x 128 rows, or x 64 rows for a tile
 // whose valid rows fit the first warpgroup (the idle one's rows are not
-// loaded); Wd (E, F, D) in boxes of 64 D columns x 64 F rows (N-major B)
+// loaded); Wd (E, F, D) in boxes of 64 F rows (N-major B) of 64 bf16 D
+// columns (#4, #13) or of 128 int8 ones (#11, #15: widened by consume_s8)
 struct GroupedDownMaps {
   CUtensorMap h, h64, wd;
 };
 
-// One block per (128-row tile, BN D columns) in grouped_tile order. A
-// tile with no valid row stores zeros and loads nothing; a warpgroup with
-// no valid row runs no product and stores zeros; rows past the valid
-// count store zeros.
-template <class T>
+// One block per (128-row tile, BN D columns) in grouped_tile order. Q8:
+// each slab's int8 boxes are widened to bf16 by all consumer threads (an
+// idle warpgroup's among them) before the active warpgroups' wgmma
+// (sm90::consume_s8), and the fp32 sums are scaled by s_down[e, col] in
+// registers. COMBINE (#13, #15): the epilogue stores only valid rows: row
+// r of the tile, (its sum, scaled where Q8) * gate_pad[row0 + r] in fp32,
+// rounded to bf16 once, at row row_out[row0 + r] of the (k*T, D) partials;
+// an empty tile loads and stores nothing. Otherwise (#4, #11): y at the
+// tile's own rows of (N_pad, D): rows past the valid count, all of an idle
+// warpgroup's among them, store zeros, and an empty tile stores zeros and
+// loads nothing.
+template <class T, bool Q8, bool COMBINE>
 __global__ void __launch_bounds__(T::THREADS, 1)
-grouped_down_kernel(const __grid_constant__ GroupedDownMaps maps, const int* __restrict__ tile_group,
-                    const int* __restrict__ tile_rows, bf16* __restrict__ Y, int F, int D) {
+grouped_down_kernel(const __grid_constant__ GroupedDownMaps maps, const bf16* __restrict__ S,
+                    const int* __restrict__ row_out, const float* __restrict__ gate_pad,
+                    const int* __restrict__ tile_group, const int* __restrict__ tile_rows,
+                    bf16* __restrict__ out, int F, int D) {
   static_assert(T::BM == ROW_TILE && T::B_MN, "one block per row tile, an N-major B");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int tid = threadIdx.x, wg = tid / 128;
@@ -660,87 +527,7 @@ grouped_down_kernel(const __grid_constant__ GroupedDownMaps maps, const int* __r
   const int row0 = tile * T::BM, n0 = cb * T::BN;
   const int valid = min(max(tile_rows[tile], 0), T::BM);
   const int active = (valid + 63) / 64;  // consumer warpgroups with a valid row
-  if (active == 0) {  // empty tile: zeros, no product
-    sm90::store_zeros<T::BM, T::BN>(Y + (size_t)row0 * D + n0, D, T::THREADS);
-    return;
-  }
-  const sm90::Ring<T> ring = sm90::ring_at<T>(smem_raw);
-  if (tid == 0) ring.init(4 * active);
-  __syncthreads();
-  const int n_slabs = F / T::BK;
-  if (wg == T::NWG) {  // the producer warp: one thread issues every copy
-    if (tid == T::CONSUMERS) {
-      const int e = tile_group[tile];
-      const CUtensorMap* a_map = active == 1 ? &maps.h64 : &maps.h;
-      sm90::produce(ring, n_slabs, [&](int i, uint32_t a, uint32_t b, uint32_t bar) {
-        const int k0 = i * T::BK;
-        sm90::tma_load_3d(a, a_map, k0, row0, 0, bar);
-#pragma unroll
-        for (int c = 0; c < T::BN / 64; ++c)
-          sm90::tma_load_3d(b + c * (T::BK * 128), &maps.wd, n0 + 64 * c, k0, e, bar);
-      }, active * 64 * 128 + T::B_BYTES);
-    }
-    return;
-  }
-  float acc[T::BN / 2];
-#pragma unroll
-  for (int i = 0; i < T::BN / 2; ++i) acc[i] = 0.f;
-  if (wg < active) sm90::consume(ring, n_slabs, wg, acc);
-  // rows past the valid count, all of an idle warpgroup's among them, store zeros
-  sm90::store_rows<T, true>(acc, Y + (size_t)(row0 + wg * 64) * D + n0, D, valid - wg * 64);
-}
-
-template <class T>
-int launch_grouped_down(const void* h, const void* w_down, const int* tile_group, const int* tile_rows, void* y,
-                        int n_pad, int f, int d, cudaStream_t s) {
-  static const cudaError_t attr =  // once per process and tile shape
-      cudaFuncSetAttribute(grouped_down_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
-  if (attr != cudaSuccess) return (int)attr;
-  GroupedDownMaps maps;
-  if (reinterpret_cast<uintptr_t>(y) % 16 || !sm90::map_3d(&maps.h, h, f, n_pad, 1, T::BM) ||
-      !sm90::map_3d(&maps.h64, h, f, n_pad, 1, 64) || !sm90::map_3d(&maps.wd, w_down, d, f, sm90::MAX_EXPERTS, 64))
-    return (int)cudaErrorInvalidValue;
-  return sm90::launch_grouped(grouped_down_kernel<T>, (n_pad / T::BM) * (d / T::BN), T::THREADS, T::SMEM, s, maps,
-                              tile_group, tile_rows, (bf16*)y, f, d);
-}
-
-// ---------------------------------------------------------------------------
-// #15 grouped_down_fused_q8 and #11 grouped_down_q8: #4's product with int8
-// weights, widened in shared memory; #15 ends in the gate-weighted combine
-// into the slot partials, #11 in #4's store
-// ---------------------------------------------------------------------------
-
-// h (N_pad, F) as #4 reads it (128- and 64-row boxes); Wd (E, F, D) int8 in
-// boxes of 128 D columns x 64 F rows (N-major B, widened by consume_s8)
-struct DownQ8Maps {
-  CUtensorMap h, h64, wd;
-};
-
-// #4's grid, block order and row boxes. Each slab's int8 boxes are widened
-// to bf16 by all consumer threads (an idle warpgroup's among them) before
-// the active warpgroups' wgmma (sm90::consume_s8). COMBINE (#15): the
-// epilogue stores only valid rows: row r of the tile, (acc * s_down[e, col])
-// * gate_pad[row0 + r] in fp32, rounded to bf16 once, at row row_out[row0 +
-// r] of the (k*T, D) partials; an empty tile loads and stores nothing.
-// Otherwise (#11): y = acc * s_down[e, col] in fp32, rounded once, at the
-// tile's own rows of (N_pad, D), as #4 stores it: rows past the valid count,
-// all of an idle warpgroup's among them, store zeros, and an empty tile
-// stores zeros and loads nothing.
-template <class T, bool COMBINE>
-__global__ void __launch_bounds__(T::THREADS, 1)
-grouped_down_q8_kernel(const __grid_constant__ DownQ8Maps maps, const bf16* __restrict__ S,
-                       const int* __restrict__ row_out, const float* __restrict__ gate_pad,
-                       const int* __restrict__ tile_group, const int* __restrict__ tile_rows,
-                       bf16* __restrict__ out, int F, int D) {
-  static_assert(T::BM == ROW_TILE && T::B_MN, "one block per row tile, an N-major B");
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int tid = threadIdx.x, wg = tid / 128;
-  int tile, cb;
-  sm90::grouped_tile(D / T::BN, tile, cb);
-  const int row0 = tile * T::BM, n0 = cb * T::BN;
-  const int valid = min(max(tile_rows[tile], 0), T::BM);
-  const int active = (valid + 63) / 64;  // consumer warpgroups with a valid row
-  if (active == 0) {  // empty tile: no product; for #15 no row of the partials is its
+  if (active == 0) {  // empty tile: no product; for the combine no row of the partials is its
     if constexpr (!COMBINE) sm90::store_zeros<T::BM, T::BN>(out + (size_t)row0 * D + n0, D, T::THREADS);
     return;
   }
@@ -752,18 +539,19 @@ grouped_down_q8_kernel(const __grid_constant__ DownQ8Maps maps, const bf16* __re
   if (wg == T::NWG) {  // the producer warp: one thread issues every copy
     if (tid == T::CONSUMERS) {
       const CUtensorMap* a_map = active == 1 ? &maps.h64 : &maps.h;
+      constexpr int BOX_COLS = Q8 ? 128 : 64;  // a weight box: 64 rows of 128 bytes either way
       sm90::produce(ring, n_slabs, [&](int i, uint32_t a, uint32_t b, uint32_t bar) {
         const int k0 = i * T::BK;
         sm90::tma_load_3d(a, a_map, k0, row0, 0, bar);
 #pragma unroll
-        for (int c = 0; c < T::BN / 128; ++c)
-          sm90::tma_load_3d(b + c * (T::BK * 128), &maps.wd, n0 + 128 * c, k0, e, bar);
+        for (int c = 0; c < T::BN / BOX_COLS; ++c)
+          sm90::tma_load_3d(b + c * (T::BK * 128), &maps.wd, n0 + BOX_COLS * c, k0, e, bar);
       }, active * 64 * 128 + T::B_BYTES);
     }
     return;
   }
-  if (wg >= active) {  // no row of this warpgroup's: it only widens its share of each slab
-    sm90::widen_slabs(ring, n_slabs);
+  if (wg >= active) {  // no row of this warpgroup's: it widens its share of each slab (int8); zeros, or no store
+    if constexpr (Q8) sm90::widen_slabs(ring, n_slabs);
     if constexpr (!COMBINE)
       sm90::store_zeros<64, T::BN>(out + (size_t)(row0 + wg * 64) * D + n0, D, 128, tid % 128);
     return;
@@ -771,17 +559,24 @@ grouped_down_q8_kernel(const __grid_constant__ DownQ8Maps maps, const bf16* __re
   float acc[T::BN / 2];
 #pragma unroll
   for (int i = 0; i < T::BN / 2; ++i) acc[i] = 0.f;
-  sm90::consume_s8(ring, n_slabs, wg, acc);
+  if constexpr (Q8)
+    sm90::consume_s8(ring, n_slabs, wg, acc);
+  else
+    sm90::consume(ring, n_slabs, wg, acc);
   const int warp = (tid % 128) / 32, g = (tid % 32) / 4, t = tid % 4;
-  const __nv_bfloat162* scale = reinterpret_cast<const __nv_bfloat162*>(S + (size_t)e * D + n0 + 2 * t);
+  // scales of columns n0 + 8j + 2t, +1 at pair 4j (Q8)
+  const __nv_bfloat162* scale =
+      Q8 ? reinterpret_cast<const __nv_bfloat162*>(S + (size_t)e * D + n0 + 2 * t) : nullptr;
   if constexpr (!COMBINE) {
+    if constexpr (Q8) {
 #pragma unroll
-    for (int j = 0; j < T::BN / 8; ++j) {
-      const float2 sc = __bfloat1622float2(scale[4 * j]);
-      acc[4 * j] *= sc.x;  // rows g and g + 8 of columns 8j + 2t, + 1
-      acc[4 * j + 1] *= sc.y;
-      acc[4 * j + 2] *= sc.x;
-      acc[4 * j + 3] *= sc.y;
+      for (int j = 0; j < T::BN / 8; ++j) {
+        const float2 sc = __bfloat1622float2(scale[4 * j]);
+        acc[4 * j] *= sc.x;  // rows g and g + 8 of columns 8j + 2t, + 1
+        acc[4 * j + 1] *= sc.y;
+        acc[4 * j + 2] *= sc.x;
+        acc[4 * j + 3] *= sc.y;
+      }
     }
     sm90::store_rows<T, true>(acc, out + (size_t)(row0 + wg * 64) * D + n0, D, valid - wg * 64);
     return;
@@ -794,90 +589,111 @@ grouped_down_q8_kernel(const __grid_constant__ DownQ8Maps maps, const bf16* __re
     uint32_t* dst = reinterpret_cast<uint32_t*>(out + (size_t)row_out[row0 + r] * D + n0 + 2 * t);
 #pragma unroll
     for (int j = 0; j < T::BN / 8; ++j) {
-      const float2 sc = __bfloat1622float2(scale[4 * j]);
-      dst[4 * j] = sm90::pack_bf16((acc[4 * j + 2 * hh] * sc.x) * gate, (acc[4 * j + 2 * hh + 1] * sc.y) * gate);
+      float lo = acc[4 * j + 2 * hh], hi = acc[4 * j + 2 * hh + 1];
+      if constexpr (Q8) {
+        const float2 sc = __bfloat1622float2(scale[4 * j]);
+        lo *= sc.x;
+        hi *= sc.y;
+      }
+      dst[4 * j] = sm90::pack_bf16(lo * gate, hi * gate);
     }
   }
 }
 
 // Tiles with int8 B slots and three bf16 buffers of a widened slab after
 // the ring (consume_s8): #8-#11, #14, #15
-template <int BN_>
-using Q8Tile = sm90::Tile<2, BN_, true, 3 * BN_ * 64 * 2, 1>;
+template <int BN_, int PRODUCERS_ = 1>
+using Q8Tile = sm90::Tile<2, BN_, true, 3 * BN_ * 64 * 2, 1, PRODUCERS_>;
 
-// #15 (COMBINE: row_out, gate_pad and the (k*T, D) partials) or #11 (y
-// (N_pad, D); row_out and gate_pad unused)
-template <class T, bool COMBINE>
-int launch_down_q8(const void* h, const void* w_down, const void* s_down, const int* row_out, const float* gate_pad,
-                   const int* tile_group, const int* tile_rows, void* out, int n_pad, int f, int d, cudaStream_t s) {
+// producer warps of the gathering kernels #12 and #14 (produce_gathered)
+constexpr int GATHER_WARPS = 2;
+
+// #4 (bf16), #11 (Q8: s_down) -> y (N_pad, D); #13 (COMBINE: row_out,
+// gate_pad), #15 (Q8, COMBINE) -> the (k*T, D) partials. The arguments a
+// kernel does not read are unused.
+template <class T, bool Q8, bool COMBINE>
+int launch_grouped_down(const void* h, const void* w_down, const void* s_down, const int* row_out,
+                        const float* gate_pad, const int* tile_group, const int* tile_rows, void* out, int n_pad,
+                        int f, int d, cudaStream_t s) {
+  const auto kernel = grouped_down_kernel<T, Q8, COMBINE>;
   static const cudaError_t attr =  // once per process and tile shape
-      cudaFuncSetAttribute(grouped_down_q8_kernel<T, COMBINE>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  DownQ8Maps maps;
+  GroupedDownMaps maps;
   if ((!COMBINE && reinterpret_cast<uintptr_t>(out) % 16) || !sm90::map_3d(&maps.h, h, f, n_pad, 1, T::BM) ||
-      !sm90::map_3d(&maps.h64, h, f, n_pad, 1, 64) || !sm90::map_3d(&maps.wd, w_down, d, f, sm90::MAX_EXPERTS, 64, 1))
+      !sm90::map_3d(&maps.h64, h, f, n_pad, 1, 64) ||
+      !sm90::map_3d(&maps.wd, w_down, d, f, sm90::MAX_EXPERTS, 64, Q8 ? 1 : 2))
     return (int)cudaErrorInvalidValue;
-  return sm90::launch_grouped(grouped_down_q8_kernel<T, COMBINE>, (n_pad / T::BM) * (d / T::BN), T::THREADS,
-                              T::SMEM, s, maps, (const bf16*)s_down, row_out, gate_pad, tile_group, tile_rows,
-                              (bf16*)out, f, d);
+  return sm90::launch_grouped(kernel, (n_pad / T::BM) * (d / T::BN), T::THREADS, T::SMEM, s, maps,
+                              (const bf16*)s_down, row_out, gate_pad, tile_group, tile_rows, (bf16*)out, f, d);
 }
 
 // ---------------------------------------------------------------------------
-// #10 grouped_gate_up_q8, #3 grouped_gate_up and #14 grouped_gate_up_fused_q8:
-// #1's g | u product on #4's sorted tiles, one kernel template; int8 Wg and
-// Wu widened in shared memory as #15 widens Wd (#10, #14); #14's A rows
-// gathered from the token-major x into the slot
+// #10 grouped_gate_up_q8, #3 grouped_gate_up, #14 grouped_gate_up_fused_q8
+// and #12 grouped_gate_up_fused: #1's g | u product on #4's sorted tiles,
+// one kernel template; int8 Wg and Wu widened in shared memory as #15
+// widens Wd (#10, #14); #14's and #12's A rows gathered from the
+// token-major x into the slot
 // ---------------------------------------------------------------------------
 
 // xs (N_pad, D) in boxes of 64 columns x 128 rows, or x 64 rows for a tile
-// whose valid rows fit the first warpgroup (#3, #10; #14 gathers its rows
-// and reads no map of x); Wg, Wu (E, D, F) in boxes of 64 D rows (N-major
-// B) of 64 bf16 F columns (#3) or of 128 int8 ones (#10, #14: widened by
-// consume_s8)
+// whose valid rows fit the first warpgroup (#3, #10; #12 and #14 gather
+// their rows and read no map of x); Wg, Wu (E, D, F) in boxes of 64 D rows
+// (N-major B) of 64 bf16 F columns (#3, #12) or of 128 int8 ones (#10,
+// #14: widened by consume_s8)
 struct GateUpSortedMaps {
   CUtensorMap x, x64, wg, wu;
 };
 
-// #14's producer warp: slab i's A half is gathered from the token-major x
-// (T, D), row r < valid of the tile being x[tok[r]][k0 .. k0 + 63]. TMA
-// cannot gather rows on sm_90 (tile::gather4 is sm_100's), so the warp's 32
-// lanes copy them by cp.async, lane l the 8 16-byte chunks of rows l + 32m,
-// into the 128B swizzle the A descriptor reads (chunk c of row r at chunk c
-// ^ (r % 8)), and each lane then arrives on the slot's full barrier (noinc:
-// 1 + 32 arrivals fill a slot). Lane 0 first expects the weight boxes'
-// bytes and issues them by TMA (load_b) against the same barrier. Rows of
-// the slot past the valid count are left as they are: wgmma rows are
-// independent, and those rows are stored as zeros. consume_s8's
-// fence_async_smem, after the full barrier and before the wgmma, makes
-// the copies visible to it. The gathered rows come from L2 after the first
-// of the 112 column blocks of a tile reads them. Measured on the card
-// (PERF.md): a row a lane, with its source found once and the chunks at
-// immediate offsets, beat 8 lanes a row (fewer instructions a copy for the
-// one warp that issues them all) and one TMA box of one row a row (the TMA
-// unit's rate for 128-byte boxes).
+// The producer warps of #14 and #12: slab i's A half is gathered from the
+// token-major x (T, D), row r < valid of the tile being x[tok[r]][k0 .. k0
+// + 63]. TMA cannot gather rows on sm_90 (tile::gather4 is sm_100's), so
+// the GATHER_WARPS warps copy them by cp.async, 8 lanes a row: warp w's
+// lane l copies the 16-byte chunk c = l % 8 of rows w * BM / GATHER_WARPS
+// + l / 8 + 4m, so each instruction reads 4 whole 128-byte rows, into the
+// 128B swizzle the A descriptor reads (chunk c of row r at chunk c ^ (r %
+// 8)); each lane then arrives on the slot's full barrier (noinc: 1 + 32 x
+// GATHER_WARPS arrivals fill a slot). The first producer thread first
+// expects the weight boxes' bytes and issues them by TMA (load_b) against
+// the same barrier. Rows of the slot past the valid count are left as
+// they are: wgmma rows are independent, and those rows are stored as
+// zeros. A fence_async_smem by each consumer thread after the full barrier
+// and before the wgmma makes the copies visible to it (consume_s8's after
+// the widening, #14; a consume_at hook, #12). The gathered rows come from
+// L2 after the first of the 112 column blocks of a tile reads them.
+// Device ms of #12 in training, measured on the card (PERF.md): one warp
+// copying a row a lane (32 rows of 16 bytes an instruction, the other half
+// of each 32-byte sector read by the next) 2.79-2.82 against 2.35 for one
+// warp, 8 lanes a row, in one call (#3 1.72-1.85); in a second call one
+// warp 2.23-2.25, two 1.70-1.74, four 1.68-1.72 (#3 1.67-1.76). Two warps
+// also took #14 at prefill from 0.627 to 0.575-0.583 ms. One TMA box of
+// one row a row (#14) ran 2.1x slower at prefill (the TMA unit's rate for
+// 128-byte boxes).
 template <class T, class LoadB>
 __device__ __forceinline__ void produce_gathered(const sm90::Ring<T>& ring, int n_slabs, const bf16* X,
                                                  const int* tok, int valid, int D, LoadB&& load_b) {
-  const int lane = threadIdx.x % 32;
-  const bf16* src[T::BM / 32];  // rows lane + 32m of x, or nothing past the valid count
+  static_assert(T::BM % (8 * T::PRODUCERS) == 0, "whole 8-row swizzle groups a warp");
+  const int lane = threadIdx.x % 32, c = lane % 8, w = (threadIdx.x - T::CONSUMERS) / 32;
+  const int r0 = w * (T::BM / T::PRODUCERS) + lane / 8;  // r0 % 8 == lane / 8
+  constexpr int M = T::BM / 4 / T::PRODUCERS;
+  const bf16* src[M];  // chunk c of rows r0 + 4m of x, or nothing past the valid count
 #pragma unroll
-  for (int m = 0; m < T::BM / 32; ++m)
-    src[m] = lane + 32 * m < valid ? X + (size_t)tok[lane + 32 * m] * D : nullptr;
+  for (int m = 0; m < M; ++m) src[m] = r0 + 4 * m < valid ? X + (size_t)tok[r0 + 4 * m] * D + 8 * c : nullptr;
+  // chunk c of row r0 + 4m lands at chunk c ^ ((r0 + 4m) % 8) of its 128-byte row
+  const uint32_t sw0 = r0 * 128 + ((c ^ (lane / 8)) * 16), sw1 = r0 * 128 + ((c ^ (lane / 8 + 4)) * 16);
   for (int i = 0; i < n_slabs; ++i) {
     const int s = i % T::STAGES;
     if (i >= T::STAGES) sm90::mbar_wait(ring.empty(s), (i / T::STAGES - 1) & 1);
     const uint32_t full = ring.full(s), a = ring.a(s);
     const int k0 = i * T::BK;
-    if (lane == 0) {
+    if (threadIdx.x == T::CONSUMERS) {
       sm90::mbar_expect_tx(full, T::B_BYTES);
       load_b(ring.b(s), k0, full);
     }
 #pragma unroll
-    for (int m = 0; m < T::BM / 32; ++m) {
+    for (int m = 0; m < M; ++m) {
       if (!src[m]) continue;
-      const uint32_t row = a + (lane + 32 * m) * 128;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) sm90::cp_async_16(row + ((c ^ (lane % 8)) * 16), src[m] + k0 + 8 * c);
+      sm90::cp_async_16(a + (m % 2 ? sw1 : sw0) + 4 * m * 128, src[m] + k0);
     }
     sm90::cp_async_arrive(full);
   }
@@ -885,15 +701,16 @@ __device__ __forceinline__ void produce_gathered(const sm90::Ring<T>& ring, int 
 }
 
 // One block per (128-row tile, 128 h columns) in grouped_tile order. A
-// slab is (xs; Wg[e] | Wu[e]): #1's four 64-column bf16 boxes (#3), or two
+// slab is (xs; Wg[e] | Wu[e]): #1's four 64-column bf16 boxes (#3, #12), or two
 // int8 boxes that widen_s8 turns into those four (#10, #14), so one
 // m64n256 accumulator holds g in columns 0-127 and u in 128-255 (element
 // 4j + e of g and 4(j + 16) + e of u at the same row and column). The
 // epilogue scales each by its column's bf16 scale in fp32 (Q8), applies
 // silu(g) * u and stores bf16 pairs from registers: rows past the valid
 // count, all of an idle warpgroup's among them, store zeros; an empty tile
-// stores zeros and loads nothing. GATHER (#14): row r of the tile is x[
-// tok_pad[row0 + r]] (produce_gathered), and h is stored as #10 stores it.
+// stores zeros and loads nothing. GATHER (#14, #12): row r of the tile is
+// x[tok_pad[row0 + r]] (produce_gathered), and h is stored as #10 (#3)
+// stores it.
 template <class T, bool Q8, bool GATHER>
 __global__ void __launch_bounds__(T::THREADS, 1)
 grouped_gate_up_kernel(const __grid_constant__ GateUpSortedMaps maps, const bf16* __restrict__ s_gate,
@@ -901,7 +718,6 @@ grouped_gate_up_kernel(const __grid_constant__ GateUpSortedMaps maps, const bf16
                        const int* __restrict__ tile_group, const int* __restrict__ tile_rows,
                        bf16* __restrict__ H, int D, int F) {
   static_assert(T::BM == ROW_TILE && T::BN == 2 * GU_BN && T::B_MN, "one block per row tile, g | u side by side");
-  static_assert(Q8 || !GATHER, "the gathered rows are fenced for wgmma by consume_s8");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int tid = threadIdx.x, wg = tid / 128;
   int tile, cb;
@@ -915,7 +731,7 @@ grouped_gate_up_kernel(const __grid_constant__ GateUpSortedMaps maps, const bf16
   }
   const int e = tile_group[tile];
   const sm90::Ring<T> ring = sm90::ring_at<T>(smem_raw);
-  if (tid == 0) ring.init(4 * active, GATHER ? 33 : 1);
+  if (tid == 0) ring.init(4 * active, GATHER ? 1 + 32 * T::PRODUCERS : 1);
   __syncthreads();
   const int n_slabs = D / T::BK;
   // a slab's weight boxes: int8, one of 128 columns each of Wg and Wu; bf16, two of 64 each
@@ -930,7 +746,7 @@ grouped_gate_up_kernel(const __grid_constant__ GateUpSortedMaps maps, const bf16
       sm90::tma_load_3d(b + 3 * T::BK * 128, &maps.wu, n0 + 64, k0, e, bar);
     }
   };
-  if (wg == T::NWG) {  // the producer warp: one thread issues every copy, or all 32 gather
+  if (wg == T::NWG) {  // the producer warps: one thread issues every copy, or all their lanes gather
     if constexpr (GATHER) {
       produce_gathered(ring, n_slabs, X, tok_pad + row0, valid, D, load_b);
     } else if (tid == T::CONSUMERS) {
@@ -951,8 +767,10 @@ grouped_gate_up_kernel(const __grid_constant__ GateUpSortedMaps maps, const bf16
   float gu[T::BN / 2];
 #pragma unroll
   for (int i = 0; i < T::BN / 2; ++i) gu[i] = 0.f;
-  if constexpr (Q8)
+  if constexpr (Q8)  // its fence after the widening also covers a gathered A (#14)
     sm90::consume_s8(ring, n_slabs, wg, gu);
+  else if constexpr (GATHER)  // #12: the copies wrote the slot through the generic proxy; fence them for wgmma
+    sm90::consume_at<T, T::BN, 0, 1>(ring, 0, n_slabs, wg, gu, [](int, int) { sm90::fence_async_smem(); });
   else
     sm90::consume(ring, n_slabs, wg, gu);
   const int rows = valid - wg * 64;  // this warpgroup's valid rows
@@ -980,8 +798,9 @@ grouped_gate_up_kernel(const __grid_constant__ GateUpSortedMaps maps, const bf16
   }
 }
 
-// #10 (Q8: s_gate, s_up), #3 (bf16; the scales unused) or #14 (Q8, GATHER:
-// x (T, D) and tok_pad (n_pad,) in place of xs (n_pad, D)); -> h (n_pad, f)
+// #10 (Q8: s_gate, s_up), #3 (bf16; the scales unused), #14 (Q8, GATHER:
+// x (T, D) and tok_pad (n_pad,) in place of xs (n_pad, D)) or #12 (GATHER,
+// bf16); -> h (n_pad, f)
 template <class T, bool Q8, bool GATHER>
 int launch_gate_up_sorted(const void* x, const void* w_gate, const void* w_up, const void* s_gate, const void* s_up,
                           const int* tok_pad, const int* tile_group, const int* tile_rows, void* h, int n_pad, int d,
@@ -1148,8 +967,6 @@ int launch_gate_up_q8_padded(const void* xe, const void* w_gate, const void* w_u
                           (const bf16*)s_up);
 }
 
-int sorted_blocks(int n_pad) { return n_pad / BM; }
-
 }  // namespace
 
 // xs (n_pad, d) -> h (n_pad, f): the wgmma/TMA kernel above
@@ -1167,8 +984,10 @@ extern "C" int grouped_down(const void* h, const void* w_down, const int* tile_g
   cudaStream_t s = (cudaStream_t)stream;
   if (n_pad % ROW_TILE || f % 64 || d % 128) return (int)cudaErrorInvalidValue;
   return d % 256 == 0
-             ? launch_grouped_down<sm90::Tile<2, 256, true>>(h, w_down, tile_group, tile_rows, y, n_pad, f, d, s)
-             : launch_grouped_down<sm90::Tile<2, 128, true>>(h, w_down, tile_group, tile_rows, y, n_pad, f, d, s);
+             ? launch_grouped_down<sm90::Tile<2, 256, true>, false, false>(h, w_down, nullptr, nullptr, nullptr,
+                                                                          tile_group, tile_rows, y, n_pad, f, d, s)
+             : launch_grouped_down<sm90::Tile<2, 128, true>, false, false>(h, w_down, nullptr, nullptr, nullptr,
+                                                                          tile_group, tile_rows, y, n_pad, f, d, s);
 }
 
 // xe (E, c, d) -> h (E, c, f): the wgmma/TMA kernel above; c <= 64 (decode)
@@ -1231,31 +1050,33 @@ extern "C" int grouped_down_q8(const void* h, const void* w_down, const void* s_
                                const int* tile_rows, void* y, int n_pad, int f, int d, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n_pad % ROW_TILE || f % 64 || d % 128) return (int)cudaErrorInvalidValue;
-  return d % 256 == 0 ? launch_down_q8<Q8Tile<256>, false>(h, w_down, s_down, nullptr, nullptr, tile_group,
-                                                           tile_rows, y, n_pad, f, d, s)
-                      : launch_down_q8<Q8Tile<128>, false>(h, w_down, s_down, nullptr, nullptr, tile_group,
-                                                           tile_rows, y, n_pad, f, d, s);
+  return d % 256 == 0 ? launch_grouped_down<Q8Tile<256>, true, false>(h, w_down, s_down, nullptr, nullptr, tile_group,
+                                                                      tile_rows, y, n_pad, f, d, s)
+                      : launch_grouped_down<Q8Tile<128>, true, false>(h, w_down, s_down, nullptr, nullptr, tile_group,
+                                                                      tile_rows, y, n_pad, f, d, s);
 }
 
-// x (T, d) token-major; tok_pad (n_pad,) source token of each buffer row -> h (n_pad, f)
+// x (T, d) token-major; tok_pad (n_pad,) source token of each buffer row -> h (n_pad, f): the wgmma/TMA
+// kernel above, its A rows gathered into the slot
 extern "C" int grouped_gate_up_fused(const void* x, const void* w_gate, const void* w_up, const int* tok_pad,
                                      const int* tile_group, const int* tile_rows, void* h, int n_pad, int d, int f,
                                      void* stream) {
-  dim3 grid(sorted_blocks(n_pad), f / BN);
-  ffn_kernel<2><<<grid, THREADS, 0, (cudaStream_t)stream>>>((const bf16*)x, (const bf16*)w_gate, (const bf16*)w_up,
-                                                           tile_group, tile_rows, tok_pad, nullptr, (bf16*)h, d, f);
-  return (int)cudaGetLastError();
+  if (n_pad % ROW_TILE || d % 64 || f % GU_BN) return (int)cudaErrorInvalidValue;
+  return launch_gate_up_sorted<sm90::Tile<2, 2 * GU_BN, true, 0, 2, GATHER_WARPS>, false, true>(
+      x, w_gate, w_up, nullptr, nullptr, tok_pad, tile_group, tile_rows, h, n_pad, d, f, (cudaStream_t)stream);
 }
 
-// h (n_pad, f); row_out / gate_pad (n_pad,) -> partials (k*T, d), each row written once
+// h (n_pad, f); row_out / gate_pad (n_pad,) -> partials (k*T, d), each row written once: the wgmma/TMA kernel
+// above, BN 256 where d allows it
 extern "C" int grouped_down_fused(const void* h, const void* w_down, const int* row_out, const float* gate_pad,
                                   const int* tile_group, const int* tile_rows, void* partials, int n_pad, int f,
                                   int d, void* stream) {
-  dim3 grid(sorted_blocks(n_pad), d / BN);
-  ffn_kernel<1><<<grid, THREADS, 0, (cudaStream_t)stream>>>((const bf16*)h, (const bf16*)w_down,
-                                                           (const bf16*)w_down, tile_group, tile_rows, row_out,
-                                                           gate_pad, (bf16*)partials, f, d);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_pad % ROW_TILE || f % 64 || d % 128) return (int)cudaErrorInvalidValue;
+  return d % 256 == 0 ? launch_grouped_down<sm90::Tile<2, 256, true>, false, true>(
+                            h, w_down, nullptr, row_out, gate_pad, tile_group, tile_rows, partials, n_pad, f, d, s)
+                      : launch_grouped_down<sm90::Tile<2, 128, true>, false, true>(
+                            h, w_down, nullptr, row_out, gate_pad, tile_group, tile_rows, partials, n_pad, f, d, s);
 }
 
 // x (T, d) token-major; w_gate/w_up (E, d, f) int8; s_gate/s_up (E, f) bf16; tok_pad (n_pad,) source token of
@@ -1265,8 +1086,9 @@ extern "C" int grouped_gate_up_fused_q8(const void* x, const void* w_gate, const
                                         const int* tile_rows, void* h, int n_pad, int d, int f, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n_pad % ROW_TILE || d % 64 || f % GU_BN) return (int)cudaErrorInvalidValue;
-  return launch_gate_up_sorted<Q8Tile<2 * GU_BN>, true, true>(x, w_gate, w_up, s_gate, s_up, tok_pad, tile_group,
-                                                               tile_rows, h, n_pad, d, f, s);
+  return launch_gate_up_sorted<Q8Tile<2 * GU_BN, GATHER_WARPS>, true, true>(x, w_gate, w_up, s_gate, s_up, tok_pad,
+                                                                             tile_group, tile_rows, h, n_pad, d, f,
+                                                                             s);
 }
 
 // h (n_pad, f); w_down (E, f, d) int8; s_down (E, d) bf16; row_out / gate_pad (n_pad,) -> partials
@@ -1276,8 +1098,8 @@ extern "C" int grouped_down_fused_q8(const void* h, const void* w_down, const vo
                                      void* partials, int n_pad, int f, int d, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n_pad % ROW_TILE || f % 64 || d % 128) return (int)cudaErrorInvalidValue;
-  return d % 256 == 0 ? launch_down_q8<Q8Tile<256>, true>(h, w_down, s_down, row_out, gate_pad, tile_group,
-                                                          tile_rows, partials, n_pad, f, d, s)
-                      : launch_down_q8<Q8Tile<128>, true>(h, w_down, s_down, row_out, gate_pad, tile_group,
-                                                          tile_rows, partials, n_pad, f, d, s);
+  return d % 256 == 0 ? launch_grouped_down<Q8Tile<256>, true, true>(h, w_down, s_down, row_out, gate_pad,
+                                                                     tile_group, tile_rows, partials, n_pad, f, d, s)
+                      : launch_grouped_down<Q8Tile<128>, true, true>(h, w_down, s_down, row_out, gate_pad,
+                                                                     tile_group, tile_rows, partials, n_pad, f, d, s);
 }

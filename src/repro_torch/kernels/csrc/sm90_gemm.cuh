@@ -3,7 +3,8 @@
 // grouped_gate_up (#3), grouped_down (#4) and, with int8 weights,
 // expert_gate_up_q8 (#8), expert_down_q8 (#9), grouped_gate_up_q8 (#10),
 // grouped_down_q8 (#11), grouped_gate_up_fused_q8 (#14) and
-// grouped_down_fused_q8 (#15) in grouped_gemm.cu, and grouped_bwd_dh (#5), grouped_bwd_dx (#6) and
+// grouped_down_fused_q8 (#15), and the bf16 grouped_gate_up_fused (#12) and
+// grouped_down_fused (#13), in grouped_gemm.cu, and grouped_bwd_dh (#5), grouped_bwd_dx (#6) and
 // grouped_bwd_wgrad (#7) in grouped_gemm_bwd.cu. Header only: each .cu
 // that includes it instantiates the tiles it needs; each caller's note
 // gives its design and ptxas's counts. Besides the mainloop it holds what
@@ -410,21 +411,25 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[K][4]) {
 // the tile and its ring
 // ---------------------------------------------------------------------------
 
-// NWG consumer warpgroups of 64 rows, then one producer warp (one thread
-// of it issues the copies). Two consumer warpgroups at most: ptxas holds a
-// block of 9 to 12 warps to 168 registers a thread (one SM sub-partition
-// hosts three of its warps) and one of more than 12 warps to 128, and a
-// consumer thread holds BN / 2 accumulators. B_MN is the B layout of
-// consume(); consume_at() takes its layouts per product. EXTRA bytes of
-// shared memory after the ring, 1024-aligned, are the caller's (#7 stages
-// its output tile there for a TMA store; consume_s8 widens int8 slabs
-// there). B_ELEM 1: a slot holds B in int8 (BN / 128 N-major boxes of 128
-// columns x 64 K rows), for consume_s8.
-template <int NWG_, int BN_, bool B_MN_, int EXTRA_ = 0, int B_ELEM_ = 2>
+// NWG consumer warpgroups of 64 rows, then PRODUCERS producer warps (one
+// thread of the first issues the TMA copies; where the rows of A are
+// gathered by cp.async, #12 and #14, every lane of them copies). Two
+// consumer warpgroups at most: ptxas holds a block of 9 to 12 warps to 168
+// registers a thread (one SM sub-partition hosts three of its warps) and
+// one of more than 12 warps to 128, and a consumer thread holds BN / 2
+// accumulators. B_MN is the B layout of consume(); consume_at() takes its
+// layouts per product. EXTRA bytes of shared memory after the ring,
+// 1024-aligned, are the caller's (#7 stages its output tile there for a
+// TMA store; consume_s8 widens int8 slabs there). B_ELEM 1: a slot holds B
+// in int8 (BN / 128 N-major boxes of 128 columns x 64 K rows), for
+// consume_s8.
+template <int NWG_, int BN_, bool B_MN_, int EXTRA_ = 0, int B_ELEM_ = 2, int PRODUCERS_ = 1>
 struct Tile {
   static constexpr int NWG = NWG_, BM = 64 * NWG_, BN = BN_, BK = 64;
   static constexpr bool B_MN = B_MN_;
-  static constexpr int CONSUMERS = 128 * NWG, THREADS = CONSUMERS + 32;
+  static constexpr int PRODUCERS = PRODUCERS_;
+  static constexpr int CONSUMERS = 128 * NWG, THREADS = CONSUMERS + 32 * PRODUCERS;
+  static_assert(PRODUCERS >= 1 && PRODUCERS <= 4, "producer warps: one warpgroup at most");
   static_assert(NWG == 1 || NWG == 2, "consumer warpgroups");
   static_assert(B_ELEM_ == 2 || (B_ELEM_ == 1 && B_MN_ && BN_ % 128 == 0), "B in bf16, or int8 N-major boxes");
   static constexpr int A_BYTES = BM * BK * 2, B_BYTES = BN * BK * B_ELEM_, STAGE = A_BYTES + B_BYTES;
@@ -447,7 +452,7 @@ struct Ring {
   __device__ uint32_t empty(int s) const { return base + T::BAR + 8 * (T::STAGES + s); }
   // one thread, then __syncthreads: `warps` consumer warps release each
   // slot; `fills` arrivals complete a slot's fill (the producer's expect_tx,
-  // and one a lane where the producer warp's lanes copy with cp.async: #14)
+  // and one a lane where the producer warps' lanes copy with cp.async: #12, #14)
   __device__ void init(int warps, int fills = 1) const {
     for (int s = 0; s < T::STAGES; ++s) {
       mbar_init(full(s), fills);

@@ -3,11 +3,10 @@ for the sorted layout in bf16 (``grouped_gemm``) and int8
 (``grouped_gemm_q8``), the padded layout in bf16 (``expert_gemm``) and int8
 (``expert_gemm_q8``) and the fused dispatch-in-kernel path in bf16
 (``grouped_gemm_fused``) and int8 (``grouped_gemm_fused_q8``). All twelve
-forward kernels live in ``csrc/grouped_gemm.cu``: #1-#4, #8-#11, #14 and
-#15 on the wgmma/TMA mainloop of ``csrc/sm90_gemm.cuh`` (#8-#11, #14 and
-#15 widen their int8 weight slabs to bf16 in shared memory before each
-product; #3, #10 and #14 are one kernel template), the bf16 fused #12 and
-#13 on one WMMA tile loop.
+forward kernels live in ``csrc/grouped_gemm.cu``, on the wgmma/TMA
+mainloop of ``csrc/sm90_gemm.cuh`` (#8-#11, #14 and #15 widen their int8
+weight slabs to bf16 in shared memory before each product; #3, #10, #12
+and #14 are one kernel template, #4, #11, #13 and #15 another).
 
 Sorted, bf16 (``_grouped_fwd_impl``: ``_grouped_gate_up_kernel`` and
 ``_grouped_down_kernel``):
@@ -47,12 +46,17 @@ Fused dispatch (``_fused_fwd_impl``: ``_fused_gate_up_kernel``,
 token-major ``x`` (T, D) and the sorted dispatcher's routing vectors.
 :func:`fused_prefetch` turns them into per-buffer-row tables on the device
 (source token, slot-partials row, fp32 gate). ``grouped_gate_up_fused``
-(#12; ``_q8`` #14, which copies the rows into its shared-memory slots by
-cp.async) gathers each row of its tile from x and writes h (N_pad, F);
-``grouped_down_fused`` (#13; #15) writes each valid
-row times its gate to its (slot, token) row of a (k, T, D) partials
-buffer, which the wrapper sums over k in fp32. :class:`FusedMoe` is its
-autograd node (the JAX ``_fused_moe_p`` ``custom_vjp``): inputs-only
+(#12; ``_q8`` #14) gathers each row of its tile from x and writes h
+(N_pad, F): #3's kernel (#10's for #14) whose two producer warps copy
+the tile's rows into its shared-memory slots by cp.async, 8 lanes a row,
+and whose consumers fence the slot for wgmma before each product, so h
+is bit-equal to #3's (#10's) on the scattered buffer (#12: 154
+registers, no spill; 197,696 B of shared memory). ``grouped_down_fused``
+(#13; #15) is #4's kernel (#11's) with a combine epilogue: each valid
+row's fp32 sums times its gate, rounded once, to its (slot, token) row
+of a (k, T, D) partials buffer, which the wrapper sums over k in fp32
+(#13: 154 registers, no spill; 197,696 B at BN 256). :class:`FusedMoe`
+is its autograd node (the JAX ``_fused_moe_p`` ``custom_vjp``): inputs-only
 residuals, and a backward that takes the VJP of the unfused composition
 through the grouped forward (#3/#4) and backward (#5-#7) kernels.
 
@@ -755,10 +759,42 @@ def _partials(out, k: int, T: int, D: int, h) -> torch.Tensor:
     return out
 
 
-def fused_gate_up_cuda(x, w_gate, w_up, tok_pad, tile_group, tile_rows) -> torch.Tensor:
-    """Launch ``grouped_gate_up_fused`` (#12): x (T, D) -> h (N_pad, F)."""
-    N_pad, D, F = tok_pad.shape[0], x.shape[1], w_gate.shape[2]
-    h = torch.empty((N_pad, F), dtype=x.dtype, device=x.device)
+def _check_tok_pad(what, tok_pad, n_pad, device):
+    if tok_pad.dtype != torch.int32 or tok_pad.device != device or not tok_pad.is_contiguous():
+        raise ValueError(f"{what}: tok_pad must be a contiguous int32 ({n_pad},) tensor on {device}")
+
+
+def _check_combine_rows(what, n_pad, device, row_out, gate_pad):
+    """The down kernels' per-row tables: row_out int32 and gate_pad fp32,
+    contiguous (N_pad,) on the device."""
+    for name, t, dt in (("row_out", row_out, torch.int32), ("gate_pad", gate_pad, torch.float32)):
+        if t.shape != (n_pad,) or t.dtype != dt or t.device != device or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous {dt} ({n_pad},) tensor on {device}")
+
+
+def fused_gate_up_cuda(x, w_gate, w_up, tok_pad, tile_group, tile_rows, out=None) -> torch.Tensor:
+    """Launch ``grouped_gate_up_fused`` (#12) on the current stream: x (T,
+    D) -> h (N_pad, F), row r of h from x[tok_pad[r]], into ``out`` if it
+    is given. Every check runs before the library is loaded; the range of
+    ``tok_pad`` (tokens below T) is the caller's, as ``fused_tables`` makes
+    it, and is not checked on the device."""
+    _check_bf16("grouped_gate_up_fused", x.device, x=x, w_gate=w_gate, w_up=w_up)
+    if x.dim() != 2 or w_gate.dim() != 3 or tok_pad.dim() != 1:
+        raise ValueError(f"grouped_gate_up_fused: x {tuple(x.shape)} must be (T, D), w_gate "
+                         f"{tuple(w_gate.shape)} (E, D, F) and tok_pad {tuple(tok_pad.shape)} (N_pad,)")
+    N_pad, D = tok_pad.shape[0], x.shape[1]
+    E, F = w_gate.shape[0], w_gate.shape[2]
+    if w_gate.shape != (E, D, F) or w_up.shape != (E, D, F):
+        raise ValueError(f"grouped_gate_up_fused: w_gate {tuple(w_gate.shape)} and w_up {tuple(w_up.shape)} for "
+                         f"x {tuple(x.shape)}")
+    if N_pad % ROW_TILE or D % COL_TILE or F % COL_TILE:
+        raise ValueError(f"grouped_gate_up_fused: N_pad={N_pad} must be a multiple of {ROW_TILE}, D={D} and F={F} "
+                         f"of {COL_TILE}")
+    _check_tok_pad("grouped_gate_up_fused", tok_pad, N_pad, x.device)
+    _check_tiles("grouped_gate_up_fused", N_pad // ROW_TILE, x.device, tile_group=tile_group, tile_rows=tile_rows)
+    _check_out("grouped_gate_up_fused", out, (N_pad, F), x)
+    h = torch.empty((N_pad, F), dtype=x.dtype, device=x.device) if out is None else out
+    _check_tma("grouped_gate_up_fused", x=x, w_gate=w_gate, w_up=w_up, out=h)
     lib = _build.load("grouped_gemm", _SIGS)
     _build.check(lib.grouped_gate_up_fused(
         x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), tok_pad.data_ptr(), tile_group.data_ptr(),
@@ -772,10 +808,21 @@ def fused_down_cuda(h, w_down, row_out, gate_pad, tile_group, tile_rows, k: int,
                     out=None) -> torch.Tensor:
     """Launch ``grouped_down_fused`` (#13): h (N_pad, F) -> slot partials
     (k, T, D), every row written exactly once (so ``torch.empty``; ``out``,
-    a contiguous (k, T, D) tensor of h's dtype, is written in its place)."""
+    a contiguous (k, T, D) tensor of h's dtype, is written in its place).
+    Every check runs before the library is loaded."""
+    _check_bf16("grouped_down_fused", h.device, h=h, w_down=w_down)
+    if h.dim() != 2 or w_down.dim() != 3 or w_down.shape[1] != h.shape[1]:
+        raise ValueError(f"grouped_down_fused: h {tuple(h.shape)} must be (N_pad, F) and w_down "
+                         f"{tuple(w_down.shape)} (E, F, D)")
     N_pad, F = h.shape
     D = w_down.shape[2]
+    if N_pad % ROW_TILE or F % COL_TILE or D % COL_TILE:
+        raise ValueError(f"grouped_down_fused: N_pad={N_pad} must be a multiple of {ROW_TILE}, F={F} and D={D} "
+                         f"of {COL_TILE}")
+    _check_combine_rows("grouped_down_fused", N_pad, h.device, row_out, gate_pad)
+    _check_tiles("grouped_down_fused", N_pad // ROW_TILE, h.device, tile_group=tile_group, tile_rows=tile_rows)
     partials = _partials(out, k, T, D, h)
+    _check_tma("grouped_down_fused", h=h, w_down=w_down, out=partials)
     lib = _build.load("grouped_gemm", _SIGS)
     _build.check(lib.grouped_down_fused(
         h.data_ptr(), w_down.data_ptr(), row_out.data_ptr(), gate_pad.data_ptr(), tile_group.data_ptr(),
@@ -806,9 +853,7 @@ def fused_gate_up_q8_cuda(x, w_gate, w_up, s_gate, s_up, tok_pad, tile_group, ti
     if N_pad % ROW_TILE or D % COL_TILE or F % COL_TILE:
         raise ValueError(f"grouped_gate_up_fused_q8: N_pad={N_pad} must be a multiple of {ROW_TILE}, D={D} and "
                          f"F={F} of {COL_TILE}")
-    if tok_pad.dtype != torch.int32 or tok_pad.device != x.device or not tok_pad.is_contiguous():
-        raise ValueError(f"grouped_gate_up_fused_q8: tok_pad must be a contiguous int32 ({N_pad},) tensor on "
-                         f"{x.device}")
+    _check_tok_pad("grouped_gate_up_fused_q8", tok_pad, N_pad, x.device)
     _check_tiles("grouped_gate_up_fused_q8", N_pad // ROW_TILE, x.device, tile_group=tile_group,
                  tile_rows=tile_rows)
     _check_out("grouped_gate_up_fused_q8", out, (N_pad, F), x)
@@ -841,10 +886,7 @@ def fused_down_q8_cuda(h, w_down, s_down, row_out, gate_pad, tile_group, tile_ro
     if N_pad % ROW_TILE or F % COL_TILE or D % COL_TILE:
         raise ValueError(f"grouped_down_fused_q8: N_pad={N_pad} must be a multiple of {ROW_TILE}, F={F} and D={D} "
                          f"of {COL_TILE}")
-    for name, t, dt in (("row_out", row_out, torch.int32), ("gate_pad", gate_pad, torch.float32)):
-        if t.shape != (N_pad,) or t.dtype != dt or t.device != h.device or not t.is_contiguous():
-            raise ValueError(f"grouped_down_fused_q8: {name} must be a contiguous {dt} ({N_pad},) tensor on "
-                             f"{h.device}")
+    _check_combine_rows("grouped_down_fused_q8", N_pad, h.device, row_out, gate_pad)
     _check_tiles("grouped_down_fused_q8", N_pad // ROW_TILE, h.device, tile_group=tile_group, tile_rows=tile_rows)
     partials = _partials(out, k, T, D, h)
     _check_tma("grouped_down_fused_q8", h=h, w_down=w_down, out=partials)

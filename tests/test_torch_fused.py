@@ -446,3 +446,64 @@ def test_fused_down_q8_good_args_reach_the_library(monkeypatch, out):
     with pytest.raises(AssertionError, match="reached past"):
         teg.fused_down_q8_cuda(a["h"], a["w_down"], a["s_down"], a["row_out"], a["gate_pad"], a["tile_group"],
                                a["tile_rows"], a["k"], a["T"], out=a["out"])
+
+
+def _fused_down_args(**faults):
+    """The fused bf16 down kernel #13's wrapper arguments: #15's with a bf16
+    w_down and no scale, each replaced by ``faults[name]`` where given."""
+    args = _fused_q8_down_args(w_down=torch.zeros((2, 128, 256), dtype=torch.bfloat16))
+    del args["s_down"]
+    args.update(faults)
+    return args
+
+
+_FUSED_DOWN_FAULTS = {
+    **{key: t for key, t in _FUSED_Q8_FAULTS.items() if key[0] not in ("w_down", "s_down")},
+    ("h", "rows"): torch.zeros((200, 128), dtype=torch.bfloat16),
+    ("w_down", "shape"): torch.zeros((2, 256, 256), dtype=torch.bfloat16),
+    ("w_down", "width"): torch.zeros((2, 128, 64), dtype=torch.bfloat16),
+    ("w_down", "rank"): torch.zeros((128, 256), dtype=torch.bfloat16),
+    ("w_down", "dtype"): torch.zeros((2, 128, 256), dtype=torch.int8),
+    ("w_down", "layout"): torch.zeros((2, 128, 512), dtype=torch.bfloat16)[..., ::2],
+    ("w_down", "device"): torch.zeros((2, 128, 256), dtype=torch.bfloat16, device="meta"),
+    ("w_down", "align"): _misaligned((2, 128, 256), torch.bfloat16),
+    ("row_out", "device"): torch.zeros(256, dtype=torch.int32, device="meta"),
+    ("gate_pad", "layout"): torch.zeros(512)[::2],
+    ("tile_group", "dtype"): torch.zeros(2, dtype=torch.int64),
+}
+
+
+def _fused_down(a):
+    return teg.fused_down_cuda(a["h"], a["w_down"], a["row_out"], a["gate_pad"], a["tile_group"], a["tile_rows"],
+                               a["k"], a["T"], out=a["out"])
+
+
+@pytest.mark.parametrize("arg,fault", sorted(_FUSED_DOWN_FAULTS))
+def test_fused_down_args_checked_before_any_library(monkeypatch, arg, fault):
+    """A wrong input or ``out=`` of the fused bf16 down kernel #13's wrapper
+    (dtype, shape, layout, device, or a base off the 16-byte boundary that
+    TMA needs) raises ValueError from the argument checks, before a library
+    is loaded or a stream looked up."""
+    from repro_torch.kernels import _build
+
+    def forbidden(*_a, **_k):
+        raise AssertionError("reached past the argument checks")
+
+    monkeypatch.setattr(_build, "load", forbidden)
+    monkeypatch.setattr(torch.cuda, "current_stream", forbidden)
+    with pytest.raises(ValueError, match="grouped_down_fused:|fused down: out"):
+        _fused_down(_fused_down_args(**{arg: _FUSED_DOWN_FAULTS[(arg, fault)]}))
+
+
+@pytest.mark.parametrize("out", [False, True])
+def test_fused_down_good_args_reach_the_library(monkeypatch, out):
+    """Arguments the kernel takes (with or without ``out=``) pass every
+    check of #13's wrapper and reach the library load."""
+    from repro_torch.kernels import _build
+
+    def forbidden(*_a, **_k):
+        raise AssertionError("reached past the argument checks")
+
+    monkeypatch.setattr(_build, "load", forbidden)
+    with pytest.raises(AssertionError, match="reached past"):
+        _fused_down(_fused_down_args(out=torch.zeros((2, 64, 256), dtype=torch.bfloat16) if out else None))
