@@ -148,11 +148,39 @@ Phases (each failure exits non-zero; nothing is swallowed):
    6's, every kernel call of one more step is held against its plain
    version, every parameter (the routers through the gates) gets a
    finite nonzero gradient, and the one-layer small-input gradient gate
-   holds with fused dispatch.
+   holds with fused dispatch;
+10. checkpoint and resume — prints ``df -h`` of the temp directory and
+   ``free -g``; (a) the train CLI in process (smoke llama3-8b upcycled to
+   8 experts, top-2, dropless sorted, kernels on) from a dense
+   ``--from-ckpt`` that ``save_checkpoint`` wrote: ``--steps 4
+   --ckpt-every 2`` continued by ``--resume --steps 6``; a ``--steps 6``
+   run stopped after its step-4 checkpoint (17 corrupt batches at the
+   ``data.batch`` fault site) and resumed must end with every leaf
+   bit-equal to a straight ``--steps 6`` run's; ``--supervise`` with two
+   ``train.step`` loss spikes must skip twice and roll back once; (b)
+   llama3-e8t2 cut to one layer at full width (2.502 B parameters, 35 GB
+   of training state): a dense llama3-8b cut to one layer, drawn from the
+   seed, through ``save_checkpoint`` and ``upcycle_on_load`` must equal
+   ``upcycle_params`` of the same tree; the Trainer (kernels, remat, 1 x
+   2048 tokens) takes 4 steps with an async checkpoint at step 2 (one
+   save: the disk holds one); the live state's per-leaf CRC32s at step 2
+   must equal the manifest's, as must those of the state
+   ``restore_train_state`` gives a fresh Trainer; step 3 is run twice from
+   the checkpoint, and if it is bit-reproducible the resumed steps 3-4
+   must equal the straight run's losses and final CRCs bit for bit (else
+   within 4x the loss spread of two straight runs); the kernels must
+   launch as in phase 6; the save's bytes, blocked, write, verify and
+   restore seconds and the step time with and without a write in flight
+   are printed beside the card; (c) the training trajectory: 8 steps of
+   ``small_grad_check``'s config through the kernels and through their
+   plain versions, whose distance (max |loss| difference, relative L2 of
+   the params) must be within 4x that of two plain runs whose start
+   differs by one bf16 rounding.
 
 ``--phases 1,2`` stops after the build and the kernel checks; ``--phases
 1,6`` is the quick look at training, ``--phases 1,8`` at full-depth int8
-serving, ``--phases 1,9`` at fused dispatch. ``--digest SRC`` prints a
+serving, ``--phases 1,9`` at fused dispatch, ``--phases 1,10`` at
+checkpointing. ``--digest SRC`` prints a
 SHA-256 of every expert GEMM's and the flash forward's outputs on seeded
 inputs for the kernels of the tree whose ``src`` is SRC; ``--times SRC``
 prints the device and host-inclusive times of #16 at phase 2's lengths,
@@ -2657,10 +2685,437 @@ def train_fused(seed: int, layers: int = 2, steps: int = 8, seq: int = 2048, pha
                           launches_per_step=per_step, device_busy_share=busy, small_grad_rel_err=grad_err)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: checkpoint and resume
+# ---------------------------------------------------------------------------
+
+TRAJECTORY_FACTOR = 4.0  # kernels' distance from the plain trajectory, in spreads of two plain runs
+NUDGE = 2.0 ** -8  # one bf16 rounding: the second plain run starts from every parameter x (1 + NUDGE)
+CRC_THREADS = 6
+STAGE_BYTES = 256 << 20  # pinned staging buffer per CRC thread
+_STAGES: list = []
+
+
+def leaf_crcs(tree) -> dict:
+    """Per-leaf CRC32 of a checkpoint tree (tensors, numpy arrays): the
+    CRC a manifest records for the bytes it stores (bf16 as its uint16
+    bits), computed from host copies. Device leaves go through a pinned
+    staging buffer per thread, in chunks; zlib releases the GIL, so the
+    threads hash in parallel."""
+    import threading
+    import zlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.sharded import flatten_tree
+
+    flat = flatten_tree(tree)
+    if not _STAGES and any(isinstance(v, torch.Tensor) and v.is_cuda for v in flat.values()):
+        _STAGES.extend(torch.empty(STAGE_BYTES, dtype=torch.uint8, pin_memory=True) for _ in range(CRC_THREADS))
+    free, lock = list(_STAGES), threading.Lock()
+
+    def crc(item):
+        key, leaf = item
+        if not isinstance(leaf, torch.Tensor):
+            return key, zlib.crc32(np.ascontiguousarray(leaf))
+        src = leaf.detach().contiguous().reshape(-1).view(torch.uint8)
+        if src.device.type == "cpu":
+            return key, zlib.crc32(src.numpy())
+        with lock:
+            stage = free.pop()
+        try:
+            value = 0
+            for s in range(0, src.numel(), STAGE_BYTES):
+                n = min(STAGE_BYTES, src.numel() - s)
+                stage[:n].copy_(src[s:s + n])
+                value = zlib.crc32(stage[:n].numpy(), value)
+            return key, value
+        finally:
+            with lock:
+                free.append(stage)
+
+    items = sorted(flat.items(), key=lambda kv: -getattr(kv[1], "nbytes", 0))  # largest first
+    with ThreadPoolExecutor(CRC_THREADS) as pool:
+        return dict(pool.map(crc, items))
+
+
+def manifest_crcs(manifest) -> dict:
+    return {k: e["shards"][0]["crc32"] for k, e in manifest["leaves"].items()}
+
+
+def host_memory_line() -> str:
+    return subprocess.run(["free", "-g"], check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+def disk_line(path) -> str:
+    return subprocess.run(["df", "-h", str(path)], check=True, capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+
+
+def checkpoint_cli(seed: int, tmp: Path) -> dict:
+    """Phase 10 (a): the train CLI in process on the smoke config, kernels
+    on, from a dense ``--from-ckpt`` that ``save_checkpoint`` wrote. A run
+    of ``--steps 4 --ckpt-every 2`` is continued by ``--resume --steps 6``;
+    a ``--steps 6`` run stopped after its step-4 checkpoint (17 corrupt
+    batches at the ``data.batch`` site exhaust the skip budget) and resumed
+    must end bit for bit where a straight ``--steps 6`` run does (``--steps``
+    sets the cosine schedule's length, so the ``--steps 4`` run follows
+    another schedule); then ``--supervise`` with two ``train.step`` loss
+    spikes must skip twice and roll back once."""
+    import warnings
+
+    import torch
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.config import get_config, smoke_config
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models.model import model_decl
+    from repro_torch.params import init_from_decls
+    from repro_torch.resilience import DataCorruptionError, FaultSpec, faults
+    from repro_torch.train.callbacks import AnomalySupervisor
+    from repro_torch.train.state import state_to_tree
+
+    dense_cfg = smoke_config(get_config("llama3-8b"))
+    dense = str(tmp / "dense")
+    save_checkpoint(dense, init_from_decls(model_decl(dense_cfg), seed, "cuda"))
+    base = ["--arch", "llama3-8b", "--smoke", "--upcycle", "8", "--top-k", "2", "--cf", "-1", "--dispatcher",
+            "sorted", "--use-kernel", "--from-ckpt", dense, "--seed", str(seed), "--ckpt-every", "2"]
+
+    def cli(*extra):
+        argv = base + list(extra)
+        print(f"[10] python -m repro_torch.launch.train {' '.join(argv)}")
+        return train_main(argv)
+
+    cli("--steps", "4", "--save-ckpt", str(tmp / "a"))
+    cont = cli("--steps", "6", "--save-ckpt", str(tmp / "a"), "--resume")
+    if cont.state.step != 6:
+        raise SystemExit(f"--resume --steps 6 ended at step {cont.state.step}")
+    straight = cli("--steps", "6", "--save-ckpt", str(tmp / "b"))
+    print("[10] (the next run is stopped after its step-4 checkpoint by 17 corrupt batches)")
+    with faults.inject(FaultSpec("data.batch", "corrupt_batch", at=4, count=17)), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        try:
+            cli("--steps", "6", "--save-ckpt", str(tmp / "c"), "--blocking-ckpt")
+            raise SystemExit("the corrupt batches did not stop the run")
+        except DataCorruptionError:
+            pass
+    resumed = cli("--steps", "6", "--save-ckpt", str(tmp / "c"), "--resume")
+    same = leaf_crcs(state_to_tree(resumed.state)) == leaf_crcs(state_to_tree(straight.state))
+    print(f"  CLI: stopped at step 4 and resumed to 6 vs straight 6 steps: every leaf bit-equal: {same}")
+    if not same:
+        raise SystemExit("the resumed CLI run is not the straight run")
+    with faults.inject(FaultSpec("train.step", "loss_spike", at=6, count=2, args={"shift": 1e5})) as inj:
+        sup_run = cli("--steps", "10", "--save-ckpt", str(tmp / "d"), "--supervise", "--rollback-after", "2")
+    sup = next(cb for cb in sup_run.callbacks if isinstance(cb, AnomalySupervisor))
+    print(f"  CLI --supervise: spikes fired {inj.fired}; skips {sup.skips}, rollbacks {sup.rollbacks}, "
+          f"interventions {[(i['kind'], i['step']) for i in sup.interventions]}")
+    if (sup.skips, sup.rollbacks) != (2, 1):
+        raise SystemExit("the supervisor did not skip twice and roll back once")
+    torch.cuda.synchronize()
+    return dict(resume_bit_equal=same, supervise_skips=sup.skips, supervise_rollbacks=sup.rollbacks)
+
+
+def trajectory_check(seed: int, steps: int = 8) -> dict:
+    """Phase 10 (c): the training trajectory over ``steps`` steps on
+    ``small_grad_check``'s config (smoke llama3-e8t2, 1 layer, batch 2 x
+    128), through the kernels and through their plain versions; a second
+    plain run starts from every parameter x (1 + 2^-8), one bf16 rounding.
+    The kernels' distance from the plain trajectory (max |loss| difference
+    over the steps; relative L2 of all parameters after the last step) must
+    be within TRAJECTORY_FACTOR x the two plain runs' spread."""
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.data.pipeline import make_train_iter
+    from repro_torch.models.model import model_decl
+    from repro_torch.params import init_from_decls, tree_leaves, tree_map
+    from repro_torch.train.callbacks import LoggingCallback
+    from repro_torch.train.trainer import Trainer
+
+    cfg = moe_train_config(1, smoke=True)
+    tcfg = TrainConfig(global_batch=2, seq_len=128, lr=3e-4, lr_min=3e-6, warmup_steps=1, total_steps=steps,
+                       seed=seed, log_every=1)
+    start = init_from_decls(model_decl(cfg), seed, "cuda")
+
+    def run(params, kernels: bool):
+        tr = Trainer(cfg, tcfg, params=params, use_kernel=True,
+                     data_iter=make_train_iter(cfg.vocab_size, 128, 2, tcfg.blend_ratio, seed))
+        with contextlib.nullcontext() if kernels else plain_kernels():
+            tr.run(steps, callbacks=[LoggingCallback(log=lambda m: None, log_every=1)])
+        return [r["loss"] for r in tr.history], torch.cat([t.detach().float().reshape(-1) for t in tree_leaves(tr.params)])
+
+    kern, plain = run(start, True), run(start, False)
+    nudged = run(tree_map(lambda t: (t.float() * (1 + NUDGE)).to(t.dtype), start), False)
+
+    def dist(a, b):
+        return (max(abs(x - y) for x, y in zip(a[0], b[0])),
+                float((a[1] - b[1]).norm() / b[1].norm()))
+
+    (loss_d, param_d), (loss_s, param_s) = dist(kern, plain), dist(nudged, plain)
+    print(f"  trajectory ({steps} steps, smoke llama3-e8t2, 1 layer, batch 2 x 128): kernels vs plain: max |loss| "
+          f"diff {loss_d:.4g}, params rel L2 {param_d:.4g}; plain vs plain from a start x (1 + 2^-8): {loss_s:.4g}, "
+          f"{param_s:.4g} (gate {TRAJECTORY_FACTOR:g}x); losses kernels {[round(x, 5) for x in kern[0]]}, plain "
+          f"{[round(x, 5) for x in plain[0]]}, nudged {[round(x, 5) for x in nudged[0]]}")
+    if not (loss_d <= TRAJECTORY_FACTOR * loss_s and param_d <= TRAJECTORY_FACTOR * param_s):
+        raise SystemExit("the kernels' training trajectory leaves the plain versions' spread")
+    return dict(loss_dist=loss_d, param_dist=param_d, loss_spread=loss_s, param_spread=param_s,
+                kernel_losses=kern[0], plain_losses=plain[0], nudged_losses=nudged[0])
+
+
+def checkpoint_resume(seed: int, tmp: Path, steps: int = 4, seq: int = 2048):
+    """Phase 10 (b): llama3-e8t2 cut to one layer at full width (dropless
+    sorted, kernels on, remat, 1 x ``seq`` tokens). A dense llama3-8b cut
+    to one layer is drawn from the seed and written with
+    ``save_checkpoint``; ``upcycle_on_load`` of it must equal
+    ``upcycle_params`` of the same dense tree. The Trainer takes ``steps``
+    steps with an async CheckpointCallback that saves at step 2 only (the
+    disk holds one 35 GB checkpoint); the live state's per-leaf CRC32s at
+    step 2, from host copies, must equal the manifest's, and so must those
+    of the state ``restore_train_state`` puts into a fresh Trainer after
+    the first is freed. A second read of the checkpoint runs step 3 again:
+    if that step is bit-reproducible, steps 3-``steps`` from the restored
+    state must equal the straight run's losses and final per-leaf CRC32s
+    bit for bit; if not, a second straight run measures the loss spread,
+    and the resumed losses must be within TRAJECTORY_FACTOR x of it."""
+    import gc
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import manager as ckpt_manager
+    from repro_torch.checkpoint import restore_tree, save_checkpoint, upcycle_on_load
+    from repro_torch.config import TrainConfig, get_config
+    from repro_torch.core.upcycle import upcycle_params
+    from repro_torch.data.pipeline import make_train_iter
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import model_decl
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.params import init_from_decls, tree_leaves
+    from repro_torch.train.callbacks import Callback, CheckpointCallback, LoggingCallback
+    from repro_torch.train.state import TrainState, restore_train_state, state_to_tree, tree_to_state
+    from repro_torch.train.trainer import Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    dense_cfg = get_config("llama3-8b").replace(num_layers=1)
+    cfg = moe_train_config(1)
+    total, _ = cfg.param_counts()
+    tcfg = TrainConfig(global_batch=1, seq_len=seq, lr=3e-4, lr_min=3e-6, warmup_steps=1, total_steps=steps + 2,
+                       seed=seed, log_every=1)
+    data = lambda: make_train_iter(cfg.vocab_size, seq, 1, tcfg.blend_ratio, seed)  # noqa: E731
+    quiet = lambda m: None  # noqa: E731
+
+    # the dense parent through save_checkpoint and upcycle_on_load
+    dense = init_from_decls(model_decl(dense_cfg), seed, dev)
+    t0 = time.perf_counter()
+    save_checkpoint(str(tmp / "dense"), dense)
+    dense_s = time.perf_counter() - t0
+    dense_bytes = sum(f.stat().st_size for f in (tmp / "dense").iterdir())
+    with torch.no_grad():
+        ref = upcycle_params(dense_cfg, cfg, dense, seed)
+    del dense
+    t0 = time.perf_counter()
+    params, _ = upcycle_on_load(str(tmp / "dense"), dense_cfg, cfg, seed=seed)
+    torch.cuda.synchronize()
+    upcycle_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(params), tree_leaves(ref)))
+    print(f"  {cfg.name} cut to 1 layer: {total / 1e9:.3f} B params; dense llama3-8b (1 layer) by save_checkpoint: "
+          f"{dense_bytes} bytes in {dense_s:.3f} s ({dense_bytes / dense_s / 1e9:.3f} GB/s); upcycle_on_load "
+          f"{upcycle_s:.3f} s, equal to upcycle_params of the same dense tree, every leaf bit for bit: {same}")
+    if not same:
+        raise SystemExit("upcycle_on_load differs from upcycle_params")
+    del ref
+    state_bytes = sum(t.numel() * (t.element_size() + 12) for t in tree_leaves(params))  # + fp32 master, m, v
+    free = shutil.disk_usage(tmp).free
+    print(f"  full training state {state_bytes / 1e9:.3f} GB; {free / 1e9:.1f} GB free under {tmp}")
+    if free < 1.1 * state_bytes:
+        raise SystemExit("the temp directory cannot hold one full-state checkpoint")
+
+    class TimedManager(ckpt_manager.CheckpointManager):
+        """The manager, timing its writer: shard files, manifest and commit
+        (``write_s``), and the deep verification for retention
+        (``verify_s``)."""
+
+        write_s = verify_s = 0.0
+
+        def _write(self, snaps, step, meta):
+            t = time.perf_counter()
+            super()._write(snaps, step, meta)
+            self.write_s = time.perf_counter() - t - self.verify_s
+
+        def _step_verified(self, step):
+            t = time.perf_counter()
+            ok = super()._step_verified(step)
+            self.verify_s += time.perf_counter() - t
+            return ok
+
+    class SaveOnce(CheckpointCallback):
+        """Saves at step ``every`` only."""
+
+        def on_step_end(self, trainer, step, metrics, dt):
+            if step == self.every:
+                self.save_now(trainer, step)
+
+    class AtSave(Callback):
+        """The live state's CRCs right after the save at step 2 (the
+        writer thread runs meanwhile), and whether the write is still in
+        flight after the last step."""
+
+        crcs, crc_s, in_flight = None, 0.0, None
+
+        def on_step_end(self, trainer, step, metrics, dt):
+            if step == 2:
+                t = time.perf_counter()
+                self.crcs = leaf_crcs(state_to_tree(trainer.state))
+                self.crc_s = time.perf_counter() - t
+            if step == steps:
+                self.in_flight = ckpt.manager._thread is not None and ckpt.manager._thread.is_alive()
+
+    run_dir = tmp / "run"
+    ckpt = SaveOnce(str(run_dir), every=2, keep_last=1)
+    ckpt.manager = mgr = TimedManager(str(run_dir), keep_last=1)
+    at_save = AtSave()
+    log = LoggingCallback(log=lambda m: print("  " + m), log_every=1)
+    trainer = Trainer(cfg, tcfg, state=TrainState(0, params, adamw_init(params), torch.Generator(device=dev)),
+                      data_iter=data(), use_kernel=True)
+    del params
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.run(steps, callbacks=[log, ckpt, at_save])  # on_run_end joins the writer
+    run_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    straight = [r["loss"] for r in trainer.history]
+    durations = list(log.durations)
+    final = leaf_crcs(state_to_tree(trainer.state))
+    blocked_s = ckpt.blocked_s[0]
+    manifest = ckpt_manager.read_manifest(str(run_dir / "step_00000002"))
+    ckpt_bytes = sum(s["bytes"] for e in manifest["leaves"].values() for s in e["shards"])
+    print(f"  save at step 2: {ckpt_bytes} bytes in {len(manifest['leaves'])} leaves; blocked in save "
+          f"{blocked_s:.3f} s (the host copy); writer thread: write {mgr.write_s:.3f} s "
+          f"({ckpt_bytes / mgr.write_s / 1e9:.3f} GB/s), deep verify {mgr.verify_s:.3f} s "
+          f"({ckpt_bytes / mgr.verify_s / 1e9:.3f} GB/s); live-state CRCs at step 2 {at_save.crc_s:.3f} s; write "
+          f"still in flight after step {steps}: {at_save.in_flight}; {steps} steps + save + join {run_s:.3f} s")
+    live_ok = at_save.crcs == manifest_crcs(manifest)
+    print(f"  live state at step 2 vs the manifest: every leaf's CRC32 equal: {live_ok}")
+    if not live_ok:
+        raise SystemExit("the checkpoint does not hold the state at its step")
+    crc_s, in_flight = at_save.crc_s, at_save.in_flight
+    del trainer, log, ckpt, at_save
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def resume(state, n):
+        """(per-step CRCs, losses, durations) of ``n`` steps from a restored
+        step-2 state, with the data iterator the manifest restores."""
+        tr = Trainer(cfg, tcfg, state=state, data_iter=data().restore(manifest["meta"]["data_state"]),
+                     use_kernel=True)
+        crcs, ds = [], []
+        for _ in range(n):
+            lg = LoggingCallback(log=quiet, log_every=1)
+            tr.run(1, callbacks=[lg])
+            crcs.append(leaf_crcs(state_to_tree(tr.state)))
+            ds += lg.durations
+        return crcs, [r["loss"] for r in tr.history], ds
+
+    t0 = time.perf_counter()
+    state, manifest = restore_train_state(str(run_dir), cfg, step=2)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restored_ok = leaf_crcs(state_to_tree(state)) == manifest_crcs(manifest)
+    print(f"  restore_train_state for a fresh Trainer (deep verify + memory-mapped read + copy to the card) "
+          f"{restore_s:.3f} s ({ckpt_bytes / restore_s / 1e9:.3f} GB/s); the restored state's CRC32s equal the "
+          f"manifest's: {restored_ok}")
+    if not restored_ok:
+        raise SystemExit("the restored state is not the saved one")
+    resumed_crcs, resumed, resumed_d = resume(state, steps - 2)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tree, _ = restore_tree(str(run_dir), step=2, verify=False)
+    state = tree_to_state(tree, cfg, dev)
+    del tree
+    torch.cuda.synchronize()
+    reread_s = time.perf_counter() - t0
+    probe_crcs, probe, probe_d = resume(state, 1)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    reproducible = probe == resumed[:1] and probe_crcs[0] == resumed_crcs[0]
+    print(f"  probe: step 3 twice from the step-2 checkpoint (second read without verify, {reread_s:.3f} s): losses "
+          f"{probe[0]!r}, {resumed[0]!r}; every leaf's CRC32 equal after it: {probe_crcs[0] == resumed_crcs[0]}; "
+          f"bit-reproducible: {reproducible}")
+    bit_equal = resumed == straight[2:] and resumed_crcs[-1] == final
+    print(f"  resumed steps 3-{steps} vs the straight run: losses {resumed} vs {straight[2:]}; final per-leaf CRC32s "
+          f"equal: {resumed_crcs[-1] == final}; bit-equal: {bit_equal}")
+    spread = None
+    if reproducible and not bit_equal:
+        raise SystemExit("the resumed run is not the straight run, although one step is bit-reproducible")
+    if not reproducible:
+        params, _ = upcycle_on_load(str(tmp / "dense"), dense_cfg, cfg, seed=seed)
+        again = Trainer(cfg, tcfg, state=TrainState(0, params, adamw_init(params), torch.Generator(device=dev)),
+                        data_iter=data(), use_kernel=True)
+        del params
+        again.run(steps, callbacks=[LoggingCallback(log=quiet, log_every=1)])
+        spread = max(abs(a["loss"] - b) for a, b in zip(again.history[2:], straight[2:]))
+        dist = max(abs(a - b) for a, b in zip(resumed, straight[2:]))
+        del again
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  not bit-reproducible: resumed vs straight max |loss| diff {dist:.4g}; two straight runs "
+              f"{spread:.4g} (gate {TRAJECTORY_FACTOR:g}x)")
+        if not dist <= TRAJECTORY_FACTOR * spread:
+            raise SystemExit("the resumed run leaves the spread of two straight runs")
+    ms = lambda ds: 1e3 * sum(ds) / len(ds)  # noqa: E731
+    # without a write: step 2, and the resumed run's steps after its first
+    # (a fresh Trainer's first step pays the allocator's warm-up)
+    with_write, without = ms(durations[2:]), ms(durations[1:2] + resumed_d[1:])
+    print(f"  step ms {[round(1e3 * d, 3) for d in durations]} (step 1 warm-up), resumed "
+          f"{[round(1e3 * d, 3) for d in resumed_d]}, probe {[round(1e3 * d, 3) for d in probe_d]}; steady "
+          f"{with_write:.3f} ms with the write in flight (steps 3-{steps}), {without:.3f} ms without (step 2 and "
+          f"resumed steps 4-{steps}); {card_line()}")
+    expect = {"grouped_gate_up": 2, "grouped_down": 2, "flash_fwd": 2,
+              **{k: 1 for k in ("grouped_bwd_dh", "grouped_bwd_dx", "grouped_bwd_wgrad", "flash_bwd_dq",
+                                "flash_bwd_dkv")}}
+    if {k: v for k, v in launches.items() if v} != {k: n * steps for k, n in expect.items()}:
+        raise SystemExit(f"launches over {steps} steps {launches}, expected {expect} per step")
+    return launches, dict(
+        params=total, dense_bytes=dense_bytes, dense_save_s=dense_s, upcycle_on_load_s=upcycle_s,
+        checkpoint_bytes=ckpt_bytes, leaves=len(manifest["leaves"]), blocked_s=blocked_s, write_s=mgr.write_s,
+        verify_s=mgr.verify_s, live_crc_s=crc_s, write_in_flight_after_last_step=in_flight, restore_s=restore_s,
+        reread_s=reread_s, step_ms=[1e3 * d for d in durations], resumed_step_ms=[1e3 * d for d in resumed_d],
+        probe_step_ms=[1e3 * d for d in probe_d], ms_with_write=with_write, ms_without_write=without,
+        reproducible=reproducible, bit_equal=bit_equal, loss_spread=spread, losses=straight, resumed_losses=resumed,
+        disk_free_bytes=free)
+
+
+def checkpoint_phase(seed: int):
+    """Phase 10: (a) the train CLI's checkpoint flags at smoke size, (b)
+    checkpoint, restore and resume at full width, one layer, (c) the
+    training trajectory over 8 steps. The temp directories are removed at
+    the end; every failure propagates."""
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        print(disk_line(tmp))
+        print(host_memory_line())
+        print("[10] (a) the train CLI: --from-ckpt, --ckpt-every, --resume, --supervise (smoke config, kernels on)")
+        cli = checkpoint_cli(seed, tmp / "cli")
+        shutil.rmtree(tmp / "cli")
+        print("[10] (b) checkpoint and resume llama3-e8t2 at full width, 1 layer (upcycled on load, kernels on)")
+        launches, stats = checkpoint_resume(seed, tmp / "full")
+        shutil.rmtree(tmp / "full")
+        print("[10] (c) the training trajectory: kernels vs plain versions over 8 steps")
+        return launches, {"cli": cli, **stats, "trajectory": trajectory_check(seed)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9", help="comma list of phases to run")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10", help="comma list of phases to run")
     ap.add_argument("--digest", metavar="SRC", help="only print digests() of the port under SRC (a tree's src "
                                                       "directory) and exit: run it on two trees to compare outputs")
     ap.add_argument("--times", metavar="SRC", help="only print kernel_times() of the port under SRC and exit: run "
@@ -2820,6 +3275,10 @@ def main(argv=None) -> int:
         fused_launches, fused_stats["serve"] = serve_fused(args.seed)
         print("[9] (c) train llama3-e8t2 (upcycled, 2 layers) with fused dispatch, kernels on")
         fused_train_launches, fused_stats["train"] = train_fused(args.seed, phase6_peak=train_stats.get("peak_bytes"))
+    ckpt_launches, ckpt_stats = {}, {}
+    if 10 in phases:
+        print("[10] checkpoint and resume")
+        ckpt_launches, ckpt_stats = checkpoint_phase(args.seed)
 
     sources = {
         "grouped_gate_up": ("src/repro_torch/kernels/csrc/grouped_gemm.cu", "src/repro/kernels/expert_gemm.py:335"),
@@ -2857,7 +3316,8 @@ def main(argv=None) -> int:
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": next((d[name] for d in (launches, train_launches, padded_launches, int8_launches,
-                                                fused_launches, int8_fused_launches, int8_padded_launches)
+                                                fused_launches, int8_fused_launches, int8_padded_launches,
+                                                ckpt_launches)
                               if d.get(name)), 0),
             "max_abs_err": k.get("max_abs_err"),
             "ms": k.get("ms"), "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
@@ -2876,11 +3336,13 @@ def main(argv=None) -> int:
                                                ("fused_ring", fused_launches),
                                                ("fused_train", fused_train_launches),
                                                ("fused_int8_full_depth", int8_fused_launches),
-                                               ("padded_int8_full_depth", int8_padded_launches))}}}))
+                                               ("padded_int8_full_depth", int8_padded_launches),
+                                               ("checkpoint_train", ckpt_launches))}}}))
     print(json.dumps({"serve": stats}))
     print(json.dumps({"train": train_stats}))
     print(json.dumps({"padded": padded_stats}))
     print(json.dumps({"fused": fused_stats}))
+    print(json.dumps({"checkpoint": ckpt_stats}))
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

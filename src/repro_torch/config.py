@@ -154,7 +154,8 @@ class ModelConfig:
 class TrainConfig:
     """Training run hyperparameters (paper §4.2 defaults, scaled); see
     ``repro.config.TrainConfig``. ``zero1`` waits for the multi-GPU item;
-    ``ckpt_every``/``ckpt_dir`` for checkpointing (ROADMAP queue 1 item 7)."""
+    ``ckpt_every`` adds full-state checkpoints into ``ckpt_dir`` to the
+    Trainer's default callbacks."""
 
     global_batch: int = 32
     seq_len: int = 512

@@ -5,6 +5,8 @@
 converted FFN is copied into each of the N experts, the router is drawn
 fresh, everything else is carried over as it is. With the Mixtral router
 the upcycled model's first forward equals the dense one.
+``upcycle_provenance`` is the block an upcycled run records in its
+checkpoint manifests.
 """
 from __future__ import annotations
 
@@ -22,6 +24,25 @@ def upcycle_config(dense, moe, name: Optional[str] = None):
         family="moe",
         moe=moe,
     )
+
+
+def upcycle_provenance(dense_cfg, moe_cfg, source_ckpt: Optional[str] = None) -> Dict[str, Any]:
+    """Provenance recorded in the full-state checkpoint manifests of an
+    upcycled run. On ``--resume`` the launcher restarts from the latest MoE
+    TrainState instead of upcycling the dense source again: the upcycle is
+    a one-time init, not part of the resume path."""
+    m = moe_cfg.moe
+    assert m is not None
+    return {
+        "upcycled": True,
+        "dense_config": dense_cfg.name,
+        "moe_config": moe_cfg.name,
+        "num_experts": m.num_experts,
+        "top_k": m.top_k,
+        "capacity_factor": m.capacity_factor,
+        "router_type": m.router_type,
+        "source_ckpt": source_ckpt,
+    }
 
 
 def upcycle_params(dense_cfg, moe_cfg, dense_params: Dict[str, Any], seed: int) -> Dict[str, Any]:

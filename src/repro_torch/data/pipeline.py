@@ -12,8 +12,8 @@ Every batch is validated (token ids in range, float fields finite); a
 corrupt batch is skipped with a warning and its index recorded in
 ``state()["skipped"]``, up to ``skip_budget``; past it the iterator raises
 :class:`repro_torch.resilience.DataCorruptionError`. Skipped batches still
-consume the bit-generator stream. Not here yet: the ``data.batch`` fault
-site (ROADMAP queue 1, fault sites).
+consume the bit-generator stream. The ``data.batch`` fault site corrupts
+a drawn batch (an out-of-range token), so the skip path runs on demand.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.resilience import DataCorruptionError
+from repro_torch.resilience import DataCorruptionError, faults
 
 
 @dataclasses.dataclass
@@ -135,6 +135,12 @@ class TrainIterator:
             b = self._draw()
             idx = self._batches
             self._batches += 1
+            for spec in faults.fire("data.batch"):
+                if spec.kind == "corrupt_batch":
+                    b = dict(b)
+                    toks = b["tokens"].copy()
+                    toks.flat[0] = spec.args.get("value", self.ds.vocab_size + 7)
+                    b["tokens"] = toks
             err = self._validate(b)
             if err is None:
                 return b

@@ -61,8 +61,10 @@ def embed_decl(padded_vocab: int, d_model: int, tie: bool) -> Dict[str, ParamDec
 
 
 def embed_apply(params, tokens: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
-    # cast-then-gather rows: the same values as casting the whole table
-    return params["embedding"][tokens.long()].to(dtype)
+    # gather-then-cast rows: the same values as casting the whole table.
+    # F.embedding, not indexing: indexing's backward accumulates repeated
+    # tokens in a thread-dependent order on the CPU (not bit-reproducible)
+    return F.embedding(tokens.long(), params["embedding"]).to(dtype)
 
 
 def unembed_apply(params, x: torch.Tensor) -> torch.Tensor:

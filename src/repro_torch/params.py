@@ -155,6 +155,8 @@ def params_from_numpy(tree, device: Union[str, torch.device] = "cuda") -> Tree:
     dev = resolve_device(device)
 
     def conv(a):
+        if isinstance(a, torch.Tensor):
+            return a.detach().to(dev)
         a = np.array(a)  # a writable contiguous copy (JAX hands out read-only views)
         if a.dtype.name == "bfloat16":
             return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(dev)
@@ -176,32 +178,33 @@ def params_to_numpy(tree) -> Tree:
 
 
 def train_state_from_numpy(tree, device: Union[str, torch.device] = "cuda", cfg=None):
-    """Carry a training state as a nested dict of numpy arrays (``{"step",
-    "rng", "params", "opt": {"step", "master", "m", "v"}}``: the JAX
-    package's ``state_to_tree(state)`` through ``np.asarray``, or the port's
-    own ``train.state.state_to_tree``) into the port's ``TrainState`` on
-    ``device``, extending :func:`params_from_numpy`. Leaves keep their
-    dtypes (a JAX bf16 leaf arrives as bf16); with ``cfg`` the params take
-    the dtypes ``model_decl(cfg)`` declares (the port's ``state_to_tree``
-    hands bf16 leaves over as float32). ``rng``: a two-word JAX key seeds
-    the generator; a port generator state (bytes) is restored as is."""
+    """Carry a training state as a nested dict (``{"step", "rng",
+    "params", "opt": {"step", "master", "m", "v"}}``: the JAX package's
+    ``state_to_tree(state)`` through ``np.asarray``, a restored checkpoint
+    tree, or the port's own ``train.state.state_to_tree``) into the port's
+    ``TrainState`` on ``device``, extending :func:`params_from_numpy`.
+    Leaves keep their dtypes (a JAX bf16 leaf arrives as bf16); with
+    ``cfg`` the params and the optimizer trees take the key order of
+    ``model_decl(cfg)`` (AdamW pairs their leaves in order).
+    ``rng_state``, where present and of the generator's size, is restored
+    as it is; otherwise the two-word ``rng`` key seeds the generator."""
     from repro_torch.optim.adamw import AdamWState
     from repro_torch.train.state import TrainState
 
     dev = resolve_device(device)
     params = params_from_numpy(tree["params"], dev)
+    o = tree["opt"]
+    opt = [tree_map(lambda t: t.float(), params_from_numpy(o[k], dev)) for k in ("master", "m", "v")]
     if cfg is not None:
+        # the declaration's key order for all four trees: AdamW zips their leaves
         from repro_torch.models.model import model_decl
 
-        params = tree_map(lambda d, t: t.to(d.dtype), model_decl(cfg), params)
-    o = tree["opt"]
-    rng = np.asarray(tree["rng"])
+        decl = model_decl(cfg)
+        params, *opt = (tree_map(lambda d, t: t, decl, t) for t in [params] + opt)
+    words = torch.as_tensor(tree["rng"]).reshape(-1).tolist()
     gen = torch.Generator(device=dev)
-    if rng.dtype == np.uint8 and rng.size > 2:
-        gen.set_state(torch.from_numpy(rng.copy()))
-    else:
-        words = rng.astype(np.uint64).reshape(-1)
-        gen.manual_seed(int(words[0]) << 32 | int(words[-1]))
-    opt = AdamWState(int(o["step"]), *(tree_map(lambda t: t.float(), params_from_numpy(o[k], dev))
-                                       for k in ("master", "m", "v")))
-    return TrainState(int(tree["step"]), params, opt, gen)
+    gen.manual_seed(int(words[0]) << 32 | int(words[-1]))
+    rng_state = tree.get("rng_state")
+    if rng_state is not None and torch.as_tensor(rng_state).numel() == gen.get_state().numel():
+        gen.set_state(torch.as_tensor(rng_state).to("cpu", torch.uint8))
+    return TrainState(int(tree["step"]), params, AdamWState(int(o["step"]), *opt), gen)

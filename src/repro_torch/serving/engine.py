@@ -20,9 +20,10 @@ fused dispatch (``fused_dispatch=True`` with ``use_kernel``: the sorted
 dispatcher's gather and combine inside the grouped-GEMM kernels, bf16 or
 int8). Greedy decode over both backends gives the same tokens. Like the
 JAX engine, it stores ``greedy`` and never reads it: every token is an
-argmax, also with ``greedy=False``. Not ported yet, and raising
-``NotImplementedError``: the EP x DP mesh mode and the ``serving.step``
-fault site with its step watchdog (``step_timeout_s``).
+argmax, also with ``greedy=False``. ``step`` carries the ``serving.step``
+fault site (a hang) and the step watchdog: with ``step_timeout_s`` a step
+over its wall budget raises :class:`HangError`. Not ported yet, and
+raising ``NotImplementedError``: the EP x DP mesh mode.
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ from repro_torch.config import ModelConfig, with_dispatcher
 from repro_torch.core.quant import quantize_params
 from repro_torch.models.model import cache_decl, decode_step, decode_step_paged, paged_forward, prefill_forward
 from repro_torch.params import init_from_decls, resolve_device, tree_map
-from repro_torch.resilience import ShedError
+from repro_torch.resilience import HangError, ShedError, faults
 from repro_torch.serving.kv_cache import (
     PagePool,
     copy_pages,
@@ -90,13 +91,8 @@ class ServingEngine:
         fused_dispatch: bool = False,
         device: Union[str, torch.device] = "cuda",
     ):
-        unported = {
-            "mesh (ROADMAP queue 1, 'multi-GPU')": mesh is not None,
-            "step_timeout_s (fault sites and step watchdog, ROADMAP queue 1)": step_timeout_s is not None,
-        }
-        asked = [k for k, v in unported.items() if v]
-        if asked:
-            raise NotImplementedError(f"{', '.join(asked)} not ported yet")
+        if mesh is not None:
+            raise NotImplementedError("mesh (ROADMAP queue 1, 'Multi-GPU') not ported yet")
         if cache_mode not in ("ring", "paged"):
             raise ValueError(f"unknown cache_mode {cache_mode!r}")
         if prefix_cache and cache_mode != "paged":
@@ -140,6 +136,7 @@ class ServingEngine:
         self.deadline_steps = deadline_steps
         self.max_queue = max_queue
         self.shed_watermark = shed_watermark
+        self.step_timeout_s = step_timeout_s  # step watchdog (None = off)
         self.shed_count = 0  # ring-mode max_queue sheds (paged: the scheduler's)
         self.use_kernel = use_kernel
         self.cache_mode = cache_mode
@@ -253,8 +250,20 @@ class ServingEngine:
 
     # -- main loop ----------------------------------------------------------
     def step(self) -> int:
-        """One engine step. Returns the number of active requests."""
-        return self._step_paged() if self.cache_mode == "paged" else self._step_ring()
+        """One engine step. Returns the number of active requests. The
+        ``serving.step`` fault site can inject a hang here; with
+        ``step_timeout_s`` a step over its wall budget raises
+        :class:`HangError`."""
+        t0 = time.perf_counter()
+        for spec in faults.fire("serving.step"):
+            if spec.kind == "hang":
+                time.sleep(spec.args.get("seconds", 2.0 * (self.step_timeout_s or 0.05)))
+        n = self._step_paged() if self.cache_mode == "paged" else self._step_ring()
+        dt = time.perf_counter() - t0
+        if self.step_timeout_s is not None and dt > self.step_timeout_s:
+            raise HangError(f"serving step exceeded its {self.step_timeout_s:.3f}s wall budget ({dt:.3f}s) — hung "
+                            "device or wedged host")
+        return n
 
     @torch.inference_mode()
     def _step_ring(self) -> int:

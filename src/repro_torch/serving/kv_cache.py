@@ -13,11 +13,12 @@ the JAX one (``tests/test_torch_kv_cache.py``).
 The host side is :class:`PagePool` (per-shard free lists, which pages each
 request owns, refcounted shared pages) and :class:`PrefixCache` (a radix
 trie of full-page token runs over shared pages): plain Python, copied
-from the JAX package with two differences — the ``serving.alloc`` fault
-site waits for the fault-injection slice, and :meth:`PrefixCache.insert`
+from the JAX package with one difference: :meth:`PrefixCache.insert`
 does not graft a request's pages under a cached page the request does not
 reference (the JAX package does, which breaks its own refcount invariant;
-see ROADMAP queue 3). The device helpers work in place on torch tensors.
+see ROADMAP queue 3). ``PagePool.alloc`` carries the ``serving.alloc``
+fault site (a transient ``alloc_fail``). The device helpers work in place
+on torch tensors.
 
 Logical KV slot ``j`` of a request maps to ``pool[table[j // page_size], j %
 page_size]``; pages never wrap. A sliding-window config releases pages that
@@ -33,6 +34,7 @@ import torch
 from repro_torch.models.model import paged_stack_decl
 from repro_torch.models.transformer import build_slots, periods_for
 from repro_torch.params import init_from_decls, torch_dtype, tree_leaves, tree_map
+from repro_torch.resilience import faults
 
 
 class PagePool:
@@ -200,6 +202,11 @@ class PagePool:
             return []
         free = self._free[shard]
         if n > len(free) + self.evictable_in(shard):
+            return None
+        if any(s.kind == "alloc_fail" for s in faults.fire("serving.alloc")):
+            # transient exhaustion: the contract of a dry pool (None, no
+            # partial effect), so the scheduler's preemption and stall
+            # paths handle it
             return None
         if n > len(free):
             self._reclaim(shard, n - len(free))

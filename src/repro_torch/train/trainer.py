@@ -7,8 +7,10 @@ plain function that computes the gradients with ``torch.autograd.grad``
 and updates params and optimizer state in place. A guarded step decides
 before the update (one device-to-host read), so a skipped step touches
 nothing, as the JAX ``jnp.where`` selection leaves everything bitwise
-unchanged. Not here yet: the ``train.step`` fault site, checkpoint
-callbacks and the supervisor's rollback (ROADMAP queue 1 item 7).
+unchanged. The ``train.step`` fault site injects NaN gradients, a loss
+spike or a hang through the guard's knobs; checkpointing and the anomaly
+supervisor's rollback are callbacks (``train/callbacks.py``), and
+``tcfg.ckpt_every`` adds a :class:`CheckpointCallback` to the defaults.
 """
 from __future__ import annotations
 
@@ -23,26 +25,28 @@ from repro_torch.models.model import loss_fn
 from repro_torch.optim.adamw import AdamWState, adamw_update, grad_sumsq
 from repro_torch.optim.schedule import cosine_schedule
 from repro_torch.params import tree_leaves
-from repro_torch.resilience import HangError
-from repro_torch.train.callbacks import Callback, LoggingCallback
+from repro_torch.resilience import HangError, faults
+from repro_torch.train.callbacks import Callback, CheckpointCallback, LoggingCallback
 from repro_torch.train.state import TrainState, create_train_state
 
 METRIC_KEYS = ("loss", "ce", "load_balance_loss", "z_loss")
-_CKPT = "checkpointing is ROADMAP queue 1 item 7"
 
 
 def make_train_step(cfg, tcfg, use_kernel: bool = False):
-    """Returns ``step(params, opt_state, batch, gen, loss_ceiling=None) ->
-    (params, opt_state, metrics)``; params and opt_state are updated in place.
+    """Returns ``step(params, opt_state, batch, gen, loss_ceiling=None,
+    grad_scale=1.0, loss_shift=0.0) -> (params, opt_state, metrics)``;
+    params and opt_state are updated in place.
 
     With ``cfg.train_microbatches = m > 1`` the batch is split into m
     sequential microbatches whose grads are accumulated in fp32 and averaged
     before one optimizer update. A ``loss_ceiling`` arms the anomaly guard:
-    the update is skipped (params and ``opt_state.step`` untouched) when the
-    loss or the grad norm is non-finite or the loss exceeds the ceiling;
-    ``metrics["skipped"]`` reports the verdict. The JAX guard's
-    ``grad_scale``/``loss_shift`` knobs serve only the ``train.step`` fault
-    site and come with it (ROADMAP queue 1 item 7)."""
+    grads are scaled by ``grad_scale`` and the observed loss shifted by
+    ``loss_shift`` (identity by default; the ``train.step`` fault site uses
+    them to inject NaN grads or a loss spike), and the update is skipped
+    (params and ``opt_state.step`` untouched) when the observed loss or the
+    grad norm is non-finite or the loss exceeds the ceiling.
+    ``metrics["skipped"]`` reports the verdict and ``metrics["loss"]`` the
+    observed loss."""
     m = cfg.train_microbatches
 
     def grads_of(params, leaves, batch, gen):
@@ -52,7 +56,7 @@ def make_train_step(cfg, tcfg, use_kernel: bool = False):
         return grads, {k: metrics[k].detach() for k in METRIC_KEYS}
 
     def step(params, opt_state: AdamWState, batch: Dict[str, torch.Tensor], gen,
-             loss_ceiling: Optional[float] = None):
+             loss_ceiling: Optional[float] = None, grad_scale: float = 1.0, loss_shift: float = 0.0):
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
@@ -76,15 +80,17 @@ def make_train_step(cfg, tcfg, use_kernel: bool = False):
             metrics = {k: v / m_eff for k, v in met_acc.items()}
         else:
             grads, metrics = grads_of(params, leaves, batch, gen)
+        if loss_ceiling is not None and grad_scale != 1.0:
+            grads = [g * grad_scale for g in grads]
         lr = cosine_schedule(opt_state.step, tcfg.lr, tcfg.lr_min, tcfg.warmup_steps, tcfg.total_steps)
         sumsq = grad_sumsq(grads)
         gnorm = torch.sqrt(sumsq)
         metrics = {**metrics, "lr": lr, "grad_norm": gnorm}
         bad = False
         if loss_ceiling is not None:
-            loss = metrics["loss"]
+            loss = metrics["loss"] + loss_shift
             bad = bool(~torch.isfinite(loss) | ~torch.isfinite(gnorm) | (loss > loss_ceiling))
-            metrics = {**metrics, "skipped": torch.tensor(float(bad))}
+            metrics = {**metrics, "loss": loss, "skipped": torch.tensor(float(bad))}
         if not bad:
             adamw_update(tcfg, grads, opt_state, lr, params, sumsq)
         return params, opt_state, metrics
@@ -93,13 +99,14 @@ def make_train_step(cfg, tcfg, use_kernel: bool = False):
 
 
 def make_state_step(cfg, tcfg, use_kernel: bool = False):
-    """TrainState-level step: ``step(state, batch, loss_ceiling=None) ->
-    (state, metrics)``. ``state.step`` counts batches consumed and always advances;
-    a guard-skipped step leaves only the optimizer clock untouched."""
+    """TrainState-level step: ``step(state, batch, loss_ceiling=None,
+    **guard knobs) -> (state, metrics)``. ``state.step`` counts batches
+    consumed and always advances; a guard-skipped step leaves only the
+    optimizer clock untouched."""
     inner = make_train_step(cfg, tcfg, use_kernel)
 
-    def state_step(state: TrainState, batch, loss_ceiling: Optional[float] = None):
-        _, _, metrics = inner(state.params, state.opt_state, batch, state.gen, loss_ceiling)
+    def state_step(state: TrainState, batch, loss_ceiling: Optional[float] = None, **knobs):
+        _, _, metrics = inner(state.params, state.opt_state, batch, state.gen, loss_ceiling, **knobs)
         state.step += 1
         return state, metrics
 
@@ -146,17 +153,21 @@ class Trainer:
         return self.state.opt_state
 
     def default_callbacks(self, log=print) -> List[Callback]:
+        cbs: List[Callback] = [LoggingCallback(log=log, log_every=self.tcfg.log_every)]
         if self.tcfg.ckpt_every:
-            raise NotImplementedError(f"ckpt_every={self.tcfg.ckpt_every}: {_CKPT}")
-        return [LoggingCallback(log=log, log_every=self.tcfg.log_every)]
+            cbs.append(CheckpointCallback(self.tcfg.ckpt_dir, every=self.tcfg.ckpt_every))
+        return cbs
 
     def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device) for k, v in batch.items()}
 
     def run(self, steps: int, log=print, callbacks: Optional[Sequence[Callback]] = None) -> Dict[str, list]:
-        """Run ``steps`` more steps under the anomaly guard. Each step's
-        wall time ends with a device-to-host read of its loss; with
-        ``step_timeout_s`` a slower step raises :class:`HangError`."""
+        """Run ``steps`` more steps under the anomaly guard. The global step
+        is read back from ``state.step`` (resume-aware; a supervisor
+        rollback rewinds it). The ``train.step`` fault site can inject NaN
+        grads, a loss spike or a hang. Each step's wall time ends with a
+        device-to-host read of its loss; with ``step_timeout_s`` a slower
+        step raises :class:`HangError`."""
         assert self.data_iter is not None
         cbs = list(callbacks) if callbacks is not None else self.callbacks
         if cbs is None:
@@ -166,7 +177,15 @@ class Trainer:
         for _ in range(steps):
             t0 = time.perf_counter()
             batch = self._to_device(next(self.data_iter))
-            self.state, metrics = self.step_fn(self.state, batch, self.loss_ceiling)
+            knobs = {}
+            for spec in faults.fire("train.step"):
+                if spec.kind == "nan_grads":
+                    knobs["grad_scale"] = float("nan")
+                elif spec.kind == "loss_spike":
+                    knobs["loss_shift"] = spec.args.get("shift", 1e4)
+                elif spec.kind == "hang":
+                    time.sleep(spec.args.get("seconds", 2.0 * (self.step_timeout_s or 0.05)))
+            self.state, metrics = self.step_fn(self.state, batch, self.loss_ceiling, **knobs)
             float(metrics["loss"])  # device -> host: the step is done
             dt = time.perf_counter() - t0
             if self.step_timeout_s is not None and dt > self.step_timeout_s:

@@ -10,7 +10,7 @@ from torch_parity import configs, jax_params, to_torch
 
 from repro.serving.engine import Request as JRequest
 from repro.serving.engine import ServingEngine as JEngine
-from repro_torch.resilience import ShedError
+from repro_torch.resilience import FaultSpec, HangError, ShedError, faults
 from repro_torch.serving.engine import Request as TRequest
 from repro_torch.serving.engine import ServingEngine as TEngine
 
@@ -50,12 +50,36 @@ def test_max_queue_sheds(rng):
     assert eng.health()["shed_count"] == 1
 
 
-@pytest.mark.parametrize("kw", [dict(cache_mode="paged", mesh=object()), dict(step_timeout_s=1.0),
-                                dict(mesh=object())])
+@pytest.mark.parametrize("kw", [dict(cache_mode="paged", mesh=object()), dict(mesh=object())])
 def test_unported_engine_options_raise(kw):
     _, tcfg = configs(moe=False)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         TEngine(tcfg, {}, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("mode", ["ring", "paged"])
+def test_step_watchdog_trips_on_an_injected_hang(mode):
+    """``step_timeout_s``: a ``serving.step`` hang of twice the budget
+    raises ``HangError``, as in the JAX engine."""
+    _, tcfg = configs(moe=False)
+    kw = dict(cache_mode="paged", page_size=8) if mode == "paged" else {}
+    eng = TEngine(tcfg, to_torch(jax_params(configs(moe=False)[0])), max_batch=2, max_seq=40, device="cpu",
+                  step_timeout_s=0.1, **kw)
+    eng.submit(_requests(np.random.default_rng(5), TRequest, tcfg.vocab_size)[0])
+    with faults.inject(FaultSpec("serving.step", "hang", at=0, args={"seconds": 0.2})) as inj, \
+            pytest.raises(HangError, match="wall budget"):
+        eng.step()
+    assert inj.fired == [("serving.step", "hang", 0)]
+
+
+def test_step_watchdog_generous_budget_does_not_trip():
+    """The same engine with a 60 s budget serves its requests to the end,
+    with the tokens of an engine without the watchdog."""
+    jcfg, tcfg = configs(moe=False)
+    tp = to_torch(jax_params(jcfg))
+    outs = [TEngine(tcfg, tp, max_batch=2, max_seq=40, device="cpu", **kw).run(
+        _requests(np.random.default_rng(5), TRequest, tcfg.vocab_size)) for kw in ({}, dict(step_timeout_s=60.0))]
+    assert outs[0] == outs[1] and [len(outs[1][i]) for i in range(3)] == [3, 6, 4]
 
 
 @pytest.mark.parametrize("mode", ["ring", "paged"])

@@ -282,10 +282,12 @@ def test_train_cli_on_the_cpu(capsys):
 
 
 def test_train_cli_defaults_to_the_card_and_refuses_unported_flags():
+    """The card is the default device; ``--autotune`` (the tile autotuner)
+    is the one flag of the JAX launcher still refused. The checkpoint flags
+    work (``tests/test_torch_checkpoint.py``)."""
     argv = ["--arch", "llama3-8b", "--smoke", "--steps", "1", "--batch", "2", "--seq", "16"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             train_cli(argv)
-    for extra in (["--resume"], ["--ckpt-every", "2"], ["--from-ckpt", "x"], ["--supervise"]):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            train_cli(argv + extra + ["--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="not ported yet.*ROADMAP"):
+        train_cli(argv + ["--autotune", "--device", "cpu"])
