@@ -59,7 +59,10 @@ Phases (each failure exits non-zero; nothing is swallowed):
    then with no ``--dispatcher`` (the smoke config's allgather), bf16 and
    with int8 expert weights (#8/#9), then
    ``--fused-dispatch`` in the ring cache and in the page pool with int8
-   expert weights;
+   expert weights; then ``--cache-mode paged --speculate 3``, the same
+   with ``--prefix-cache --quant-kv int8``, ``--autotune`` on serve (its
+   tokens must equal the run without it) and on train (one step), the
+   tuner's cache in a temp directory;
 5. paged serve — the same model and cut through ``cache_mode="paged"``
    (page size 16, prefill chunk 32, max_batch 4, prefix cache on) on 8
    requests of 16-300 prompt tokens sharing a 64-token stem, 32 new tokens
@@ -175,13 +178,39 @@ Phases (each failure exits non-zero; nothing is swallowed):
    ``small_grad_check``'s config through the kernels and through their
    plain versions, whose distance (max |loss| difference, relative L2 of
    the params) must be within 4x that of two plain runs whose start
-   differs by one bf16 rounding.
+   differs by one bf16 rounding;
+11. speculative decoding and the tile autotuner — (a) a dense llama3-8b
+   cut to 4 layers at full width, drawn on the card from ``--seed``,
+   upcycled by ``SpeculativeEngine.from_upcycle`` to llama3-e8t2 (sorted,
+   kernels on) and served paged (page 16, chunk 32, max_batch 4, prefix
+   cache) with 4 drafts a step on phase 5's 8 requests: every request
+   answered, #19, #3 and #4 launched (counts reset just before, read just
+   after), the page pool's invariants and no live page at the end, every
+   kernel call of a short speculative serve held against its plain
+   version; acceptance, verify steps, tok/s, draft and verify ms a step
+   and the busy share printed beside phase 5's figures, and the tokens
+   equal to the plain paged engine's on the same MoE reported; (b) on the
+   one-layer smoke config: in fp32 without kernels the speculative tokens
+   must equal plain paged greedy decode's with acceptance > 0.9, and in
+   bf16 through the kernels the verify chunk's logits at each accepted
+   position must agree with the plain paged decode step's within 2e-2 x
+   max|logits|; (c) every compiled tile of #1, #2 and #9 (C 4, 64, 100
+   and 300), #4, #11, #13 and #15 (phase 9a's decode and prefill
+   routings) launched, bit-equal to the fixed rule's output, timed by CUDA
+   graph, with each call-site tile's modeled score ("h100" profile) and
+   the modeled and measured winners beside the bound; then the tuner's own
+   search through the six hooked wrappers at those 16 keys, with tuning on
+   and a temp cache file: each call times its compiled tiles on its inputs
+   and launches the fastest, whose output must equal the rule's bit for
+   bit; each key must miss once and persist, hit after ``reset()``, and
+   hit from the committed ``autotune_defaults.json`` (the ``tuned_tiles``
+   line prints what the search persisted).
 
 ``--phases 1,2`` stops after the build and the kernel checks; ``--phases
 1,6`` is the quick look at training, ``--phases 1,8`` at full-depth int8
 serving, ``--phases 1,9`` at fused dispatch, ``--phases 1,10`` at
-checkpointing. ``--digest SRC`` prints a
-SHA-256 of every expert GEMM's and the flash forward's outputs on seeded
+checkpointing, ``--phases 1,11`` at speculative decoding and the tuner.
+``--digest SRC`` prints a SHA-256 of every expert GEMM's and the flash forward's outputs on seeded
 inputs for the kernels of the tree whose ``src`` is SRC; ``--times SRC``
 prints the device and host-inclusive times of #16 at phase 2's lengths,
 of #15, #14, #13, #12, #11, #10, #4 and #3 at phase 9a's routings (#13,
@@ -1277,7 +1306,8 @@ def plain_kernels():
         q, k, v, causal, window, scale)
     ops.paged_attention = ref.paged_attention_ref
     ops.paged_attention_q8 = ref.paged_attention_q8_ref
-    eg.expert_gemm, eg.expert_gemm_q8 = ref.expert_gemm_ref, ref.expert_gemm_q8_ref
+    eg.expert_gemm = lambda *a, tile=None: ref.expert_gemm_ref(*a)
+    eg.expert_gemm_q8 = lambda *a, tile=None: ref.expert_gemm_q8_ref(*a)
     try:
         yield
     finally:
@@ -1287,7 +1317,7 @@ def plain_kernels():
 
 
 def fused_checked(report: list, x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted,
-                  scales=None):
+                  scales=None, tile=None):
     """The fused path's two kernels in order (#12 then #13, or with
     ``scales`` #14 then #15), each held against its plain version fed the
     same inputs (the gate/up kernel's own h for the down check); appends
@@ -1305,14 +1335,14 @@ def fused_checked(report: list, x, w_gate, w_up, w_down, group_sizes, token, des
         if scales is None:
             h = eg.fused_gate_up_cuda(x, w_gate, w_up, tok_pad, tg, tr)
             h_r = ref.fused_gate_up_ref(x, w_gate, w_up, tok_pad, tg, tr)
-            part = eg.fused_down_cuda(h, w_down, row_out, gate_pad, tg, tr, k, T)
+            part = eg.fused_down_cuda(h, w_down, row_out, gate_pad, tg, tr, k, T, tile=tile)
             part_r = ref.fused_down_ref(h, w_down, row_out, gate_pad, tg, tr, k, T)
             names = ("grouped_gate_up_fused", "grouped_down_fused")
         else:
             sg, su, sd = scales
             h = eg.fused_gate_up_q8_cuda(x, w_gate, w_up, sg, su, tok_pad, tg, tr)
             h_r = ref.fused_gate_up_q8_ref(x, w_gate, w_up, sg, su, tok_pad, tg, tr)
-            part = eg.fused_down_q8_cuda(h, w_down, sd, row_out, gate_pad, tg, tr, k, T)
+            part = eg.fused_down_q8_cuda(h, w_down, sd, row_out, gate_pad, tg, tr, k, T, tile=tile)
             part_r = ref.fused_down_q8_ref(h, w_down, sd, row_out, gate_pad, tg, tr, k, T)
             names = ("grouped_gate_up_fused_q8", "grouped_down_fused_q8")
     pad_zero = bool((h[~valid] == 0).all())
@@ -1349,31 +1379,32 @@ def checked_kernels(report: list):
         report.append(("grouped_gemm_q8", tuple(xs.shape), rel_err(y, r)[1]))
         return y
 
-    def expert(xe, w_gate, w_up, w_down):
-        y = egm(xe, w_gate, w_up, w_down)
+    def expert(xe, w_gate, w_up, w_down, tile=None):
+        y = egm(xe, w_gate, w_up, w_down, tile=tile)
         with torch.no_grad():
             r = ref.expert_gemm_ref(xe, w_gate, w_up, w_down)
         report.append(("expert_gemm", tuple(xe.shape), rel_err(y, r)[1]))
         return y
 
-    def expert_q8(xe, w_gate, w_up, w_down, s_gate, s_up, s_down):
+    def expert_q8(xe, w_gate, w_up, w_down, s_gate, s_up, s_down, tile=None):
         eg._check_padded(xe, w_gate, w_up, w_down, torch.int8, (s_gate, s_up, s_down))
         h = eg.expert_gate_up_q8_cuda(xe, w_gate, w_up, s_gate, s_up)
-        y = eg.expert_down_q8_cuda(h, w_down, s_down)
+        y = eg.expert_down_q8_cuda(h, w_down, s_down, tile=tile)
         report.append(("expert_gate_up_q8", tuple(xe.shape),
                        rel_err(h, ref.expert_gate_up_q8_ref(xe, w_gate, w_up, s_gate, s_up))[1]))
         report.append(("expert_down_q8", tuple(xe.shape), rel_err(y, ref.expert_down_q8_ref(h, w_down, s_down))[1]))
         return y
 
-    def grouped(xs, w_gate, w_up, w_down, group_sizes, row_block=128):
-        y = gfwd(xs, w_gate, w_up, w_down, group_sizes, row_block)
+    def grouped(xs, w_gate, w_up, w_down, group_sizes, row_block=128, tile=None):
+        y = gfwd(xs, w_gate, w_up, w_down, group_sizes, row_block, tile)
         with torch.no_grad():
             r = ref.grouped_gemm_ref(xs, w_gate, w_up, w_down, group_sizes, row_block)
         report.append(("grouped_gemm", tuple(xs.shape), rel_err(y, r)[1]))
         return y
 
-    def fused(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted, row_block=128):
-        return fused_checked(report, x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted)
+    def fused(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted, row_block=128, tile=None):
+        return fused_checked(report, x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted,
+                             tile=tile)
 
     def fused_q8(x, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes, token, dest, slot, gate_sorted,
                  row_block=128):
@@ -1657,7 +1688,8 @@ def serve_paged(seed: int, layers: int = 4, requests: int = 8, max_new: int = 32
               f"preemptions {preempt}")
         print(f"  [{tag}] kernel launches during the serve run: {launches}")
         print(f"  [{tag}] greedy tokens vs the ring engine on the same requests: {same}/{ntok} positions "
-              f"equal (reported, not gated: bf16 rounding differs between the two paths)")
+              f"equal (reported, not gated: bf16 rounding differs between the two paths); tokens sha "
+              f"{tokens_sha(out)}")
         if not all(len(v) == max_new for v in out.values()):
             raise SystemExit(f"[{tag}] a request did not receive all its tokens")
         needed = ("grouped_gate_up", "grouped_down", pa_name)
@@ -1676,11 +1708,20 @@ def serve_paged(seed: int, layers: int = 4, requests: int = 8, max_new: int = 32
             decode_step_ms=1e3 * sum(dec) / len(dec), plan_ms=1e3 * sum(plan) / len(plan),
             kv_bytes_peak=kv["kv_bytes_peak"],
             ring_kv_bytes=ring_bytes, prefix_hits=px["hits"], prefix_lookups=px["lookups"],
-            preemptions=preempt, equal_to_ring=f"{same}/{ntok}", device_busy_share=busy)
+            preemptions=preempt, equal_to_ring=f"{same}/{ntok}", device_busy_share=busy, tokens_sha=tokens_sha(out))
     del params
     torch.cuda.empty_cache()
     paged_small_input_check(seed)
     return launches_by_mode, results
+
+
+def tokens_sha(out: dict) -> str:
+    """First 16 hex digits of the SHA-256 of a serve's greedy tokens, by
+    request id: two runs whose hashes agree emitted the same tokens."""
+    import hashlib
+
+    return hashlib.sha256(json.dumps({str(k): [int(t) for t in v] for k, v in sorted(out.items())})
+                          .encode()).hexdigest()[:16]
 
 
 def paged_logits(cfg, params, prompt, next_tok=None, ps: int = 16, chunk: int = 32):
@@ -1973,15 +2014,18 @@ def device_busy(prof, wall: float, label: str) -> float:
     return busy_us / 1e6 / wall
 
 
-def profile_window(run) -> float:
+def profile_window(run, cpu: bool = True) -> float:
     """torch.profiler over a short serve (prompts 0 and 5, 8 new tokens):
     device time by kernel and the device's busy share of the wall time,
-    which it returns."""
+    which it returns. ``cpu=False`` records the CUDA activity alone, whose
+    trace takes a fraction of the time to collect and adds no host work
+    per operator to the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         _, _, wall = run(True, [0, 5], 8)
-    return device_busy(prof, wall, "2 requests, 8 new tokens")
+    return device_busy(prof, wall, "2 requests, 8 new tokens" + ("" if cpu else ", CUDA activity only"))
 
 
 # ---------------------------------------------------------------------------
@@ -3112,10 +3156,491 @@ def checkpoint_phase(seed: int):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: speculative decoding and the tile autotuner
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def tuner_env(tuning: str, defaults: bool = True):
+    """``REPRO_AUTOTUNE`` set to ``tuning`` and the tuner's cache in a fresh
+    temp directory for the block, the committed defaults read only with
+    ``defaults``, the tuner's memo cleared before and after; the
+    environment as it was afterwards (the CLIs set the variable for their
+    process)."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import autotune
+
+    saved = {k: os.environ.get(k) for k in ("REPRO_AUTOTUNE", "REPRO_AUTOTUNE_CACHE")}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tiles_")
+    os.environ.update(REPRO_AUTOTUNE=tuning, REPRO_AUTOTUNE_CACHE=os.path.join(tmp, "tiles.json"))
+    defaults_path = autotune._defaults_path
+    if not defaults:
+        autotune._defaults_path = lambda: os.path.join(tmp, "no_defaults.json")
+    autotune.reset()
+    try:
+        yield
+    finally:
+        autotune._defaults_path = defaults_path
+        autotune.reset()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def speculative_cli() -> None:
+    """Phase 4's speculative and autotuned runs of the two CLIs (smoke
+    config, kernels on): ``--speculate 3`` paged, the same with the prefix
+    cache and int8 KV pages, ``--autotune`` on serve (tokens equal to the
+    run without it) and on train (one step)."""
+    from repro_torch.kernels import autotune
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch.train import main as train_main
+
+    base = ["--arch", "llama3-e8t2", "--smoke", "--requests", "2", "--max-new", "4", "--use-kernel",
+            "--dispatcher", "sorted", "--cache-mode", "paged"]
+    for extra in (["--speculate", "3"],
+                  ["--speculate", "3", "--prefix-cache", "--quant-kv", "int8", "--requests", "6",
+                   "--prompt-len", "40"]):
+        argv = base + extra
+        print(f"[4] python -m repro_torch.launch.serve {' '.join(argv)}")
+        out = serve_main(argv)
+        n = 6 if "--prefix-cache" in extra else 2
+        if sorted(out) != list(range(n)) or not all(len(v) == 4 for v in out.values()):
+            raise SystemExit(f"speculative serving CLI returned {out}")
+    with tuner_env("0"):
+        print(f"[4] python -m repro_torch.launch.serve {' '.join(base)} [--autotune]")
+        plain = serve_main(base)
+        tuned = serve_main(base + ["--autotune"])
+        print(f"  --autotune tokens equal to the run without it: {tuned == plain}; tuner {autotune.stats()}")
+        if tuned != plain or not autotune.stats()["misses"]:
+            raise SystemExit("--autotune changed the serving CLI's tokens, or resolved no tile")
+    with tuner_env("0"):
+        argv = ["--arch", "llama3-8b", "--smoke", "--upcycle", "4", "--top-k", "2", "--cf", "-1", "--dispatcher",
+                "sorted", "--use-kernel", "--steps", "1", "--batch", "2", "--seq", "64", "--autotune"]
+        print(f"[4] python -m repro_torch.launch.train {' '.join(argv)}")
+        tr = train_main(argv)
+        if tr.state.step != 1 or not autotune.stats()["misses"]:
+            raise SystemExit("--autotune on the train CLI did not take its step or resolve a tile")
+
+
+def paged_prompts(seed: int, vocab: int, requests: int = 8, max_new: int = 32, stem_len: int = 64):
+    """Phase 5's requests: prompt lengths 16-300 (the first 300) sharing a
+    ``stem_len``-token stem, drawn from ``seed + 1``; and max_seq."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 1)
+    lens = rng.integers(16, 301, size=requests)
+    lens[0] = 300
+    stem = rng.integers(0, vocab, stem_len)
+    prompts = [np.concatenate([stem, rng.integers(0, vocab, max(int(L) - stem_len, 0))])[:L].astype(np.int32)
+               for L in lens]
+    return lens, prompts, int(lens.max()) + max_new + 8
+
+
+def serve_speculative(seed: int, layers: int = 4, requests: int = 8, max_new: int = 32, max_batch: int = 4,
+                      draft_k: int = 4, phase5=None):
+    """Phase 11 (a): a dense llama3-8b cut to ``layers`` layers at full width,
+    drawn on the card from ``seed``, upcycled by
+    ``SpeculativeEngine.from_upcycle`` to llama3-e8t2 (sorted dispatcher,
+    kernels on) and served paged (page 16, chunk 32, prefix cache) with
+    ``draft_k`` drafts a step on phase 5's requests."""
+    import torch
+    from repro_torch.config import get_config, with_dispatcher
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import model_decl
+    from repro_torch.params import init_from_decls
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.speculative import SpeculativeEngine
+
+    laps, t_lap = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t_lap
+        torch.cuda.synchronize()
+        laps[name], t_lap = time.perf_counter() - t_lap, time.perf_counter()
+
+    dense = get_config("llama3-8b").replace(num_layers=layers)
+    moe = with_dispatcher(get_config("llama3-e8t2").replace(num_layers=layers), "sorted")
+    dense_params = init_from_decls(model_decl(dense), seed, "cuda")
+    lens, prompts, max_seq = paged_prompts(seed, moe.vocab_size, requests, max_new)
+    kw = dict(max_batch=max_batch, max_seq=max_seq, use_kernel=True, cache_mode="paged", page_size=16,
+              prefill_chunk=32, prefix_cache=True, device="cuda")
+    t0 = time.perf_counter()
+    first = SpeculativeEngine.from_upcycle(dense, moe, dense_params, seed=seed, draft_k=draft_k, **kw)
+    torch.cuda.synchronize()
+    moe_params = first.params
+    print(f"  {dense.name} -> {moe.name}, {layers} layers at full width (d_model {moe.d_model}, d_ff {moe.d_ff}), "
+          f"upcycled on the card in {time.perf_counter() - t0:.2f} s, provenance {first.provenance}; draft_k "
+          f"{draft_k}, paged (page 16, chunk 32, prefix cache), max_batch {max_batch}, prompt lengths "
+          f"{lens.tolist()}, {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    del first
+    lap("draw and upcycle")
+
+    def run(spec: bool = True, which=None, new=max_new):
+        eng = (SpeculativeEngine(moe, moe_params, dense, dense_params, draft_k=draft_k, **kw) if spec
+               else ServingEngine(moe, moe_params, **kw))
+        reqs = [Request(rid=i, prompt=prompts[i], max_new_tokens=new)
+                for i in (which if which is not None else range(len(prompts)))]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = eng.run(reqs)
+        torch.cuda.synchronize()
+        return eng, out, time.perf_counter() - t
+
+    run(True, [len(prompts) - 1], 2)  # warm-up
+    lap("warm-up")
+    ops.reset_launch_counts()
+    eng, out, wall = run()
+    launches = ops.launch_counts()
+    lap("main run")
+    ntok = sum(len(v) for v in out.values())
+    spec = eng.kv_stats()["speculation"]
+    draft, verify = eng.timings["draft_s"], eng.timings["verify_s"]
+    pre = eng.timings["prefill_chunk_s"]
+    print(f"  served {len(out)} requests, {ntok} tokens in {wall:.3f} s ({ntok / wall:.2f} tok/s); acceptance "
+          f"{spec['acceptance_rate']:.4f} ({spec['accepted_tokens']}/{spec['drafted_tokens']} drafts), "
+          f"{spec['spec_steps']} verify steps; draft phase mean {1e3 * sum(draft) / len(draft):.3f} ms, verify "
+          f"chunk mean {1e3 * sum(verify) / len(verify):.3f} ms per step; prefill chunk mean "
+          f"{1e3 * sum(pre) / len(pre):.3f} ms over {len(pre)}; {card_line()}")
+    print(f"  kernel launches during the speculative serve: {launches}; tokens sha {tokens_sha(out)}")
+    if phase5:
+        print(f"  phase 5 in this call (plain paged decode, bf16 KV, same requests, its own draw of the MoE): "
+              f"{phase5['tokens_per_s']:.2f} tok/s, decode step mean {phase5['decode_step_ms']:.3f} ms, prefill "
+              f"chunk mean {phase5['prefill_chunk_ms']:.3f} ms")
+    if sorted(out) != list(range(len(prompts))) or not all(len(v) == max_new for v in out.values()):
+        raise SystemExit("a speculative request did not receive all its tokens")
+    if not all(launches[n] > 0 for n in ("paged_attention", "grouped_gate_up", "grouped_down")):
+        raise SystemExit(f"a kernel of the speculative path was never launched: {launches}")
+    eng.page_pool.check_invariants()
+    pool = eng.page_pool
+    live = pool.used_pages - pool.evictable_pages
+    print(f"  page pool invariants hold; at the end {live} live pages, {pool.evictable_pages} kept by the prefix "
+          f"cache (refcount 0, reclaimable), {pool.free_pages}/{pool.num_pages} free")
+    if live or pool.free_pages + pool.evictable_pages != pool.num_pages:
+        raise SystemExit("pages still held after every request finished")
+    lap("checks of the main run")
+    report: list = []
+    with checked_kernels(report):
+        run(True, [0, 5], 6)
+    report_checked(report, ("grouped_gemm", "paged_attention"), "speculative serving")
+    lap("checked run")
+    busy = profile_window(lambda _k, which, new: run(True, which, new), cpu=False)
+    lap("profile window")
+    _, out_p, wall_p = run(False)
+    lap("plain engine run")
+    same = sum(a == b for r in out for a, b in zip(out[r], out_p[r]))
+    print(f"  greedy tokens vs the plain paged engine on the same MoE: {same}/{ntok} positions equal (plain run "
+          f"{wall_p:.3f} s, {ntok / wall_p:.2f} tok/s; reported, not gated: at 4 random bf16 layers the verify "
+          f"chunk's gathered attention and #19 round apart)")
+    print("  11a's stages: " + ", ".join(f"{k} {v:.2f} s" for k, v in laps.items()))
+    del moe_params, dense_params, eng
+    torch.cuda.empty_cache()
+    return launches, dict(
+        tokens_per_s=ntok / wall, plain_tokens_per_s=ntok / wall_p, acceptance_rate=spec["acceptance_rate"],
+        spec_steps=spec["spec_steps"], tokens=ntok, drafted=spec["drafted_tokens"],
+        accepted=spec["accepted_tokens"], draft_ms=1e3 * sum(draft) / len(draft),
+        verify_ms=1e3 * sum(verify) / len(verify), prefill_chunk_ms=1e3 * sum(pre) / len(pre),
+        device_busy_share=busy, equal_to_plain=f"{same}/{ntok}", tokens_sha=tokens_sha(out))
+
+
+def speculative_small_input_check(seed: int, draft_k: int = 4) -> dict:
+    """Phase 11 (b) on the one-layer smoke config: (1) fp32 with
+    ``use_kernel=False``: the upcycled pair's speculative tokens equal the
+    plain paged engine's token for token, acceptance > 0.9; (2) bf16
+    through the kernels: the verify chunk's logits at each accepted
+    position agree with the plain paged engine's decode-step logits at that
+    position within LOGIT_TOL x max|logits|."""
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config, smoke_config, with_dispatcher
+    from repro_torch.core.upcycle import upcycle_params
+    from repro_torch.models.model import decode_step_paged, model_decl, paged_forward
+    from repro_torch.params import init_from_decls, tree_map
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.kv_cache import init_paged_pool
+    from repro_torch.serving.speculative import SpeculativeEngine
+
+    moe = with_dispatcher(smoke_config(get_config("llama3-e8t2")).replace(num_layers=1), "sorted")
+    dense = moe.replace(name=f"{moe.name}-parent", family="dense", moe=None)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, moe.vocab_size, L).astype(np.int32) for L in (12, 40, 100, 7)]
+    kw = dict(max_batch=2, max_seq=140, cache_mode="paged", page_size=16, prefill_chunk=32, device="cuda")
+    reqs = lambda: [Request(rid=i, prompt=p, max_new_tokens=12) for i, p in enumerate(prompts)]  # noqa: E731
+    # (1) fp32, use_kernel=False
+    d32, m32 = dense.replace(dtype="float32"), moe.replace(dtype="float32")
+    dp32 = tree_map(lambda t: t.float() if t.dtype == torch.bfloat16 else t,
+                    init_from_decls(model_decl(d32), seed, "cuda"))
+    spec = SpeculativeEngine.from_upcycle(d32, m32, dp32, seed=seed, draft_k=draft_k, **kw)
+    out_s = spec.run(reqs())
+    out_p = ServingEngine(m32, spec.params, **kw).run(reqs())
+    rate = spec.acceptance_rate
+    print(f"  small input (smoke config, 1 layer, fp32, use_kernel=False): speculative tokens equal plain paged "
+          f"greedy decode's: {out_s == out_p}; acceptance {rate:.4f} over {spec.spec_steps} verify steps")
+    if out_s != out_p or not rate > 0.9:
+        raise SystemExit("fp32 speculative decode differs from plain greedy decode, or acceptance <= 0.9")
+    # (2) bf16 through the kernels: verify logits vs decode-step logits
+    dp = init_from_decls(model_decl(dense), seed, "cuda")
+    mp = upcycle_params(dense, moe, dp, seed)
+    dev = torch.device("cuda")
+    one = lambda x: torch.tensor([x], dtype=torch.int32, device=dev)  # noqa: E731
+    worst, positions, accepted = 0.0, 0, 0
+    with torch.inference_mode():
+        for p in prompts[:3]:
+            L, ps = len(p), 16
+            n_pages = -(-(L + draft_k + 1) // ps)
+            bt = torch.arange(n_pages, dtype=torch.int32, device=dev)[None]
+            pools = {name: init_paged_pool(cfg, n_pages + 1, ps, device=dev) for name, cfg in
+                     (("draft", dense), ("verify", moe), ("plain", moe))}
+            for name, cfg, params in (("draft", dense, dp), ("verify", moe, mp), ("plain", moe, mp)):
+                for start in range(0, L, 32):
+                    n = min(32, L - start)
+                    toks = torch.zeros((1, 32), dtype=torch.long, device=dev)
+                    toks[0, :n] = torch.as_tensor(p[start:start + n], device=dev)
+                    first, _ = paged_forward(cfg, params, pools[name], toks, one(start), bt, one(n), use_kernel=True)
+                if name == "verify":
+                    t0 = int(first[0, :moe.vocab_size].argmax())
+            drafts, cur = [], t0
+            for i in range(draft_k):
+                lg, _ = decode_step_paged(dense, dp, pools["draft"], one(cur), one(L + i), bt, one(1), use_kernel=True)
+                cur = int(lg[0, :moe.vocab_size].argmax())
+                drafts.append(cur)
+            vt = torch.tensor([[t0] + drafts], dtype=torch.long, device=dev)
+            vl, _ = paged_forward(moe, mp, pools["verify"], vt, one(L), bt, one(draft_k + 1), use_kernel=True,
+                                  return_all_logits=True)
+            targets = vl[0, :, :moe.vocab_size].argmax(-1).tolist()
+            m = 0
+            while m < draft_k and drafts[m] == targets[m]:
+                m += 1
+            accepted += m
+            for i, tok in enumerate([t0] + drafts[:m]):  # the accepted positions and the correction's
+                dl, _ = decode_step_paged(moe, mp, pools["plain"], one(tok), one(L + i), bt, one(1), use_kernel=True)
+                worst = max(worst, rel_err(vl[0, i], dl[0])[1])
+                positions += 1
+    print(f"  small input (smoke config, 1 layer, bf16, kernels): verify-chunk logits vs the plain paged engine's "
+          f"decode-step logits at {positions} accepted positions (3 prompts, {accepted}/{3 * draft_k} drafts "
+          f"accepted): worst {worst:.4g} of max|logits| (tol {LOGIT_TOL})")
+    if worst > LOGIT_TOL:
+        raise SystemExit("the verify chunk's logits disagree with the decode step's")
+    return dict(fp32_tokens_equal=out_s == out_p, fp32_acceptance=rate, bf16_logits_rel=worst,
+                bf16_positions=positions)
+
+
+def tuner_candidates(seed: int) -> dict:
+    """Phase 11 (c): every compiled tile of the tunable kernels at the
+    shapes of phases 2 and 9a, each held bit-equal to the fixed rule's
+    output and timed (CUDA-graph device time), with the modeled score of its
+    call site's tile (the "h100" profile) and the modeled and measured
+    winners beside the bound; then the tuner's own search through the
+    hooked wrappers at the same shapes (:func:`tuner_search`)."""
+    import torch
+    from repro_torch.core.quant import quantize_weight
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import expert_gemm as eg
+    from repro_torch.kernels import ops
+    from repro_torch.roofline.analysis import hw_profile
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 11)
+    rand = lambda *shape, scale=1.0: (torch.randn(shape, generator=gen, device="cuda") * scale).bfloat16()  # noqa
+    E, D, F = 8, 4096, 14336
+    hw = hw_profile("h100")
+    wg, wu = (rand(E, D, F, scale=D ** -0.5) for _ in range(2))
+    wd = rand(E, F, D, scale=F ** -0.5)
+    (qg, sg), (qu, su), (qd, sd) = (quantize_weight(w) for w in (wg, wu, wd))
+    results, bad = {}, []
+
+    def sweep(label, site, cost, kernels):
+        """``kernels``: (name, {tile part: launch}, the part of a call-site
+        tile it reads, the bytes and operations of its bound). Each
+        instantiation's output is held bit-equal to the fixed rule's
+        (``None``), and timed."""
+        rows, ms = [], {}
+        for name, launches, part, nbytes, flops in kernels:
+            ref_out = launches[None]()
+            for key, fn in launches.items():
+                if key is None:
+                    continue
+                out = fn()
+                same = bool(torch.equal(out.view(torch.uint8), ref_out.view(torch.uint8)))
+                t = graph_ms(fn)
+                ms[(name, key)] = t
+                rows.append(dict(kernel=name, tile=key, device_ms=t, bit_equal_to_rule=same))
+                if not same:
+                    bad.append((label, name, key))
+            b_ms, by = bound(nbytes, flops)
+            print(f"  [{label}] {name}: " + ", ".join(f"{k} {ms[(name, k)]:.4f} ms" for k in launches if k)
+                  + f" (CUDA-graph device time); bound {b_ms:.4f} ms by {by}; every tile bit-equal to the rule's: "
+                  + str(all(r["bit_equal_to_rule"] for r in rows if r["kernel"] == name)))
+        legal = lambda t: eg.tile_legal(t, D)  # noqa: E731
+        cands = autotune.candidates(eg.TILES[site], legal)
+        measure = lambda t: 1e-3 * sum(ms[(name, part(t))] for name, _, part, _, _ in kernels)  # noqa: E731
+        modeled = autotune.search(cands, cost, hw=hw)
+        measured = autotune.search(cands, cost, measure=measure, hw=hw)
+        scores = {t: autotune.modeled_seconds(cost(t)["flops"], cost(t)["bytes"], cost(t)["steps"], hw) for t in cands}
+        tile_ms = {t: 1e3 * measure(t) for t in cands}
+        rule = eg.default_tile(site, label_c.get(label, 0), D)
+        print(f"  [{label}] {site} tiles (gate/up warpgroups, down warpgroups, down BN): modeled score "
+              + ", ".join(f"{t} {1e3 * s:.4f} ms" for t, s in scores.items())
+              + f"; modeled winner {modeled[0]}, measured winner {measured[0]} ({1e3 * measured[1]:.4f} ms of the "
+              f"tuned kernels), the fixed rule {rule}")
+        results[label] = dict(site=site, rows=rows, modeled_ms={str(t): 1e3 * s for t, s in scores.items()},
+                              modeled_winner=list(modeled[0]), measured_winner=list(measured[0]),
+                              rule=list(rule), tile_ms={str(t): v for t, v in tile_ms.items()})
+
+    label_c = {}
+    hooked = []  # (label, site, the ops call at this shape) for tuner_search
+    for C in (4, 64, 100, 300):  # decode; a bucket's edge (the rule's 1 -> 2 warpgroups); 100 rows; prefill
+        xe, he = rand(E, C, D), rand(E, C, F)
+        label_c[f"padded C={C}"] = label_c[f"padded int8 C={C}"] = C
+        gu = {None: lambda: eg.expert_gate_up_cuda(xe, wg, wu)}
+        gu.update({(n,): (lambda n=n: eg.expert_gate_up_cuda(xe, wg, wu, tile=(n, n, 256))) for n in (1, 2)})
+        dn = {None: lambda: eg.expert_down_cuda(he, wd)}
+        dn.update({(n, bn): (lambda n=n, bn=bn: eg.expert_down_cuda(he, wd, tile=(n, n, bn)))
+                   for n in (1, 2) for bn in (128, 256)})
+        io = E * C * (D + F) * 2
+        sweep(f"padded C={C}", "expert_gemm", ops.expert_cost("expert_gemm", E, ops.row_bucket(C), D, F), [
+            ("expert_gate_up #1", gu, lambda t: (t[0],), io + 2 * E * D * F * 2, 4 * E * C * D * F),
+            ("expert_down #2", dn, lambda t: (t[1], t[2]), io + E * F * D * 2, 2 * E * C * F * D)])
+        dq = {None: lambda: eg.expert_down_q8_cuda(he, qd, sd)}
+        dq.update({(bn,): (lambda bn=bn: eg.expert_down_q8_cuda(he, qd, sd, tile=(2, 2, bn))) for bn in (128, 256)})
+        sweep(f"padded int8 C={C}", "expert_gemm_q8", ops.expert_cost("expert_gemm_q8", E, ops.row_bucket(C), D, F), [
+            ("expert_down_q8 #9", dq, lambda t: (t[2],), io + E * F * D + E * D * 2, 2 * E * C * F * D)])
+        hooked += [(f"padded C={C}", "expert_gemm", lambda xe=xe: ops.expert_gemm(xe, wg, wu, wd)),
+                   (f"padded int8 C={C}", "expert_gemm_q8",
+                    lambda xe=xe: ops.expert_gemm_q8(xe, qg, qu, qd, sg, su, sd))]
+        del he
+    for groups, T in (((3, 0, 2, 1, 0, 1, 1, 0), 4), ((200, 0, 131, 77, 64, 50, 40, 38), 300)):
+        label = "decode" if T == 4 else "prefill"
+        token, slot, dest, gate_sorted, gs = fused_routing(gen, groups, T)
+        tok_pad, row_out, gate_pad, tg, tr, k = eg.fused_tables(wg, gs, token, dest, slot, gate_sorted, T)
+        n_pad = tok_pad.shape[0]
+        h = rand(n_pad, F)
+        h[~valid_rows(gs, n_pad)] = 0
+        N = T * k
+        live = sum(1 for g in groups if g)
+        io = N * (F + D) * 2
+        for site, name, fn, w_bytes in (
+                ("grouped_gemm", "grouped_down #4", lambda t: eg.down_cuda(h, wd, tg, tr, tile=t), 2),
+                ("grouped_gemm_q8", "grouped_down_q8 #11", lambda t: eg.down_q8_cuda(h, qd, sd, tg, tr, tile=t), 1),
+                ("grouped_gemm_fused", "grouped_down_fused #13",
+                 lambda t: eg.fused_down_cuda(h, wd, row_out, gate_pad, tg, tr, k, T, tile=t), 2),
+                ("grouped_gemm_fused_q8", "grouped_down_fused_q8 #15",
+                 lambda t: eg.fused_down_q8_cuda(h, qd, sd, row_out, gate_pad, tg, tr, k, T, tile=t), 1)):
+            launches = {None: lambda fn=fn: fn(None)}
+            launches.update({(bn,): (lambda fn=fn, bn=bn: fn((2, 2, bn))) for bn in (128, 256)})
+            sweep(f"{site} {label}", site, ops.sorted_cost(site, E, D, F, 128, ops.row_bucket(n_pad)), [
+                (name, launches, lambda t: (t[2],), io + live * F * D * w_bytes, 2 * N * F * D)])
+        xs, x = rand(n_pad, D), rand(T, D)
+        xs[~valid_rows(gs, n_pad)] = 0
+        route = (gs, token, dest, slot, gate_sorted)
+        hooked += [(f"grouped_gemm {label}", "grouped_gemm", lambda xs=xs, gs=gs: ops.grouped_gemm(xs, wg, wu, wd, gs)),
+                   (f"grouped_gemm_q8 {label}", "grouped_gemm_q8",
+                    lambda xs=xs, gs=gs: ops.grouped_gemm_q8(xs, qg, qu, qd, sg, su, sd, gs)),
+                   (f"grouped_gemm_fused {label}", "grouped_gemm_fused",
+                    lambda x=x, r=route: ops.grouped_gemm_fused(x, wg, wu, wd, *r)),
+                   (f"grouped_gemm_fused_q8 {label}", "grouped_gemm_fused_q8",
+                    lambda x=x, r=route: ops.grouped_gemm_fused_q8(x, qg, qu, qd, sg, su, sd, *r))]
+        del h
+    if bad:
+        raise SystemExit(f"a compiled tile's output differs from the fixed rule's: {bad}")
+    search = tuner_search(hooked, results)
+    del hooked, wg, wu, wd, qg, qu, qd
+    torch.cuda.empty_cache()
+    return results, search
+
+
+def tuner_search(hooked, swept: dict) -> dict:
+    """Phase 11 (c), the tuner's own search on the card. With tuning on, no
+    committed defaults and the cache in a temp directory, each hooked call
+    site of ``hooked`` times its compiled tiles on the call's own inputs
+    and launches the fastest: its output must equal the fixed rule's bit
+    for bit, and its tile is printed beside the rule's with both tiles'
+    CUDA-graph times from ``swept``. Each key misses once and is persisted
+    as measured; after ``reset()`` every key hits from the file, with the
+    same tiles; with the committed defaults and an empty cache every key
+    hits from ``autotune_defaults.json``."""
+    import json
+    import os
+
+    import torch
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import expert_gemm as eg
+
+    names = sorted({site for _, site, _ in hooked})
+    seen, orig = {}, {n: getattr(eg, n) for n in names}
+
+    def recorder(name):
+        def rec(*a, tile=None, **kw):
+            seen[name] = tile  # the last call's: the launch after the search
+            return orig[name](*a, tile=tile, **kw)
+        return rec
+
+    def resolve():
+        tiles, outs = [], []
+        for _, site, call in hooked:
+            outs.append(call())
+            tiles.append(tuple(seen.pop(site)))
+        return tiles, outs
+
+    with tuner_env("0"):
+        rule_out = [call() for _, _, call in hooked]
+    for n in names:
+        setattr(eg, n, recorder(n))
+    try:
+        with tuner_env("1", defaults=False):
+            tiles, outs = resolve()
+            s1 = autotune.stats()
+            entries = json.load(open(os.environ["REPRO_AUTOTUNE_CACHE"]))["profiles"]["h100"]
+            autotune.reset()
+            again, _ = resolve()
+            s2 = autotune.stats()
+        with tuner_env("1"):
+            resolve()
+            s3 = autotune.stats()
+    finally:
+        for n in names:
+            setattr(eg, n, orig[n])
+    n, bad, off_rule = len(hooked), [], []
+    for (label, site, _), tile, out, ref_out in zip(hooked, tiles, outs, rule_out):
+        rule, ms = tuple(swept[label]["rule"]), swept[label]["tile_ms"]
+        if not (torch.equal(out.view(torch.uint8), ref_out.view(torch.uint8))
+                and autotune.validate_blocks(tile, eg.TILES[site], lambda t: eg.tile_legal(t, out.shape[-1]))):
+            bad.append(label)
+        if tile != rule:
+            off_rule.append(label)
+        print(f"  [{label}] get_blocks on the card: {tile} (the fixed rule {rule}); CUDA-graph time of the tuned "
+              f"kernels {ms[str(tile)]:.4f} ms at {tile}, {ms[str(rule)]:.4f} ms at the rule; output bit-equal to "
+              f"the rule's: {label not in bad}")
+    sources = sorted({e["source"] for e in entries.values()})
+    print(f"  the tuner's search on the card: {n} keys, stats {s1}, {len(entries)} entries persisted ({sources}); "
+          f"{len(off_rule)} of {n} launched a tile other than the rule's ({off_rule}); after reset(): stats {s2}, "
+          f"tiles unchanged: {again == tiles}; with the committed defaults and an empty cache: stats {s3}; "
+          f"{card_line()}")
+    print(json.dumps({"tuned_tiles": {"h100": entries}}))
+    if bad:
+        raise SystemExit(f"a tuned call's output differs from the fixed rule's, or its tile is not compiled: {bad}")
+    if s1 != {"hits": 0, "misses": n} or len(entries) != n or sources != ["measured"]:
+        raise SystemExit("the tuner's search did not miss once a key and persist a measured entry")
+    if s2 != {"hits": n, "misses": 0} or again != tiles:
+        raise SystemExit("the tile cache did not hit every key after reset()")
+    if s3 != {"hits": n, "misses": 0}:
+        raise SystemExit("autotune_defaults.json does not hold every key of this phase")
+    return dict(first=s1, after_reset=s2, from_defaults=s3, tiles={label: list(t) for (label, _, _), t in
+                                                                  zip(hooked, tiles)},
+                off_rule=off_rule)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10", help="comma list of phases to run")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11", help="comma list of phases to run")
     ap.add_argument("--digest", metavar="SRC", help="only print digests() of the port under SRC (a tree's src "
                                                       "directory) and exit: run it on two trees to compare outputs")
     ap.add_argument("--times", metavar="SRC", help="only print kernel_times() of the port under SRC and exit: run "
@@ -3144,6 +3669,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import _build
 
+    t_main = time.perf_counter()
+    stamp = lambda n: print(f"[{n}] starts {time.perf_counter() - t_main:.1f} s into the run")  # noqa: E731
     card = card_line()
     print(f"[1] card: {card}; {torch.cuda.get_device_name(0)}, capability "
           f"{torch.cuda.get_device_capability(0)}, torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -3159,6 +3686,7 @@ def main(argv=None) -> int:
 
     kernels = {}
     if 2 in phases:
+        stamp(2)
         gen = torch.Generator(device="cuda")
         gen.manual_seed(args.seed)
         print("[2] kernels vs plain versions at llama3-e8t2 widths")
@@ -3205,9 +3733,11 @@ def main(argv=None) -> int:
 
     launches, stats = {}, {}
     if 3 in phases:
+        stamp(3)
         print("[3] serve llama3-e8t2 (ring cache, sorted dispatcher, kernels on)")
         launches, stats = serve(args.seed)
     if 4 in phases:
+        stamp(4)
         from repro_torch.launch.serve import main as serve_main
 
         sorted_ = ["--dispatcher", "sorted"]
@@ -3221,8 +3751,10 @@ def main(argv=None) -> int:
             n = 6 if "--prefix-cache" in extra else 2
             if sorted(out) != list(range(n)) or not all(len(v) == 4 for v in out.values()):
                 raise SystemExit(f"serving CLI returned {out}")
+        speculative_cli()
     paged_launches = {}
     if 5 in phases:
+        stamp(5)
         print("[5] serve llama3-e8t2 (paged KV, prefix cache, sorted dispatcher, kernels on)")
         paged_launches, stats["paged"] = serve_paged(args.seed)
         launches = {**launches, "paged_attention": paged_launches["none"]["paged_attention"],
@@ -3230,6 +3762,7 @@ def main(argv=None) -> int:
 
     train_launches, train_stats = {}, {}
     if 6 in phases:
+        stamp(6)
         gen = torch.Generator(device="cuda")
         gen.manual_seed(args.seed + 6)
         print("[6] train llama3-e8t2 (upcycled, 2 layers, kernels on): backward kernels vs plain versions")
@@ -3250,17 +3783,20 @@ def main(argv=None) -> int:
     padded_launches, padded_stats, padded_train_launches, int8_launches, int8_fused_launches = {}, {}, {}, {}, {}
     int8_padded_launches = {}
     if 7 in phases:
+        stamp(7)
         print("[7] padded dispatch (allgather): (a) ring serve of llama3-e8t2 at CF 4, kernels on")
         padded_launches, padded_stats["serve"] = serve_padded(args.seed)
         print("[7] (b) train llama3-e8t2 (2 layers) through allgather at CF 1.0, kernels on")
         padded_train_launches, padded_stats["train"] = train_padded(args.seed)
     if 8 in phases:
+        stamp(8)
         print("[8] serve llama3-e8t2 at all 32 layers with int8 expert weights (ring cache, kernels on): sorted, "
               "fused (8b), the paper config's alltoall -> allgather fallback (8c)")
         int8_launches, int8_fused_launches, int8_padded_launches, stats["int8_full_depth"] = \
             serve_int8_full_depth(args.seed)
     fused_launches, fused_train_launches, fused_stats = {}, {}, {}
     if 9 in phases:
+        stamp(9)
         gen = torch.Generator(device="cuda")
         gen.manual_seed(args.seed + 9)
         print("[9] fused dispatch: (a) kernels #12-#15 vs plain versions at llama3-e8t2 widths")
@@ -3277,8 +3813,21 @@ def main(argv=None) -> int:
         fused_train_launches, fused_stats["train"] = train_fused(args.seed, phase6_peak=train_stats.get("peak_bytes"))
     ckpt_launches, ckpt_stats = {}, {}
     if 10 in phases:
+        stamp(10)
         print("[10] checkpoint and resume")
         ckpt_launches, ckpt_stats = checkpoint_phase(args.seed)
+    spec_launches, spec_stats = {}, {}
+    if 11 in phases:
+        stamp(11)
+        print("[11] (a) speculative serve: dense llama3-8b (4 layers, full width) drafts for its upcycled "
+              "llama3-e8t2 (paged, prefix cache, sorted, kernels on)")
+        spec_launches, spec_stats["serve"] = serve_speculative(args.seed, phase5=stats.get("paged", {}).get("bf16"))
+        stamp("11 (b)")
+        print("[11] (b) speculative decoding on the small input (smoke config, 1 layer)")
+        spec_stats["small_input"] = speculative_small_input_check(args.seed)
+        stamp("11 (c)")
+        print("[11] (c) the tile autotuner: every compiled tile of #1, #2, #4, #9, #11, #13, #15, and its search")
+        spec_stats["tuner"], spec_stats["tuner_search"] = tuner_candidates(args.seed)
 
     sources = {
         "grouped_gate_up": ("src/repro_torch/kernels/csrc/grouped_gemm.cu", "src/repro/kernels/expert_gemm.py:335"),
@@ -3317,7 +3866,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": next((d[name] for d in (launches, train_launches, padded_launches, int8_launches,
                                                 fused_launches, int8_fused_launches, int8_padded_launches,
-                                                ckpt_launches)
+                                                ckpt_launches, spec_launches)
                               if d.get(name)), 0),
             "max_abs_err": k.get("max_abs_err"),
             "ms": k.get("ms"), "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
@@ -3325,6 +3874,7 @@ def main(argv=None) -> int:
             "device_ms": k.get("device_ms"), "library_device_ms": k.get("library_device_ms"),
             "shape": k.get("shape"),
         })
+    stamp("end")
     print(json.dumps({"launches_by_path": {"ring": {k: v for k, v in launches.items()
                                                     if k in ("grouped_gate_up", "grouped_down", "flash_fwd")},
                                            **{f"paged_{q}": v for q, v in paged_launches.items()},
@@ -3337,12 +3887,14 @@ def main(argv=None) -> int:
                                                ("fused_train", fused_train_launches),
                                                ("fused_int8_full_depth", int8_fused_launches),
                                                ("padded_int8_full_depth", int8_padded_launches),
-                                               ("checkpoint_train", ckpt_launches))}}}))
+                                               ("checkpoint_train", ckpt_launches),
+                                               ("speculative_paged", spec_launches))}}}))
     print(json.dumps({"serve": stats}))
     print(json.dumps({"train": train_stats}))
     print(json.dumps({"padded": padded_stats}))
     print(json.dumps({"fused": fused_stats}))
     print(json.dumps({"checkpoint": ckpt_stats}))
+    print(json.dumps({"speculative_and_tuner": spec_stats}))
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

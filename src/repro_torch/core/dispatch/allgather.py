@@ -2,8 +2,8 @@
 the dense padded ``(G, E, C, D)`` layout with capacity-factor-bounded
 token dropping (``capacity``, ``dispatch_tables``). On one card there is
 no expert-parallel plan, so G = 1 (``num_groups(None, ...)`` in the JAX
-package); more groups come with the multi-GPU slice (ROADMAP queue 1
-item 9). With ``capacity_factor=None`` the padded layout grows to C = T
+package); more groups come with the multi-GPU slice (ROADMAP queue 1,
+'Multi-GPU'). With ``capacity_factor=None`` the padded layout grows to C = T
 (the sorted dispatcher is the efficient dropless path).
 """
 from __future__ import annotations
@@ -19,8 +19,8 @@ class AllGatherDispatcher(TokenDispatcher):
     def __init__(self, cfg, moe, groups: int = 1):
         if groups != 1:
             raise NotImplementedError(
-                f"groups={groups}: grouped padded dispatch needs a device mesh (ROADMAP queue 1 item 9, "
-                "multi-GPU)")
+                f"groups={groups}: grouped padded dispatch needs a device mesh (ROADMAP queue 1, "
+                "'Multi-GPU')")
         super().__init__(cfg, moe)
         self.groups = groups
 

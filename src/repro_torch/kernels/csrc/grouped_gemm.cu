@@ -967,6 +967,16 @@ int launch_gate_up_q8_padded(const void* xe, const void* w_gate, const void* w_u
                           (const bf16*)s_up);
 }
 
+// The tile arguments of the entry points below pick among the tiles each
+// one compiles (the autotuner's candidates, kernels/autotune.py): `nwg`
+// consumer warpgroups (1 or 2; 64 rows each), `bn` output columns of a
+// block (128 or 256). -1 keeps the fixed rule: BN 256 where d allows it,
+// one warpgroup for the padded bf16 kernels at c <= 64. Every tile runs the
+// same K loop (64-wide slabs in order, fp32 sums), so the outputs do not
+// depend on it.
+bool wide_tile(int bn, int d) { return bn == 256 || (bn == -1 && d % 256 == 0); }
+bool bad_tile(int bn, int d) { return (bn != -1 && bn != 128 && bn != 256) || (bn == 256 && d % 256); }
+
 }  // namespace
 
 // xs (n_pad, d) -> h (n_pad, f): the wgmma/TMA kernel above
@@ -978,36 +988,38 @@ extern "C" int grouped_gate_up(const void* xs, const void* w_gate, const void* w
       xs, w_gate, w_up, nullptr, nullptr, nullptr, tile_group, tile_rows, h, n_pad, d, f, (cudaStream_t)stream);
 }
 
-// h (n_pad, f) -> y (n_pad, d): the wgmma/TMA kernel above, BN 256 where d allows it
+// h (n_pad, f) -> y (n_pad, d): the wgmma/TMA kernel above, BN `bn`
 extern "C" int grouped_down(const void* h, const void* w_down, const int* tile_group,
-                            const int* tile_rows, void* y, int n_pad, int f, int d, void* stream) {
+                            const int* tile_rows, void* y, int n_pad, int f, int d, int bn, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (n_pad % ROW_TILE || f % 64 || d % 128) return (int)cudaErrorInvalidValue;
-  return d % 256 == 0
+  if (n_pad % ROW_TILE || f % 64 || d % 128 || bad_tile(bn, d)) return (int)cudaErrorInvalidValue;
+  return wide_tile(bn, d)
              ? launch_grouped_down<sm90::Tile<2, 256, true>, false, false>(h, w_down, nullptr, nullptr, nullptr,
                                                                           tile_group, tile_rows, y, n_pad, f, d, s)
              : launch_grouped_down<sm90::Tile<2, 128, true>, false, false>(h, w_down, nullptr, nullptr, nullptr,
                                                                           tile_group, tile_rows, y, n_pad, f, d, s);
 }
 
-// xe (E, c, d) -> h (E, c, f): the wgmma/TMA kernel above; c <= 64 (decode)
-// runs one consumer warpgroup per block
+// xe (E, c, d) -> h (E, c, f): the wgmma/TMA kernel above with `nwg`
+// consumer warpgroups a block (the rule: one at c <= 64, decode)
 extern "C" int expert_gate_up(const void* xe, const void* w_gate, const void* w_up, void* h,
-                              int e, int c, int d, int f, void* stream) {
+                              int e, int c, int d, int f, int nwg, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (e < 1 || c < 1 || d % 64 || f % GU_BN) return (int)cudaErrorInvalidValue;
-  return c <= 64 ? launch_gate_up<sm90::Tile<1, 2 * GU_BN, true>>(xe, w_gate, w_up, h, e, c, d, f, s)
+  if (e < 1 || c < 1 || d % 64 || f % GU_BN || (nwg != -1 && nwg != 1 && nwg != 2))
+    return (int)cudaErrorInvalidValue;
+  return (nwg == -1 ? c <= 64 : nwg == 1) ? launch_gate_up<sm90::Tile<1, 2 * GU_BN, true>>(xe, w_gate, w_up, h, e, c, d, f, s)
                  : launch_gate_up<sm90::Tile<2, 2 * GU_BN, true>>(xe, w_gate, w_up, h, e, c, d, f, s);
 }
 
-// h (E, c, f) -> y (E, c, d): the wgmma/TMA kernel above; c <= 64 (decode)
-// runs one consumer warpgroup per block, BN 256 where d allows it
-extern "C" int expert_down(const void* h, const void* w_down, void* y, int e, int c, int f, int d,
-                           void* stream) {
+// h (E, c, f) -> y (E, c, d): the wgmma/TMA kernel above with `nwg`
+// consumer warpgroups a block (the rule: one at c <= 64, decode), BN `bn`
+extern "C" int expert_down(const void* h, const void* w_down, void* y, int e, int c, int f, int d, int nwg,
+                           int bn, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (e < 1 || c < 1 || f % 64 || d % 128) return (int)cudaErrorInvalidValue;
-  const bool wide = d % 256 == 0;
-  if (c <= 64)
+  if (e < 1 || c < 1 || f % 64 || d % 128 || (nwg != -1 && nwg != 1 && nwg != 2) || bad_tile(bn, d))
+    return (int)cudaErrorInvalidValue;
+  const bool wide = wide_tile(bn, d);
+  if (nwg == -1 ? c <= 64 : nwg == 1)
     return wide ? launch_down<sm90::Tile<1, 256, true>>(h, w_down, y, e, c, f, d, s)
                 : launch_down<sm90::Tile<1, 128, true>>(h, w_down, y, e, c, f, d, s);
   return wide ? launch_down<sm90::Tile<2, 256, true>>(h, w_down, y, e, c, f, d, s)
@@ -1024,12 +1036,12 @@ extern "C" int expert_gate_up_q8(const void* xe, const void* w_gate, const void*
 }
 
 // h (E, c, f) bf16; w_down (E, f, d) int8; s_down (E, d) bf16 -> y (E, c, d): the wgmma/TMA
-// kernel above, BN 256 where d allows it
+// kernel above, BN `bn`
 extern "C" int expert_down_q8(const void* h, const void* w_down, const void* s_down, void* y, int e, int c, int f,
-                              int d, void* stream) {
+                              int d, int bn, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (e < 1 || c < 1 || f % 64 || d % 128) return (int)cudaErrorInvalidValue;
-  return d % 256 == 0 ? launch_down_q8_padded<Q8Tile<256>>(h, w_down, s_down, y, e, c, f, d, s)
+  if (e < 1 || c < 1 || f % 64 || d % 128 || bad_tile(bn, d)) return (int)cudaErrorInvalidValue;
+  return wide_tile(bn, d) ? launch_down_q8_padded<Q8Tile<256>>(h, w_down, s_down, y, e, c, f, d, s)
                       : launch_down_q8_padded<Q8Tile<128>>(h, w_down, s_down, y, e, c, f, d, s);
 }
 
@@ -1045,12 +1057,12 @@ extern "C" int grouped_gate_up_q8(const void* xs, const void* w_gate, const void
 }
 
 // h (n_pad, f) bf16; w_down (E, f, d) int8; s_down (E, d) bf16 -> y (n_pad, d): the wgmma/TMA kernel
-// above, BN 256 where d allows it
+// above, BN `bn`
 extern "C" int grouped_down_q8(const void* h, const void* w_down, const void* s_down, const int* tile_group,
-                               const int* tile_rows, void* y, int n_pad, int f, int d, void* stream) {
+                               const int* tile_rows, void* y, int n_pad, int f, int d, int bn, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (n_pad % ROW_TILE || f % 64 || d % 128) return (int)cudaErrorInvalidValue;
-  return d % 256 == 0 ? launch_grouped_down<Q8Tile<256>, true, false>(h, w_down, s_down, nullptr, nullptr, tile_group,
+  if (n_pad % ROW_TILE || f % 64 || d % 128 || bad_tile(bn, d)) return (int)cudaErrorInvalidValue;
+  return wide_tile(bn, d) ? launch_grouped_down<Q8Tile<256>, true, false>(h, w_down, s_down, nullptr, nullptr, tile_group,
                                                                       tile_rows, y, n_pad, f, d, s)
                       : launch_grouped_down<Q8Tile<128>, true, false>(h, w_down, s_down, nullptr, nullptr, tile_group,
                                                                       tile_rows, y, n_pad, f, d, s);
@@ -1067,13 +1079,13 @@ extern "C" int grouped_gate_up_fused(const void* x, const void* w_gate, const vo
 }
 
 // h (n_pad, f); row_out / gate_pad (n_pad,) -> partials (k*T, d), each row written once: the wgmma/TMA kernel
-// above, BN 256 where d allows it
+// above, BN `bn`
 extern "C" int grouped_down_fused(const void* h, const void* w_down, const int* row_out, const float* gate_pad,
                                   const int* tile_group, const int* tile_rows, void* partials, int n_pad, int f,
-                                  int d, void* stream) {
+                                  int d, int bn, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (n_pad % ROW_TILE || f % 64 || d % 128) return (int)cudaErrorInvalidValue;
-  return d % 256 == 0 ? launch_grouped_down<sm90::Tile<2, 256, true>, false, true>(
+  if (n_pad % ROW_TILE || f % 64 || d % 128 || bad_tile(bn, d)) return (int)cudaErrorInvalidValue;
+  return wide_tile(bn, d) ? launch_grouped_down<sm90::Tile<2, 256, true>, false, true>(
                             h, w_down, nullptr, row_out, gate_pad, tile_group, tile_rows, partials, n_pad, f, d, s)
                       : launch_grouped_down<sm90::Tile<2, 128, true>, false, true>(
                             h, w_down, nullptr, row_out, gate_pad, tile_group, tile_rows, partials, n_pad, f, d, s);
@@ -1092,13 +1104,13 @@ extern "C" int grouped_gate_up_fused_q8(const void* x, const void* w_gate, const
 }
 
 // h (n_pad, f); w_down (E, f, d) int8; s_down (E, d) bf16; row_out / gate_pad (n_pad,) -> partials
-// (k*T, d), each row written once: the wgmma/TMA kernel above, BN 256 where d allows it
+// (k*T, d), each row written once: the wgmma/TMA kernel above, BN `bn`
 extern "C" int grouped_down_fused_q8(const void* h, const void* w_down, const void* s_down, const int* row_out,
                                      const float* gate_pad, const int* tile_group, const int* tile_rows,
-                                     void* partials, int n_pad, int f, int d, void* stream) {
+                                     void* partials, int n_pad, int f, int d, int bn, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (n_pad % ROW_TILE || f % 64 || d % 128) return (int)cudaErrorInvalidValue;
-  return d % 256 == 0 ? launch_grouped_down<Q8Tile<256>, true, true>(h, w_down, s_down, row_out, gate_pad,
+  if (n_pad % ROW_TILE || f % 64 || d % 128 || bad_tile(bn, d)) return (int)cudaErrorInvalidValue;
+  return wide_tile(bn, d) ? launch_grouped_down<Q8Tile<256>, true, true>(h, w_down, s_down, row_out, gate_pad,
                                                                      tile_group, tile_rows, partials, n_pad, f, d, s)
                       : launch_grouped_down<Q8Tile<128>, true, true>(h, w_down, s_down, row_out, gate_pad,
                                                                      tile_group, tile_rows, partials, n_pad, f, d, s);

@@ -105,28 +105,28 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {
     # xs, w_gate, w_up, tile_group, tile_rows, h, n_pad, d, f, stream
     "grouped_gate_up": [_P] * 6 + [_I] * 3 + [_P],
-    # h, w_down, tile_group, tile_rows, y, n_pad, f, d, stream
-    "grouped_down": [_P] * 5 + [_I] * 3 + [_P],
-    # xe, w_gate, w_up, h, e, c, d, f, stream
-    "expert_gate_up": [_P] * 4 + [_I] * 4 + [_P],
-    # h, w_down, y, e, c, f, d, stream
-    "expert_down": [_P] * 3 + [_I] * 4 + [_P],
+    # h, w_down, tile_group, tile_rows, y, n_pad, f, d, bn, stream
+    "grouped_down": [_P] * 5 + [_I] * 4 + [_P],
+    # xe, w_gate, w_up, h, e, c, d, f, nwg, stream
+    "expert_gate_up": [_P] * 4 + [_I] * 5 + [_P],
+    # h, w_down, y, e, c, f, d, nwg, bn, stream
+    "expert_down": [_P] * 3 + [_I] * 6 + [_P],
     # xe, w_gate, w_up, s_gate, s_up, h, e, c, d, f, stream
     "expert_gate_up_q8": [_P] * 6 + [_I] * 4 + [_P],
-    # h, w_down, s_down, y, e, c, f, d, stream
-    "expert_down_q8": [_P] * 4 + [_I] * 4 + [_P],
+    # h, w_down, s_down, y, e, c, f, d, bn, stream
+    "expert_down_q8": [_P] * 4 + [_I] * 5 + [_P],
     # xs, w_gate, w_up, s_gate, s_up, tile_group, tile_rows, h, n_pad, d, f, stream
     "grouped_gate_up_q8": [_P] * 8 + [_I] * 3 + [_P],
-    # h, w_down, s_down, tile_group, tile_rows, y, n_pad, f, d, stream
-    "grouped_down_q8": [_P] * 6 + [_I] * 3 + [_P],
+    # h, w_down, s_down, tile_group, tile_rows, y, n_pad, f, d, bn, stream
+    "grouped_down_q8": [_P] * 6 + [_I] * 4 + [_P],
     # x, w_gate, w_up, tok_pad, tile_group, tile_rows, h, n_pad, d, f, stream
     "grouped_gate_up_fused": [_P] * 7 + [_I] * 3 + [_P],
-    # h, w_down, row_out, gate_pad, tile_group, tile_rows, partials, n_pad, f, d, stream
-    "grouped_down_fused": [_P] * 7 + [_I] * 3 + [_P],
+    # h, w_down, row_out, gate_pad, tile_group, tile_rows, partials, n_pad, f, d, bn, stream
+    "grouped_down_fused": [_P] * 7 + [_I] * 4 + [_P],
     # x, w_gate, w_up, s_gate, s_up, tok_pad, tile_group, tile_rows, h, n_pad, d, f, stream
     "grouped_gate_up_fused_q8": [_P] * 9 + [_I] * 3 + [_P],
-    # h, w_down, s_down, row_out, gate_pad, tile_group, tile_rows, partials, n_pad, f, d, stream
-    "grouped_down_fused_q8": [_P] * 8 + [_I] * 3 + [_P],
+    # h, w_down, s_down, row_out, gate_pad, tile_group, tile_rows, partials, n_pad, f, d, bn, stream
+    "grouped_down_fused_q8": [_P] * 8 + [_I] * 4 + [_P],
 }
 _BWD_SIGS = {
     # xs, dy, w_gate, w_up, w_down, tile_group, tile_rows, h, dg, du, dh32 scratch, n_pad, d, f, stream
@@ -136,6 +136,56 @@ _BWD_SIGS = {
     # xs, dy, h, dg, du, row_start, rows, dwg, dwu, dwd, n_pad, e, d, f, stream
     "grouped_bwd_wgrad": [_P] * 10 + [_I] * 4 + [_P],
 }
+
+
+# The tiles csrc/grouped_gemm.cu compiles for each forward call site, the
+# autotuner's candidates, as (gate/up consumer warpgroups, down consumer
+# warpgroups, down BN): a block takes 64 rows a warpgroup and BN output
+# columns. The sorted and fused kernels take 128-row tiles (the buffer's
+# alignment) and their gate/up kernels one tile each, as does #8; the down
+# kernels compile BN 128 and 256 (256 needs D % 256 == 0), and the padded
+# bf16 pair #1/#2 one and two warpgroups.
+TILES = {
+    "expert_gemm": tuple((g, w, bn) for g in (1, 2) for w in (1, 2) for bn in (128, 256)),
+    "expert_gemm_q8": ((2, 2, 128), (2, 2, 256)),
+    **{site: ((2, 2, 128), (2, 2, 256))
+       for site in ("grouped_gemm", "grouped_gemm_q8", "grouped_gemm_fused", "grouped_gemm_fused_q8")},
+}
+
+
+def default_tile(site: str, C: int, D: int) -> tuple:
+    """The fixed rule the entry points apply with no tile given: BN 256
+    where D allows it; the padded bf16 pair one warpgroup at C <= 64
+    (decode), else two."""
+    wg = 1 if site == "expert_gemm" and C <= 64 else 2
+    return (wg, wg, 256 if D % 256 == 0 else 128)
+
+
+def tile_legal(tile, D: int) -> bool:
+    """A compiled tile is legal at output width D unless its BN is 256 and
+    D is not a multiple of 256."""
+    return tile[2] == 128 or D % 256 == 0
+
+
+def tile_smem(nwg: int, bn: int, q8: bool = False) -> int:
+    """Dynamic shared memory of ``sm90::Tile<nwg, bn, true>`` (``T::SMEM`` in
+    ``csrc/sm90_gemm.cuh``), or of ``Q8Tile<bn>`` with ``q8``: int8 B slots
+    and three widened bf16 slabs after the ring."""
+    extra = 3 * bn * 64 * 2 if q8 else 0
+    stage = 64 * nwg * 64 * 2 + bn * 64 * (1 if q8 else 2)
+    stages = min((225 * 1024 - extra) // stage, 8)
+    return stages * stage + extra + 2 * stages * 8 + 1024
+
+
+def _tile_args(site: str, tile, D: int) -> tuple:
+    """(gate/up warpgroups, down warpgroups, down BN) that the entry points
+    of ``site`` take for ``tile``, -1 each for None (the fixed rule); a tile
+    that site does not compile, or one illegal at output width D, raises."""
+    if tile is None:
+        return (-1, -1, -1)
+    if tuple(tile) not in TILES[site] or not tile_legal(tile, D):
+        raise ValueError(f"{site}: tile {tile} is not one of its compiled tiles legal at D={D}: {TILES[site]}")
+    return tuple(tile)
 
 
 def group_tiling(group_sizes: torch.Tensor, num_tiles: int, bc: int = ROW_TILE):
@@ -209,10 +259,11 @@ def gate_up_cuda(xs, w_gate, w_up, tile_group, tile_rows, out=None) -> torch.Ten
     return h
 
 
-def down_cuda(h, w_down, tile_group, tile_rows, out=None) -> torch.Tensor:
+def down_cuda(h, w_down, tile_group, tile_rows, out=None, tile=None) -> torch.Tensor:
     """Launch ``grouped_down`` (#4) on the current stream -> y (N_pad, D),
-    into ``out`` if it is given. Every check runs before the library is
-    loaded."""
+    into ``out`` if it is given, with the BN of ``tile`` (one of
+    ``TILES["grouped_gemm"]``; None: the fixed rule). Every check runs
+    before the library is loaded."""
     _check_bf16("grouped_down", h.device, h=h, w_down=w_down)
     if h.dim() != 2 or w_down.dim() != 3 or w_down.shape[1] != h.shape[1]:
         raise ValueError(f"grouped_down: h {tuple(h.shape)} must be (N_pad, F) and w_down "
@@ -224,28 +275,31 @@ def down_cuda(h, w_down, tile_group, tile_rows, out=None) -> torch.Tensor:
                          f"{COL_TILE}")
     _check_tiles("grouped_down", N_pad // ROW_TILE, h.device, tile_group=tile_group, tile_rows=tile_rows)
     _check_out("grouped_down", out, (N_pad, D), h)
+    bn = _tile_args("grouped_gemm", tile, D)[2]
     y = torch.empty((N_pad, D), dtype=h.dtype, device=h.device) if out is None else out
     _check_tma("grouped_down", h=h, w_down=w_down, out=y)
     lib = _build.load("grouped_gemm", _SIGS)
     _build.check(lib.grouped_down(
         h.data_ptr(), w_down.data_ptr(), tile_group.data_ptr(), tile_rows.data_ptr(),
-        y.data_ptr(), N_pad, F, D, torch.cuda.current_stream(h.device).cuda_stream),
+        y.data_ptr(), N_pad, F, D, bn, torch.cuda.current_stream(h.device).cuda_stream),
         "grouped_down")
     LAUNCHES["grouped_down"] += 1
     return y
 
 
-def grouped_gemm_cuda(xs, w_gate, w_up, w_down, group_sizes, row_block: int = ROW_TILE) -> torch.Tensor:
+def grouped_gemm_cuda(xs, w_gate, w_up, w_down, group_sizes, row_block: int = ROW_TILE,
+                      tile=None) -> torch.Tensor:
     """Both CUDA kernels on the current stream; raises on a refused launch."""
     _check(xs, w_gate, w_up, w_down, group_sizes, row_block)
     tg, tr = group_tiling(group_sizes, xs.shape[0] // ROW_TILE)
-    return down_cuda(gate_up_cuda(xs, w_gate, w_up, tg, tr), w_down, tg, tr)
+    return down_cuda(gate_up_cuda(xs, w_gate, w_up, tg, tr), w_down, tg, tr, tile=tile)
 
 
-def expert_gate_up_cuda(xe, w_gate, w_up, out=None) -> torch.Tensor:
+def expert_gate_up_cuda(xe, w_gate, w_up, out=None, tile=None) -> torch.Tensor:
     """Launch ``expert_gate_up`` (#1) on the current stream: (E, C, D) -> h
-    (E, C, F), into ``out`` if it is given. Every check runs before the
-    library is loaded."""
+    (E, C, F), into ``out`` if it is given, with the gate/up warpgroups of
+    ``tile`` (one of ``TILES["expert_gemm"]``; None: the fixed rule). Every
+    check runs before the library is loaded."""
     _check_bf16("expert_gate_up", xe.device, xe=xe, w_gate=w_gate, w_up=w_up)
     if xe.dim() != 3 or w_gate.dim() != 3 or xe.shape[1] < 1:
         raise ValueError(f"expert_gate_up: xe {tuple(xe.shape)} must be (E, C>=1, D) and w_gate "
@@ -256,11 +310,12 @@ def expert_gate_up_cuda(xe, w_gate, w_up, out=None) -> torch.Tensor:
         raise ValueError(f"expert_gate_up: w_gate {tuple(w_gate.shape)} and w_up {tuple(w_up.shape)} for xe "
                          f"{tuple(xe.shape)}; D and F must be multiples of {COL_TILE}")
     _check_out("expert_gate_up", out, (E, C, F), xe)
+    nwg = _tile_args("expert_gemm", tile, D)[0]
     h = torch.empty((E, C, F), dtype=xe.dtype, device=xe.device) if out is None else out
     _check_tma("expert_gate_up", xe=xe, w_gate=w_gate, w_up=w_up, out=h)
     lib = _build.load("grouped_gemm", _SIGS)
     _build.check(lib.expert_gate_up(
-        xe.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), h.data_ptr(), E, C, D, F,
+        xe.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), h.data_ptr(), E, C, D, F, nwg,
         torch.cuda.current_stream(xe.device).cuda_stream), "expert_gate_up")
     LAUNCHES["expert_gate_up"] += 1
     return h
@@ -288,10 +343,11 @@ def _check_tma(what, **tensors):
             raise ValueError(f"{what}: {name} must start on a 16-byte boundary (TMA), got {t.data_ptr():#x}")
 
 
-def expert_down_cuda(h, w_down, out=None) -> torch.Tensor:
+def expert_down_cuda(h, w_down, out=None, tile=None) -> torch.Tensor:
     """Launch ``expert_down`` on the current stream: (E, C, F) -> y (E, C, D),
-    into ``out`` if it is given. Every check runs before the library is
-    loaded."""
+    into ``out`` if it is given, with the down warpgroups and BN of
+    ``tile`` (one of ``TILES["expert_gemm"]``; None: the fixed rule). Every
+    check runs before the library is loaded."""
     E, C, F = h.shape
     D = w_down.shape[2]
     _check_bf16("expert_down", h.device, h=h, w_down=w_down)
@@ -299,11 +355,12 @@ def expert_down_cuda(h, w_down, out=None) -> torch.Tensor:
         raise ValueError(f"expert_down: w_down {tuple(w_down.shape)} for h {tuple(h.shape)}; F and D must be "
                          f"multiples of {COL_TILE}")
     _check_out("expert_down", out, (E, C, D), h)
+    _, nwg, bn = _tile_args("expert_gemm", tile, D)
     y = torch.empty((E, C, D), dtype=h.dtype, device=h.device) if out is None else out
     _check_tma("expert_down", h=h, w_down=w_down, out=y)
     lib = _build.load("grouped_gemm", _SIGS)
     _build.check(lib.expert_down(
-        h.data_ptr(), w_down.data_ptr(), y.data_ptr(), E, C, F, D,
+        h.data_ptr(), w_down.data_ptr(), y.data_ptr(), E, C, F, D, nwg, bn,
         torch.cuda.current_stream(h.device).cuda_stream), "expert_down")
     LAUNCHES["expert_down"] += 1
     return y
@@ -315,10 +372,10 @@ def _check_padded(xe, w_gate, w_up, w_down, wdtype=torch.bfloat16, scales=None):
     _check_weights("expert_gemm", xe, w_gate, w_up, w_down, wdtype, scales)
 
 
-def expert_gemm_cuda(xe, w_gate, w_up, w_down) -> torch.Tensor:
+def expert_gemm_cuda(xe, w_gate, w_up, w_down, tile=None) -> torch.Tensor:
     """#1 then #2 on the current stream; raises on a refused launch."""
     _check_padded(xe, w_gate, w_up, w_down)
-    return expert_down_cuda(expert_gate_up_cuda(xe, w_gate, w_up), w_down)
+    return expert_down_cuda(expert_gate_up_cuda(xe, w_gate, w_up, tile=tile), w_down, tile=tile)
 
 
 def _check_q8(what, device, weights, scales):
@@ -365,10 +422,10 @@ def gate_up_q8_cuda(xs, w_gate, w_up, s_gate, s_up, tile_group, tile_rows, out=N
     return h
 
 
-def down_q8_cuda(h, w_down, s_down, tile_group, tile_rows, out=None) -> torch.Tensor:
+def down_q8_cuda(h, w_down, s_down, tile_group, tile_rows, out=None, tile=None) -> torch.Tensor:
     """Launch ``grouped_down_q8`` (#11) on the current stream -> y (N_pad,
-    D), into ``out`` if it is given. Every check runs before the library
-    is loaded."""
+    D), into ``out`` if it is given, with the BN of ``tile`` (None: the
+    fixed rule). Every check runs before the library is loaded."""
     _check_bf16("grouped_down_q8", h.device, h=h)
     _check_q8("grouped_down_q8", h.device, dict(w_down=w_down), dict(s_down=s_down))
     if h.dim() != 2 or w_down.dim() != 3 or w_down.shape[1] != h.shape[1]:
@@ -383,23 +440,24 @@ def down_q8_cuda(h, w_down, s_down, tile_group, tile_rows, out=None) -> torch.Te
                          f"{COL_TILE}")
     _check_tiles("grouped_down_q8", N_pad // ROW_TILE, h.device, tile_group=tile_group, tile_rows=tile_rows)
     _check_out("grouped_down_q8", out, (N_pad, D), h)
+    bn = _tile_args("grouped_gemm_q8", tile, D)[2]
     y = torch.empty((N_pad, D), dtype=h.dtype, device=h.device) if out is None else out
     _check_tma("grouped_down_q8", h=h, w_down=w_down, out=y)
     lib = _build.load("grouped_gemm", _SIGS)
     _build.check(lib.grouped_down_q8(
         h.data_ptr(), w_down.data_ptr(), s_down.data_ptr(), tile_group.data_ptr(), tile_rows.data_ptr(),
-        y.data_ptr(), N_pad, F, D, torch.cuda.current_stream(h.device).cuda_stream), "grouped_down_q8")
+        y.data_ptr(), N_pad, F, D, bn, torch.cuda.current_stream(h.device).cuda_stream), "grouped_down_q8")
     LAUNCHES["grouped_down_q8"] += 1
     return y
 
 
 def grouped_gemm_q8_cuda(xs, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes,
-                         row_block: int = ROW_TILE) -> torch.Tensor:
+                         row_block: int = ROW_TILE, tile=None) -> torch.Tensor:
     """#10 then #11 on the current stream; raises on a refused launch."""
     _check(xs, w_gate, w_up, w_down, group_sizes, row_block, torch.int8, (s_gate, s_up, s_down))
     tg, tr = group_tiling(group_sizes, xs.shape[0] // ROW_TILE)
     h = gate_up_q8_cuda(xs, w_gate, w_up, s_gate, s_up, tg, tr)
-    return down_q8_cuda(h, w_down, s_down, tg, tr)
+    return down_q8_cuda(h, w_down, s_down, tg, tr, tile=tile)
 
 
 def expert_gate_up_q8_cuda(xe, w_gate, w_up, s_gate, s_up, out=None) -> torch.Tensor:
@@ -430,10 +488,11 @@ def expert_gate_up_q8_cuda(xe, w_gate, w_up, s_gate, s_up, out=None) -> torch.Te
     return h
 
 
-def expert_down_q8_cuda(h, w_down, s_down, out=None) -> torch.Tensor:
+def expert_down_q8_cuda(h, w_down, s_down, out=None, tile=None) -> torch.Tensor:
     """Launch ``expert_down_q8`` (#9) on the current stream: (E, C, F) ->
-    y (E, C, D), into ``out`` if it is given. Every check runs before the
-    library is loaded."""
+    y (E, C, D), into ``out`` if it is given, with the BN of ``tile`` (one
+    of ``TILES["expert_gemm_q8"]``; None: the fixed rule). Every check runs
+    before the library is loaded."""
     _check_bf16("expert_down_q8", h.device, h=h)
     _check_q8("expert_down_q8", h.device, dict(w_down=w_down), dict(s_down=s_down))
     if h.dim() != 3 or w_down.dim() != 3 or h.shape[1] < 1:
@@ -447,20 +506,21 @@ def expert_down_q8_cuda(h, w_down, s_down, out=None) -> torch.Tensor:
     if F % COL_TILE or D % COL_TILE:
         raise ValueError(f"expert_down_q8: F={F} and D={D} must be multiples of {COL_TILE}")
     _check_out("expert_down_q8", out, (E, C, D), h)
+    bn = _tile_args("expert_gemm_q8", tile, D)[2]
     y = torch.empty((E, C, D), dtype=h.dtype, device=h.device) if out is None else out
     _check_tma("expert_down_q8", h=h, w_down=w_down, out=y)
     lib = _build.load("grouped_gemm", _SIGS)
     _build.check(lib.expert_down_q8(
-        h.data_ptr(), w_down.data_ptr(), s_down.data_ptr(), y.data_ptr(), E, C, F, D,
+        h.data_ptr(), w_down.data_ptr(), s_down.data_ptr(), y.data_ptr(), E, C, F, D, bn,
         torch.cuda.current_stream(h.device).cuda_stream), "expert_down_q8")
     LAUNCHES["expert_down_q8"] += 1
     return y
 
 
-def expert_gemm_q8_cuda(xe, w_gate, w_up, w_down, s_gate, s_up, s_down) -> torch.Tensor:
+def expert_gemm_q8_cuda(xe, w_gate, w_up, w_down, s_gate, s_up, s_down, tile=None) -> torch.Tensor:
     """#8 then #9 on the current stream; raises on a refused launch."""
     _check_padded(xe, w_gate, w_up, w_down, torch.int8, (s_gate, s_up, s_down))
-    return expert_down_q8_cuda(expert_gate_up_q8_cuda(xe, w_gate, w_up, s_gate, s_up), w_down, s_down)
+    return expert_down_q8_cuda(expert_gate_up_q8_cuda(xe, w_gate, w_up, s_gate, s_up), w_down, s_down, tile=tile)
 
 
 def _check_outs(what, out, shapes, like):
@@ -575,11 +635,13 @@ def grouped_gemm_bwd_cuda(xs, dy, w_gate, w_up, w_down, group_sizes, row_block: 
     return (dx, *bwd_wgrad_cuda(xs, dy, h, dg, du, group_sizes))
 
 
-def grouped_gemm_fwd(xs, w_gate, w_up, w_down, group_sizes, row_block: int = ROW_TILE) -> torch.Tensor:
-    """Forward without autograd: a CUDA tensor launches the kernels (or
-    raises); a CPU tensor runs the plain version."""
+def grouped_gemm_fwd(xs, w_gate, w_up, w_down, group_sizes, row_block: int = ROW_TILE,
+                     tile=None) -> torch.Tensor:
+    """Forward without autograd: a CUDA tensor launches the kernels with
+    ``tile`` (or raises); a CPU tensor runs the plain version, which no tile
+    changes."""
     if xs.is_cuda:
-        return grouped_gemm_cuda(xs, w_gate, w_up, w_down, group_sizes, row_block)
+        return grouped_gemm_cuda(xs, w_gate, w_up, w_down, group_sizes, row_block, tile)
     if xs.device.type != "cpu":
         raise ValueError(f"grouped_gemm: unsupported device {xs.device}")
     return grouped_gemm_ref(xs, w_gate, w_up, w_down, group_sizes, row_block)
@@ -603,27 +665,28 @@ class GroupedGemm(torch.autograd.Function):
     holds each backward call against its plain version that way)."""
 
     @staticmethod
-    def forward(ctx, xs, w_gate, w_up, w_down, group_sizes, row_block):
+    def forward(ctx, xs, w_gate, w_up, w_down, group_sizes, row_block, tile=None):
         ctx.row_block = row_block
         ctx.save_for_backward(xs, w_gate, w_up, w_down, group_sizes)
-        return grouped_gemm_fwd(xs, w_gate, w_up, w_down, group_sizes, row_block)
+        return grouped_gemm_fwd(xs, w_gate, w_up, w_down, group_sizes, row_block, tile)
 
     @staticmethod
     def backward(ctx, dy):
         xs, w_gate, w_up, w_down, group_sizes = ctx.saved_tensors
         grads = grouped_gemm_bwd(xs, dy.contiguous(), w_gate, w_up, w_down, group_sizes, ctx.row_block)
-        return (*grads, None, None)
+        return (*grads, None, None, None)
 
 
-def grouped_gemm(xs, w_gate, w_up, w_down, group_sizes, row_block: int = ROW_TILE) -> torch.Tensor:
+def grouped_gemm(xs, w_gate, w_up, w_down, group_sizes, row_block: int = ROW_TILE, tile=None) -> torch.Tensor:
     """(N_pad, D) expert-sorted rows -> (N_pad, D), differentiable through
     :class:`GroupedGemm` on both devices. A CUDA tensor launches the kernels
-    (or raises); a CPU tensor runs the plain versions."""
-    return GroupedGemm.apply(xs, w_gate, w_up, w_down, group_sizes, row_block)
+    (or raises), the down kernel at ``tile``'s BN (None: the fixed rule); a
+    CPU tensor runs the plain versions."""
+    return GroupedGemm.apply(xs, w_gate, w_up, w_down, group_sizes, row_block, tile)
 
 
 def grouped_gemm_q8(xs, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes,
-                    row_block: int = ROW_TILE) -> torch.Tensor:
+                    row_block: int = ROW_TILE, tile=None) -> torch.Tensor:
     """int8-weight grouped FFN over the sorted layout, forward only (the
     JAX q8 kernels have no VJP): a weight that requires grad raises. A CUDA
     tensor launches #10 and #11 (or raises); a CPU tensor runs the plain
@@ -631,7 +694,7 @@ def grouped_gemm_q8(xs, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes,
     if any(w.requires_grad for w in (w_gate, w_up, w_down, s_gate, s_up, s_down)):
         raise ValueError("grouped_gemm_q8 is forward only: int8 expert weights have no gradient")
     if xs.is_cuda:
-        return grouped_gemm_q8_cuda(xs, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes, row_block)
+        return grouped_gemm_q8_cuda(xs, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes, row_block, tile)
     if xs.device.type != "cpu":
         raise ValueError(f"grouped_gemm_q8: unsupported device {xs.device}")
     return grouped_gemm_q8_ref(xs, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes, row_block)
@@ -649,11 +712,11 @@ def _aligned_view(t: torch.Tensor) -> torch.Tensor:
     return out.reshape(E * Cp, X)
 
 
-def expert_gemm_fwd(xe, w_gate, w_up, w_down) -> torch.Tensor:
+def expert_gemm_fwd(xe, w_gate, w_up, w_down, tile=None) -> torch.Tensor:
     """Padded forward without autograd: a CUDA tensor launches #1 and #2
-    (or raises); a CPU tensor runs the plain version."""
+    at ``tile`` (or raises); a CPU tensor runs the plain version."""
     if xe.is_cuda:
-        return expert_gemm_cuda(xe, w_gate, w_up, w_down)
+        return expert_gemm_cuda(xe, w_gate, w_up, w_down, tile)
     if xe.device.type != "cpu":
         raise ValueError(f"expert_gemm: unsupported device {xe.device}")
     return expert_gemm_ref(xe, w_gate, w_up, w_down)
@@ -669,9 +732,9 @@ class ExpertGemm(torch.autograd.Function):
     time) and sliced back to C rows."""
 
     @staticmethod
-    def forward(ctx, xe, w_gate, w_up, w_down):
+    def forward(ctx, xe, w_gate, w_up, w_down, tile=None):
         ctx.save_for_backward(xe, w_gate, w_up, w_down)
-        return expert_gemm_fwd(xe, w_gate, w_up, w_down)
+        return expert_gemm_fwd(xe, w_gate, w_up, w_down, tile)
 
     @staticmethod
     def backward(ctx, dy):
@@ -680,16 +743,17 @@ class ExpertGemm(torch.autograd.Function):
         gs = torch.full((E,), C, dtype=torch.int32, device=xe.device)
         dxs, dwg, dwu, dwd = grouped_gemm_bwd(_aligned_view(xe), _aligned_view(dy.contiguous()),
                                               w_gate, w_up, w_down, gs, ROW_TILE)
-        return dxs.reshape(E, -1, D)[:, :C], dwg, dwu, dwd
+        return dxs.reshape(E, -1, D)[:, :C], dwg, dwu, dwd, None
 
 
-def expert_gemm(xe, w_gate, w_up, w_down) -> torch.Tensor:
+def expert_gemm(xe, w_gate, w_up, w_down, tile=None) -> torch.Tensor:
     """(E, C, D) padded expert buffer -> (E, C, D), differentiable through
-    :class:`ExpertGemm` on both devices."""
-    return ExpertGemm.apply(xe, w_gate, w_up, w_down)
+    :class:`ExpertGemm` on both devices; ``tile`` as in
+    :func:`expert_gemm_cuda`."""
+    return ExpertGemm.apply(xe, w_gate, w_up, w_down, tile)
 
 
-def expert_gemm_q8(xe, w_gate, w_up, w_down, s_gate, s_up, s_down) -> torch.Tensor:
+def expert_gemm_q8(xe, w_gate, w_up, w_down, s_gate, s_up, s_down, tile=None) -> torch.Tensor:
     """int8-weight padded expert FFN over (E, C, D), forward only (the JAX
     q8 kernels have no VJP): a weight that requires grad raises. A CUDA
     tensor launches #8 and #9 (or raises); a CPU tensor runs the plain
@@ -697,7 +761,7 @@ def expert_gemm_q8(xe, w_gate, w_up, w_down, s_gate, s_up, s_down) -> torch.Tens
     if any(w.requires_grad for w in (w_gate, w_up, w_down, s_gate, s_up, s_down)):
         raise ValueError("expert_gemm_q8 is forward only: int8 expert weights have no gradient")
     if xe.is_cuda:
-        return expert_gemm_q8_cuda(xe, w_gate, w_up, w_down, s_gate, s_up, s_down)
+        return expert_gemm_q8_cuda(xe, w_gate, w_up, w_down, s_gate, s_up, s_down, tile)
     if xe.device.type != "cpu":
         raise ValueError(f"expert_gemm_q8: unsupported device {xe.device}")
     return expert_gemm_q8_ref(xe, w_gate, w_up, w_down, s_gate, s_up, s_down)
@@ -805,11 +869,12 @@ def fused_gate_up_cuda(x, w_gate, w_up, tok_pad, tile_group, tile_rows, out=None
 
 
 def fused_down_cuda(h, w_down, row_out, gate_pad, tile_group, tile_rows, k: int, T: int,
-                    out=None) -> torch.Tensor:
+                    out=None, tile=None) -> torch.Tensor:
     """Launch ``grouped_down_fused`` (#13): h (N_pad, F) -> slot partials
     (k, T, D), every row written exactly once (so ``torch.empty``; ``out``,
-    a contiguous (k, T, D) tensor of h's dtype, is written in its place).
-    Every check runs before the library is loaded."""
+    a contiguous (k, T, D) tensor of h's dtype, is written in its place),
+    at the BN of ``tile`` (None: the fixed rule). Every check runs before
+    the library is loaded."""
     _check_bf16("grouped_down_fused", h.device, h=h, w_down=w_down)
     if h.dim() != 2 or w_down.dim() != 3 or w_down.shape[1] != h.shape[1]:
         raise ValueError(f"grouped_down_fused: h {tuple(h.shape)} must be (N_pad, F) and w_down "
@@ -822,11 +887,12 @@ def fused_down_cuda(h, w_down, row_out, gate_pad, tile_group, tile_rows, k: int,
     _check_combine_rows("grouped_down_fused", N_pad, h.device, row_out, gate_pad)
     _check_tiles("grouped_down_fused", N_pad // ROW_TILE, h.device, tile_group=tile_group, tile_rows=tile_rows)
     partials = _partials(out, k, T, D, h)
+    bn = _tile_args("grouped_gemm_fused", tile, D)[2]
     _check_tma("grouped_down_fused", h=h, w_down=w_down, out=partials)
     lib = _build.load("grouped_gemm", _SIGS)
     _build.check(lib.grouped_down_fused(
         h.data_ptr(), w_down.data_ptr(), row_out.data_ptr(), gate_pad.data_ptr(), tile_group.data_ptr(),
-        tile_rows.data_ptr(), partials.data_ptr(), N_pad, F, D, torch.cuda.current_stream(h.device).cuda_stream),
+        tile_rows.data_ptr(), partials.data_ptr(), N_pad, F, D, bn, torch.cuda.current_stream(h.device).cuda_stream),
         "grouped_down_fused")
     LAUNCHES["grouped_down_fused"] += 1
     return partials
@@ -869,11 +935,12 @@ def fused_gate_up_q8_cuda(x, w_gate, w_up, s_gate, s_up, tok_pad, tile_group, ti
 
 
 def fused_down_q8_cuda(h, w_down, s_down, row_out, gate_pad, tile_group, tile_rows, k: int, T: int,
-                       out=None) -> torch.Tensor:
+                       out=None, tile=None) -> torch.Tensor:
     """Launch ``grouped_down_fused_q8`` (#15): h (N_pad, F) -> slot
     partials (k, T, D), every row written exactly once (``out``, a
-    contiguous (k, T, D) tensor of h's dtype, is written in its place).
-    Every check runs before the library is loaded."""
+    contiguous (k, T, D) tensor of h's dtype, is written in its place), at
+    the BN of ``tile`` (None: the fixed rule). Every check runs before the
+    library is loaded."""
     _check_bf16("grouped_down_fused_q8", h.device, h=h)
     _check_q8("grouped_down_fused_q8", h.device, dict(w_down=w_down), dict(s_down=s_down))
     if h.dim() != 2 or w_down.dim() != 3 or w_down.shape[1] != h.shape[1]:
@@ -889,11 +956,12 @@ def fused_down_q8_cuda(h, w_down, s_down, row_out, gate_pad, tile_group, tile_ro
     _check_combine_rows("grouped_down_fused_q8", N_pad, h.device, row_out, gate_pad)
     _check_tiles("grouped_down_fused_q8", N_pad // ROW_TILE, h.device, tile_group=tile_group, tile_rows=tile_rows)
     partials = _partials(out, k, T, D, h)
+    bn = _tile_args("grouped_gemm_fused_q8", tile, D)[2]
     _check_tma("grouped_down_fused_q8", h=h, w_down=w_down, out=partials)
     lib = _build.load("grouped_gemm", _SIGS)
     _build.check(lib.grouped_down_fused_q8(
         h.data_ptr(), w_down.data_ptr(), s_down.data_ptr(), row_out.data_ptr(), gate_pad.data_ptr(),
-        tile_group.data_ptr(), tile_rows.data_ptr(), partials.data_ptr(), N_pad, F, D,
+        tile_group.data_ptr(), tile_rows.data_ptr(), partials.data_ptr(), N_pad, F, D, bn,
         torch.cuda.current_stream(h.device).cuda_stream), "grouped_down_fused_q8")
     LAUNCHES["grouped_down_fused_q8"] += 1
     return partials
@@ -914,34 +982,35 @@ def _check_fused(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_s
 
 
 def grouped_gemm_fused_cuda(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted,
-                            row_block: int = ROW_TILE) -> torch.Tensor:
+                            row_block: int = ROW_TILE, tile=None) -> torch.Tensor:
     """#12 then #13 on the current stream, then the fp32 k-way sum; raises
     on a refused launch."""
     _check_fused(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted, row_block)
     T = x.shape[0]
     tok_pad, row_out, gate_pad, tg, tr, k = fused_tables(w_gate, group_sizes, token, dest, slot, gate_sorted, T)
     h = fused_gate_up_cuda(x, w_gate, w_up, tok_pad, tg, tr)
-    return combine_partials(fused_down_cuda(h, w_down, row_out, gate_pad, tg, tr, k, T), x.dtype)
+    return combine_partials(fused_down_cuda(h, w_down, row_out, gate_pad, tg, tr, k, T, tile=tile), x.dtype)
 
 
 def grouped_gemm_fused_q8_cuda(x, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes, token, dest, slot,
-                               gate_sorted, row_block: int = ROW_TILE) -> torch.Tensor:
+                               gate_sorted, row_block: int = ROW_TILE, tile=None) -> torch.Tensor:
     """#14 then #15 on the current stream, then the fp32 k-way sum."""
     _check_fused(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted, row_block, torch.int8,
                  (s_gate, s_up, s_down))
     T = x.shape[0]
     tok_pad, row_out, gate_pad, tg, tr, k = fused_tables(w_gate, group_sizes, token, dest, slot, gate_sorted, T)
     h = fused_gate_up_q8_cuda(x, w_gate, w_up, s_gate, s_up, tok_pad, tg, tr)
-    return combine_partials(fused_down_q8_cuda(h, w_down, s_down, row_out, gate_pad, tg, tr, k, T), x.dtype)
+    return combine_partials(fused_down_q8_cuda(h, w_down, s_down, row_out, gate_pad, tg, tr, k, T, tile=tile),
+                            x.dtype)
 
 
 def grouped_gemm_fused_fwd(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted,
-                           row_block: int = ROW_TILE) -> torch.Tensor:
-    """Fused forward without autograd: a CUDA tensor launches #12/#13 (or
-    raises); a CPU tensor runs the plain version."""
+                           row_block: int = ROW_TILE, tile=None) -> torch.Tensor:
+    """Fused forward without autograd: a CUDA tensor launches #12/#13 at
+    ``tile`` (or raises); a CPU tensor runs the plain version."""
     if x.is_cuda:
         return grouped_gemm_fused_cuda(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted,
-                                       row_block)
+                                       row_block, tile)
     if x.device.type != "cpu":
         raise ValueError(f"grouped_gemm_fused: unsupported device {x.device}")
     return grouped_gemm_fused_ref(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted, row_block)
@@ -960,11 +1029,11 @@ class FusedMoe(torch.autograd.Function):
     are looked up at call time, so a caller may wrap them."""
 
     @staticmethod
-    def forward(ctx, x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted, row_block):
+    def forward(ctx, x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted, row_block, tile=None):
         ctx.row_block = row_block
         ctx.save_for_backward(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted)
         return grouped_gemm_fused_fwd(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted,
-                                      row_block)
+                                      row_block, tile)
 
     @staticmethod
     def backward(ctx, dy):
@@ -980,20 +1049,20 @@ class FusedMoe(torch.autograd.Function):
         dys[dest] = (dyv * gate_sorted.float()[:, None]).to(xs.dtype)
         dxs, dwg, dwu, dwd = grouped_gemm_bwd(xs, dys, w_gate, w_up, w_down, group_sizes, rb)
         dx = torch.zeros_like(x).index_add_(0, token, dxs[dest])
-        return dx, dwg, dwu, dwd, None, None, None, None, dgate, None
+        return dx, dwg, dwu, dwd, None, None, None, None, dgate, None, None
 
 
 def grouped_gemm_fused(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted,
-                       row_block: int = ROW_TILE) -> torch.Tensor:
+                       row_block: int = ROW_TILE, tile=None) -> torch.Tensor:
     """(T, D) token-major activations -> (T, D): the sorted MoE FFN with the
     token gather in the gate/up prologue and the gate-weighted combine in
     the down epilogue; differentiable in x, the weights and the gates
     through :class:`FusedMoe` on both devices."""
-    return FusedMoe.apply(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted, row_block)
+    return FusedMoe.apply(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, gate_sorted, row_block, tile)
 
 
 def grouped_gemm_fused_q8(x, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes, token, dest, slot,
-                          gate_sorted, row_block: int = ROW_TILE) -> torch.Tensor:
+                          gate_sorted, row_block: int = ROW_TILE, tile=None) -> torch.Tensor:
     """int8-weight fused-dispatch FFN, forward only (as in the JAX package):
     a weight that requires grad raises. A CUDA tensor launches #14/#15 (or
     raises); a CPU tensor runs the plain version."""
@@ -1001,7 +1070,7 @@ def grouped_gemm_fused_q8(x, w_gate, w_up, w_down, s_gate, s_up, s_down, group_s
         raise ValueError("grouped_gemm_fused_q8 is forward only: int8 expert weights have no gradient")
     args = (x, w_gate, w_up, w_down, s_gate, s_up, s_down, group_sizes, token, dest, slot, gate_sorted, row_block)
     if x.is_cuda:
-        return grouped_gemm_fused_q8_cuda(*args)
+        return grouped_gemm_fused_q8_cuda(*args, tile)
     if x.device.type != "cpu":
         raise ValueError(f"grouped_gemm_fused_q8: unsupported device {x.device}")
     return grouped_gemm_fused_q8_ref(*args)

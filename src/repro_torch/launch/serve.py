@@ -12,6 +12,9 @@ cache or page pool), on the card unless ``--device cpu``.
       --smoke --use-kernel --fused-dispatch --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-e8t2 \\
       --smoke --dispatcher allgather --quant-weights int8 --use-kernel --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-e8t2 \\
+      --smoke --dispatcher sorted --use-kernel --cache-mode paged --speculate 3 \\
+      --autotune --device cpu
 
 With no ``--dispatcher`` the config's choice stands: llama3-e8t2's
 ``alltoall`` has no expert-parallel plan on one card, so it falls back to
@@ -24,10 +27,20 @@ with their scales (``init_from_decls(..., quant_weights="int8")``), so no
 bf16 expert tree is ever held. ``--fused-dispatch`` (needs ``--use-kernel``,
 implies ``--dispatcher sorted``) runs the sorted dispatcher's gather and
 combine inside the grouped-GEMM kernels.
+
+``--speculate K`` (paged mode) drafts K tokens a step and verifies them in
+one chunk (``serving/speculative.py``). For an MoE ``--arch`` the drafter
+is its dense parent and the served params are upcycled from it (the
+paper's function-preserving pair); ``--draft-arch`` draws an independent
+drafter from ``--seed + 1``; otherwise the model drafts for itself.
+``--autotune`` sets ``REPRO_AUTOTUNE=1`` before any kernel wrapper runs, so
+each expert-GEMM call site picks among its kernels' compiled tiles
+(``kernels/autotune.py``).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -38,6 +51,7 @@ from repro_torch.models.model import model_decl
 from repro_torch.params import init_from_decls, resolve_device
 from repro_torch.resilience import ShedError
 from repro_torch.serving.engine import Request, ServingEngine
+from repro_torch.serving.speculative import SpeculativeEngine
 
 
 def main(argv=None):
@@ -88,11 +102,24 @@ def main(argv=None):
                     help="dispatch-in-kernel MoE: the sorted dispatcher's gather and combine "
                          "run inside the grouped-GEMM kernels (requires --use-kernel; implies "
                          "--dispatcher sorted)")
+    ap.add_argument("--speculate", type=int, default=0, metavar="K",
+                    help="speculative decoding: draft K tokens per step on a dense drafter, verify them "
+                         "in one chunk (paged mode only). For an MoE --arch the drafter is its dense "
+                         "parent and the served params are upcycled from it; otherwise the model "
+                         "drafts for itself unless --draft-arch says otherwise")
+    ap.add_argument("--draft-arch", default=None,
+                    help="drafter architecture for --speculate (must share the vocab; drawn "
+                         "independently from --seed + 1, so expect low acceptance)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="tile autotuner over the kernels' compiled tiles (sets REPRO_AUTOTUNE=1; "
+                         "winners persist in $XDG_CACHE_HOME/repro_torch_autotune.json)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
     args = ap.parse_args(argv)
-    if args.prefix_cache and args.cache_mode != "paged":
-        ap.error("--prefix-cache requires --cache-mode paged")
+    if args.autotune:
+        os.environ["REPRO_AUTOTUNE"] = "1"  # before any kernel wrapper runs
+    if (args.speculate or args.prefix_cache) and args.cache_mode != "paged":
+        ap.error("--speculate/--prefix-cache require --cache-mode paged")
     if args.quant_kv != "none" and args.cache_mode != "paged":
         ap.error("--quant-kv requires --cache-mode paged (the scale sidecar "
                  "lives in the page pool)")
@@ -108,10 +135,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
-    params = init_from_decls(model_decl(cfg), args.seed, device, quant_weights=args.quant_weights)
-    engine = ServingEngine(
-        cfg, params, max_batch=args.max_batch,
-        max_seq=args.prompt_len + args.max_new + 8,
+    common = dict(
+        max_batch=args.max_batch, max_seq=args.prompt_len + args.max_new + 8,
         dispatcher=args.dispatcher, use_kernel=args.use_kernel,
         cache_mode=args.cache_mode, page_size=args.page_size, num_pages=args.num_pages,
         prefill_chunk=args.prefill_chunk, deadline_steps=args.deadline_steps or None,
@@ -119,6 +144,25 @@ def main(argv=None):
         prefix_cache=args.prefix_cache, quant_weights=args.quant_weights, quant_kv=args.quant_kv,
         fused_dispatch=args.fused_dispatch, device=device,
     )
+    if args.speculate and args.draft_arch is None and cfg.moe is not None:
+        # the paper's pairing: the served params upcycled from the dense
+        # parent, which drafts (function-preserving init: acceptance ~1)
+        dense_cfg = cfg.replace(name=f"{cfg.name}-parent", family="dense", moe=None)
+        dense_params = init_from_decls(model_decl(dense_cfg), args.seed, device)
+        engine = SpeculativeEngine.from_upcycle(dense_cfg, cfg, dense_params, seed=args.seed,
+                                                draft_k=args.speculate, **common)
+    else:
+        params = init_from_decls(model_decl(cfg), args.seed, device, quant_weights=args.quant_weights)
+        if not args.speculate:
+            engine = ServingEngine(cfg, params, **common)
+        elif args.draft_arch is not None:
+            dcfg = get_config(args.draft_arch)
+            if args.smoke:
+                dcfg = smoke_config(dcfg)
+            dparams = init_from_decls(model_decl(dcfg), args.seed + 1, device)
+            engine = SpeculativeEngine(cfg, params, dcfg, dparams, draft_k=args.speculate, **common)
+        else:
+            engine = SpeculativeEngine(cfg, params, cfg, params, draft_k=args.speculate, **common)
     rng = np.random.default_rng(args.seed)
 
     def _prompt():
@@ -176,6 +220,14 @@ def main(argv=None):
               f"{p['hit_tokens']} prompt tokens served from cache, "
               f"{p['cow_clones']} COW clones, "
               f"{p['resident_pages']} pages resident")
+    if args.speculate:
+        s = kv["speculation"]
+        print(f"  speculation: k={s['draft_k']}, acceptance {s['acceptance_rate']:.2%} "
+              f"({s['accepted_tokens']}/{s['drafted_tokens']} drafts over {s['spec_steps']} verify steps)")
+    if args.autotune:
+        from repro_torch.kernels import autotune
+
+        print(f"  autotune: {autotune.stats()} (cache {autotune.cache_path()})")
     for rid, out in sorted(outputs.items())[:4]:
         print(f"  req {rid}: {out[:12]}{'...' if len(out) > 12 else ''}")
     return outputs

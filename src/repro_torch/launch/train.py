@@ -36,12 +36,16 @@ upcycling, so an upcycled run restarts from its MoE state (the manifest's
 provenance block records the recipe). ``--save-ckpt`` also writes the
 flat params checkpoint at the end. ``--supervise`` arms the anomaly
 supervisor, which rolls back to the last good checkpoint after
-``--rollback-after`` consecutive skipped steps. ``--autotune`` raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+``--rollback-after`` consecutive skipped steps. ``--autotune`` sets
+``REPRO_AUTOTUNE=1`` before any kernel wrapper runs, so each forward
+expert-GEMM call site picks among its kernels' compiled tiles
+(``kernels/autotune.py``); the backward kernels keep their fixed tiles, as
+the JAX package tunes forward call sites only.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 from repro_torch.config import MoEConfig, TrainConfig, get_config, smoke_config
 from repro_torch.core.quant import quantize_params
@@ -85,7 +89,9 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="arm the anomaly supervisor: skip NaN/spike steps, roll back to the last good checkpoint "
                          "after --rollback-after consecutive bad steps")
     ap.add_argument("--rollback-after", type=int, default=3, help="consecutive anomalous steps before rollback")
-    ap.add_argument("--autotune", action="store_true", help="not ported: the CUDA kernels have fixed tiles")
+    ap.add_argument("--autotune", action="store_true",
+                    help="tile autotuner over the kernels' compiled tiles (sets REPRO_AUTOTUNE=1; winners "
+                         "persist in $XDG_CACHE_HOME/repro_torch_autotune.json)")
     ap.add_argument("--quant-weights", default="none", choices=["none", "int8"],
                     help="after training, report the held-out CE with int8 expert weights")
     return ap
@@ -94,8 +100,7 @@ def build_argparser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_argparser().parse_args(argv)
     if args.autotune:
-        raise NotImplementedError("--autotune is not ported yet (ROADMAP queue 1, 'Tile autotuner'; the CUDA "
-                                  "kernels have fixed tiles)")
+        os.environ["REPRO_AUTOTUNE"] = "1"  # before any kernel wrapper runs
     if args.fused_dispatch:
         if not args.use_kernel:
             raise SystemExit("--fused-dispatch requires --use-kernel (the fusion lives in the grouped-GEMM kernels)")
@@ -188,6 +193,10 @@ def main(argv=None):
             qce = tr.eval_loss(batches=4)
             tr.state.params = trained
             print(f"int8-expert held-out CE: {qce:.4f} (delta {qce - ce:+.4f} vs bf16)")
+    if args.autotune:
+        from repro_torch.kernels import autotune
+
+        print(f"autotune: {autotune.stats()} (cache {autotune.cache_path()})")
     return tr
 
 

@@ -8,7 +8,7 @@ clipping, bias correction, decoupled weight decay on matrices only
 new trees, the port updates in place, one tensor at a time and in chunks of
 ``CHUNK`` elements, so the only fp32 temporaries are two chunks (the
 clipped gradient and the denominator), never a second fp32 tree. ZeRO-1
-sharding waits for the multi-GPU item (ROADMAP queue 1 item 9).
+sharding waits for the multi-GPU item (ROADMAP queue 1, 'Multi-GPU').
 """
 from __future__ import annotations
 

@@ -304,9 +304,7 @@ class ServingEngine:
             req.done = True
             req.status = "deadline"
         if plan.cow_copies:
-            # prefix-cache COW clones, copied before any chunk of this step
-            # writes into the clone
-            copy_pages(self.pool_dev, plan.cow_copies)
+            self._apply_cow(plan.cow_copies)
         # sample the peak right after planning (allocation): on_token below
         # may free a finished request's pages within the same step
         self._sample_peaks()
@@ -328,6 +326,12 @@ class ServingEngine:
             self.peak_live_pages, self.page_pool.used_pages - self.page_pool.evictable_pages
         )
 
+    def _apply_cow(self, copies) -> None:
+        """Copy the prefix cache's COW clones on the device pool(s) before
+        any chunk of this step writes into a clone; SpeculativeEngine
+        overrides to copy its drafter pool too."""
+        copy_pages(self.pool_dev, copies)
+
     def _run_prefills(self, plan, bt: torch.Tensor) -> None:
         for c in plan.prefills:
             t0 = time.perf_counter()
@@ -337,13 +341,12 @@ class ServingEngine:
             toks = np.zeros((1, self.prefill_chunk), np.int64)
             toks[0, : c.length] = full[c.start : c.start + c.length]
             dev = self.device
-            logits, _ = paged_forward(
-                self.cfg, self.params, self.pool_dev,
+            logits = self._prefill_chunk_device(
                 torch.from_numpy(toks).to(dev),
                 torch.tensor([c.start], dtype=torch.int32, device=dev),
                 bt[c.slot : c.slot + 1],
                 torch.tensor([c.length], dtype=torch.int32, device=dev),
-                use_kernel=self.use_kernel, trash_page=self._trash[c.slot : c.slot + 1],
+                self._trash[c.slot : c.slot + 1],
             )
             tok = int(torch.argmax(logits[0, : self.cfg.vocab_size]))
             self.timings["prefill_chunk_s"].append(time.perf_counter() - t0)
@@ -355,8 +358,17 @@ class ServingEngine:
                 self._next_np[c.slot] = tok
                 self.sched.on_token(c.slot, self._emit(req, tok))
 
+    def _prefill_chunk_device(self, toks, start, bt, vlen, trash) -> torch.Tensor:
+        """One prefill chunk into the device pool; returns its logits.
+        SpeculativeEngine overrides to prefill its drafter pool in
+        lockstep."""
+        logits, _ = paged_forward(self.cfg, self.params, self.pool_dev, toks, start, bt, vlen,
+                                  use_kernel=self.use_kernel, trash_page=trash)
+        return logits
+
     def _run_decode(self, plan, bt: torch.Tensor) -> None:
-        """One decode token for every ready slot."""
+        """One decode token for every ready slot. SpeculativeEngine
+        overrides with draft-k, verify-in-one-chunk."""
         t0 = time.perf_counter()
         active = np.zeros((self.max_batch,), np.int32)
         pos = np.zeros((self.max_batch,), np.int32)
@@ -385,8 +397,13 @@ class ServingEngine:
         if not mapping:
             return False
         self.sched.apply_defrag(mapping)
-        permute_pool(self.pool_dev, mapping)
+        self._permute_pools(mapping)
         return True
+
+    def _permute_pools(self, mapping) -> None:
+        """Apply a defrag mapping to the device pool(s); SpeculativeEngine
+        overrides to move its drafter pool with the same mapping."""
+        permute_pool(self.pool_dev, mapping)
 
     @property
     def has_work(self) -> bool:

@@ -281,13 +281,21 @@ def test_train_cli_on_the_cpu(capsys):
     assert np.isfinite(tr.history[0]["loss"])
 
 
-def test_train_cli_defaults_to_the_card_and_refuses_unported_flags():
-    """The card is the default device; ``--autotune`` (the tile autotuner)
-    is the one flag of the JAX launcher still refused. The checkpoint flags
-    work (``tests/test_torch_checkpoint.py``)."""
+def test_train_cli_defaults_to_the_card_and_autotunes_on_request(tmp_path, monkeypatch):
+    """The card is the default device; ``--autotune --device cpu`` trains one
+    step and resolves its tiles through the tuner (the checkpoint flags:
+    ``tests/test_torch_checkpoint.py``)."""
+    from repro_torch.kernels import autotune
+
     argv = ["--arch", "llama3-8b", "--smoke", "--steps", "1", "--batch", "2", "--seq", "16"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             train_cli(argv)
-    with pytest.raises(NotImplementedError, match="not ported yet.*ROADMAP"):
-        train_cli(argv + ["--autotune", "--device", "cpu"])
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "tiles.json"))
+    monkeypatch.setenv("REPRO_AUTOTUNE", "0")  # teardown removes what the CLI sets
+    autotune.reset()
+    tr = train_cli(argv + ["--upcycle", "4", "--top-k", "2", "--cf", "-1", "--use-kernel", "--autotune",
+                           "--device", "cpu"])
+    assert tr.state.step == 1 and np.isfinite(tr.history[0]["loss"])
+    assert autotune.enabled() and autotune.stats()["misses"] >= 1
+    autotune.reset()
