@@ -113,7 +113,7 @@ Phases (each failure exits non-zero; nothing is swallowed):
    width, expert weights drawn as int8 on the card from ``--seed``, sorted
    dispatcher, ring cache, kernels on, the 8 requests of phase 3: (a) every
    request answered, #10/#11 launched, peak memory, tok/s, prefill and
-   decode-step ms and the busy share printed, every kernel call of a short
+   decode-step ms and the busy share (a CUDA-only trace) printed, every kernel call of a short
    serve held against its plain version; (b) the same drawn weights and
    requests with fused dispatch: #14/#15 launched and #10/#11 not, every
    kernel call of a short serve checked, the figures printed beside (a)'s;
@@ -204,12 +204,45 @@ Phases (each failure exits non-zero; nothing is swallowed):
    and launches the fastest, whose output must equal the rule's bit for
    bit; each key must miss once and persist, hit after ``reset()``, and
    hit from the committed ``autotune_defaults.json`` (the ``tuned_tiles``
-   line prints what the search persisted).
+   line prints what the search persisted);
+12. the MoE configurations and routers, all at full width, weights drawn
+   on the card from ``--seed``, counts reset just before each main run and
+   read just after: (a) qwen3-moe-30b-a3b (128 experts, top-8) at all 48
+   layers in bf16 serving phase 3's 8 requests ring through the sorted
+   dispatcher (#3/#4, #16), paged with page 16 (#3/#4, #19) and ring
+   through its own ``allgather`` at CF 1.0 (#1/#2 at C 1 at decode, #16);
+   every request answered, the prefill and two decode steps of one
+   request with every kernel call held against its plain version, tok/s,
+   prefill and decode ms, peak memory and the busy share beside the card;
+   (b) arctic-480b cut to 2 layers (128 experts, top-2, dense residual)
+   served ring through ``allgather`` at CF 2 the same way; (c)
+   qwen3-moe-30b-a3b cut to 2 layers trained dropless through the sorted
+   dispatcher (top-8 over 128 groups, #3-#7, #16-#18): the loss must fall
+   over 6 steps, the launches per step as in phase 6, every kernel call of
+   one more step checked, one step run twice from the same state must give
+   a bit-equal loss, parameter CRC32s and generator; the phase-10c
+   trajectory gate on a 16-expert top-8 smoke config; (d) llama3-e8t2 (4
+   layers) with expert-choice routing at CF 1.0 served ring (#1/#2; its
+   tokens beside the plain versions' reported, and on the one-layer smoke
+   config the first-token logits within LOGIT_TOL of the plain
+   versions'), then one training step each with expert choice and with
+   noisy gating on phase 6's 2-layer config, each run twice from one state
+   (bit-equal), and with noisy gating the gradients under remat "full" and
+   "none" from one generator state within GRAD_TOL; (e) a llava-next-34b
+   prefill cut to 1 layer (2880 prefix embeddings + 64 tokens: S 2944, H
+   56, KV 8) through #16, every #16 call checked, and one ring serve each
+   of qwen2.5-14b (G 5, QKV bias) and stablelm-1.6b (LayerNorm, MHA, d 64)
+   at 1 layer. Phase 2 also holds #1/#2 and #8/#9 at 128 experts and C 1
+   (qwen3-moe's D 2048 / F 768 and arctic's D 7168 / F 4864), #3/#4 at
+   top-8 over 128 groups with the last 28 empty (4, 300 and 2048 tokens),
+   #16 at G 3, 5 and 7 (S 512) and #19/#20 at G 3, 5 and 7
+   (``PAGED_EDGE_CASES``).
 
 ``--phases 1,2`` stops after the build and the kernel checks; ``--phases
 1,6`` is the quick look at training, ``--phases 1,8`` at full-depth int8
 serving, ``--phases 1,9`` at fused dispatch, ``--phases 1,10`` at
-checkpointing, ``--phases 1,11`` at speculative decoding and the tuner.
+checkpointing, ``--phases 1,11`` at speculative decoding and the tuner,
+``--phases 1,12`` at the MoE configurations and routers.
 ``--digest SRC`` prints a SHA-256 of every expert GEMM's and the flash forward's outputs on seeded
 inputs for the kernels of the tree whose ``src`` is SRC; ``--times SRC``
 prints the device and host-inclusive times of #16 at phase 2's lengths,
@@ -421,7 +454,7 @@ def check_expert(gen, C: int, label: str, E=8, D=4096, F=14336):
 
     dev = torch.device("cuda")
     xe = torch.randn((E, C, D), generator=gen, device=dev).bfloat16()
-    wg, wu, wd = ((torch.randn(shape, generator=gen, device=dev) * shape[1] ** -0.5).bfloat16()
+    wg, wu, wd = (torch.randn(shape, generator=gen, device=dev).mul_(shape[1] ** -0.5).bfloat16()
                   for shape in ((E, D, F), (E, D, F), (E, F, D)))
     h = eg.expert_gate_up_cuda(xe, wg, wu)
     h_again = eg.expert_gate_up_cuda(xe, wg, wu, out=torch.full_like(h, float("nan")))
@@ -500,7 +533,7 @@ def check_expert_q8(gen, C: int, label: str, E=8, D=4096, F=14336):
     nan = lambda *shape: torch.full(shape, float("nan"), dtype=torch.bfloat16, device=dev)
     xe = torch.randn((E, C, D), generator=gen, device=dev).bfloat16()
     (wg, sg), (wu, su), (wd, sd) = (
-        quantize_weight((torch.randn(shape, generator=gen, device=dev) * shape[1] ** -0.5).bfloat16())
+        quantize_weight(torch.randn(shape, generator=gen, device=dev).mul_(shape[1] ** -0.5).bfloat16())
         for shape in ((E, D, F), (E, D, F), (E, F, D)))
     bg, bu, bd = (dequantize_weight(q, s, torch.bfloat16) for q, s in ((wg, sg), (wu, su), (wd, sd)))
     h = eg.expert_gate_up_q8_cuda(xe, wg, wu, sg, su, out=nan(E, C, F))
@@ -630,8 +663,8 @@ def check_flash(gen, S: int, window=None, B=1, H=32, KV=8, d=128):
                bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, reps=20, warmup=3),
                library_device_ms=graph_ms(lib),
                shape=f"B={B} S={S} H={H} KV={KV} d={d} causal window={window}")
-    print(f"  flash_fwd [S={S} d={d} window={window}] err {err:.4g} (rel {rel:.3g}; worst row {row_rel:.3g}, "
-          f"tol {FA_TOL}) lse err {lse_err:.3g} (tol {LSE_TOL}) {flags} kernel {row['ms']:.4f} ms "
+    print(f"  flash_fwd [S={S} d={d} window={window} H={H} KV={KV}] err {err:.4g} (rel {rel:.3g}; worst row "
+          f"{row_rel:.3g}, tol {FA_TOL}) lse err {lse_err:.3g} (tol {LSE_TOL}) {flags} kernel {row['ms']:.4f} ms "
           f"(device {row['device_ms']:.4f}) plain {row['plain_ms']:.4f} ms sdpa {row['library_ms']:.4f} ms "
           f"(device {row['library_device_ms']:.4f}) bound {b_ms:.4f} ms ({b_by}); device: kernel / sdpa "
           f"{row['device_ms'] / row['library_device_ms']:.3f}, bound / kernel {b_ms / row['device_ms']:.3f}")
@@ -649,11 +682,13 @@ def check_flash(gen, S: int, window=None, B=1, H=32, KV=8, d=128):
 # page of row 1 a -1 hole, so the kernel reads 47,017 live keys from 2,942 pages)
 LONG_LENS = (8192, 8000, 6500, 5000, 4096, 4096, 3000, 2048, 2048, 1500, 1024, 700, 512, 300, 17, 0)
 # shapes the wrappers take that the serving path does not send: pages of 1, 4, 24 and 64 keys
-# (a 16-key unit holding several pages, or a page split into units), d 64 with G 8, G 1, window 7
+# (a 16-key unit holding several pages, or a page split into units), d 64 with G 8, G 1, window 7, G 3, 5, 7
 PAGED_EDGE_CASES = (dict(label="ps 1", ps=1, maxP=340, lens=(332, 3, 1, 0)), dict(label="ps 4", ps=4, maxP=90),
                     dict(label="ps 24", ps=24, maxP=16), dict(label="ps 64", ps=64, maxP=6),
                     dict(label="d 64, G 8", d=64, KV=4), dict(label="G 1", H=8, KV=8),
-                    dict(label="window 7", window=7))
+                    dict(label="window 7", window=7),
+                    # the GQA groups of llama3.2-3b (24/8), qwen2.5-14b (40/8), arctic and llava-next (56/8)
+                    dict(label="G 3", H=24, KV=8), dict(label="G 5", H=40, KV=8), dict(label="G 7", H=56, KV=8))
 
 
 def paged_case(gen, lens=(332, 300, 17, 0), H=32, KV=8, d=128, ps=16, maxP=22, hole_row=1):
@@ -1993,25 +2028,27 @@ def device_busy(prof, wall: float, label: str) -> float:
     """Device busy share of ``wall`` seconds from a torch.profiler trace:
     the union of the CUDA kernels' own intervals (an operator's device time
     would count its kernels a second time), with the kernels that took the
-    most time by name."""
+    most time by name. Reads the trace's raw events
+    (``kineto_results.events()``): building ``prof.events()``' tree takes
+    ~60 us an event on the host, a minute for a deep model's window."""
     from torch.autograd import DeviceType
 
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy_us, end = 0.0, float("-inf")
+    kernels = [e for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns()) for e in kernels)
+    busy_ns, end = 0, float("-inf")
     for a, b in spans:
         if b > end:
-            busy_us += b - max(a, end)
+            busy_ns += b - max(a, end)
             end = b
     by_name: dict = {}
     for e in kernels:
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
-    print(f"  profile ({label}): wall {1e3 * wall:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
-          f"({100 * busy_us / 1e6 / wall:.1f}% of wall) in {len(kernels)} kernels")
+        t, n = by_name.get(e.name(), (0, 0))
+        by_name[e.name()] = (t + e.duration_ns(), n + 1)
+    print(f"  profile ({label}): wall {1e3 * wall:.3f} ms, device busy {busy_ns / 1e6:.3f} ms "
+          f"({100 * busy_ns / 1e9 / wall:.1f}% of wall) in {len(kernels)} kernels")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
-        print(f"    {t / 1e3:9.3f} ms  {n:5d} calls  {name[:100]}")
-    return busy_us / 1e6 / wall
+        print(f"    {t / 1e6:9.3f} ms  {n:5d} calls  {name[:100]}")
+    return busy_ns / 1e9 / wall
 
 
 def profile_window(run, cpu: bool = True) -> float:
@@ -2049,21 +2086,28 @@ def ring_serve_run(cfg, params, prompts, max_seq: int, which=None, new: int = 32
     return eng, out, time.perf_counter() - t
 
 
-def counted_serve(tag: str, cfg, params, prompts, max_seq: int, needed, checked, max_new: int = 32, **kw):
+def counted_serve(tag: str, cfg, params, prompts, max_seq: int, needed, checked, max_new: int = 32,
+                  profile_cpu: bool = True, checked_run=((0, 5), 3), **kw):
     """Warm up, then one counted serve of all ``prompts`` (launch counts set
     to 0 just before, read just after; every kernel in ``needed`` must have
     launched and every request got all its tokens), then a short serve with
     every kernel call in ``checked`` held against its plain version, then a
-    profiled window. Returns (launches, outputs, figures)."""
+    profiled window (``profile_cpu=False``: CUDA activity only).
+    ``checked_run`` = (requests, new tokens) of the checked serve. ``kw`` goes
+    to the engine (a paged run: ``cache_mode="paged"``, its page size and
+    chunk). Returns (launches, outputs, figures)."""
     from repro_torch.kernels import ops
 
     run = lambda which=None, new=max_new: ring_serve_run(cfg, params, prompts, max_seq, which, new, **kw)
+    stages = [time.perf_counter()]
     run([len(prompts) - 1], 2)  # warm-up
+    stages.append(time.perf_counter())
     ops.reset_launch_counts()
     eng, out, wall = run()
     launches = ops.launch_counts()
+    stages.append(time.perf_counter())
     ntok = sum(len(v) for v in out.values())
-    pre, dec = eng.timings["prefill_s"], eng.timings["decode_s"]
+    pre, dec = eng.timings.get("prefill_s") or eng.timings["prefill_chunk_s"], eng.timings["decode_s"]
     print(f"  [{tag}] served {len(out)} requests, {ntok} tokens in {wall:.3f} s ({ntok / wall:.2f} tok/s); "
           f"prefill mean {1e3 * sum(pre) / len(pre):.3f} ms over {len(pre)}; "
           f"decode step mean {1e3 * sum(dec) / len(dec):.3f} ms over {len(dec)} steps")
@@ -2074,9 +2118,13 @@ def counted_serve(tag: str, cfg, params, prompts, max_seq: int, needed, checked,
         raise SystemExit(f"[{tag}] a kernel of the path was never launched: {launches}")
     report: list = []
     with checked_kernels(report):
-        run([0, 5], 3)
+        run(list(checked_run[0]), checked_run[1])
     report_checked(report, checked, tag)
-    busy = profile_window(lambda _kernels, which, new: run(which, new))
+    stages.append(time.perf_counter())
+    busy = profile_window(lambda _kernels, which, new: run(which, new), cpu=profile_cpu)
+    stages.append(time.perf_counter())
+    print(f"  [{tag}] stages: " + ", ".join(f"{n} {b - a:.2f} s" for n, a, b in zip(
+        ("warm-up", "main run", "checked run", "profile window"), stages, stages[1:])))
     return launches, out, dict(tokens_per_s=ntok / wall, prefill_ms=1e3 * sum(pre) / len(pre),
                                decode_step_ms=1e3 * sum(dec) / len(dec), device_busy_share=busy)
 
@@ -2152,18 +2200,18 @@ def drop_counter(counts: list):
     assignments routed) to ``counts`` (one host read per MoE layer)."""
     from repro_torch.core.dispatch import allgather
 
-    tables = allgather.dispatch_tables
+    tables = allgather.padded_tables
 
     def counted(idx, gates, E, C):
-        sel, slot_gate = tables(idx, gates, E, C)
+        sel, slot_gate, table = tables(idx, gates, E, C)
         counts.append((int((slot_gate > 0).sum()), idx.numel()))
-        return sel, slot_gate
+        return sel, slot_gate, table
 
-    allgather.dispatch_tables = counted
+    allgather.padded_tables = counted
     try:
         yield
     finally:
-        allgather.dispatch_tables = tables
+        allgather.padded_tables = tables
 
 
 def train_padded(seed: int, layers: int = 2, steps: int = 8, seq: int = 2048, cf: float = 1.0):
@@ -2291,7 +2339,7 @@ def serve_int8_full_depth(seed: int):
     torch.cuda.reset_peak_memory_stats()
     launches, out_sorted, stats = counted_serve("int8 full depth", cfg, params, prompts, max_seq,
                                        ("grouped_gate_up_q8", "grouped_down_q8", "flash_fwd"),
-                                       ("grouped_gemm_q8", "flash_fwd"), quant_weights="int8")
+                                       ("grouped_gemm_q8", "flash_fwd"), profile_cpu=False, quant_weights="int8")
     peak = torch.cuda.max_memory_allocated()
     print(f"  [int8 full depth] peak memory allocated {peak} bytes ({peak / 1e9:.2f} GB) of "
           f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB")
@@ -2300,7 +2348,7 @@ def serve_int8_full_depth(seed: int):
     fused = ("grouped_gate_up_fused_q8", "grouped_down_fused_q8")
     fused_launches, _, fused_stats = counted_serve(
         "int8 full depth fused", cfg, params, prompts, max_seq, fused + ("flash_fwd",), fused + ("flash_fwd",),
-        quant_weights="int8", fused_dispatch=True)
+        profile_cpu=False, quant_weights="int8", fused_dispatch=True)
     if fused_launches["grouped_gate_up_q8"] or fused_launches["grouped_down_q8"]:
         raise SystemExit(f"[int8 full depth fused] the unfused int8 kernels launched: {fused_launches}")
     fused_peak = torch.cuda.max_memory_allocated()
@@ -2322,7 +2370,8 @@ def serve_int8_full_depth(seed: int):
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             padded_launches, out_padded, padded_stats = counted_serve(
-                "int8 full depth padded", paper, params, prompts, max_seq, padded, padded, quant_weights="int8")
+                "int8 full depth padded", paper, params, prompts, max_seq, padded, padded, profile_cpu=False,
+                quant_weights="int8")
     finally:
         if strict is None:
             del os.environ["REPRO_STRICT_DISPATCH"]
@@ -2439,6 +2488,7 @@ def check_fused(gen, group_sizes, T: int, label: str, D=4096, F=14336, q8: bool 
     from repro_torch.core.dispatch import SortedDispatcher
     from repro_torch.core.dispatch.base import DispatchLayout, DispatchState
     from repro_torch.core.quant import quantize_weight
+    from repro_torch.core.segment import sorted_row_table
     from repro_torch.kernels import expert_gemm as eg
     from repro_torch.kernels import ref
 
@@ -2481,7 +2531,8 @@ def check_fused(gen, group_sizes, T: int, label: str, D=4096, F=14336, q8: bool 
         names, w_bytes, unfused_names = ("grouped_gate_up_fused", "grouped_down_fused"), 2, "#3/#4"
     sorted_d = SortedDispatcher(None, None)
     state = DispatchState(DispatchLayout("sorted", E, group_sizes=gs, row_block=128),
-                          {"token": token, "dest": dest, "gate_sorted": gate_sorted}, {"tokens": T})
+                          {"token": token, "dest": dest, "gate_sorted": gate_sorted,
+                           "table": sorted_row_table(token, T)}, {"tokens": T})
 
     def scatter():
         xs = x.new_zeros((N_pad, D))
@@ -2859,14 +2910,15 @@ def checkpoint_cli(seed: int, tmp: Path) -> dict:
     return dict(resume_bit_equal=same, supervise_skips=sup.skips, supervise_rollbacks=sup.rollbacks)
 
 
-def trajectory_check(seed: int, steps: int = 8) -> dict:
+def trajectory_check(seed: int, steps: int = 8, cfg=None, label: str = "smoke llama3-e8t2, 1 layer") -> dict:
     """Phase 10 (c): the training trajectory over ``steps`` steps on
     ``small_grad_check``'s config (smoke llama3-e8t2, 1 layer, batch 2 x
     128), through the kernels and through their plain versions; a second
     plain run starts from every parameter x (1 + 2^-8), one bf16 rounding.
     The kernels' distance from the plain trajectory (max |loss| difference
     over the steps; relative L2 of all parameters after the last step) must
-    be within TRAJECTORY_FACTOR x the two plain runs' spread."""
+    be within TRAJECTORY_FACTOR x the two plain runs' spread. ``cfg``
+    (``label``) replaces the config (phase 12c: top-8)."""
     import torch
     from repro_torch.config import TrainConfig
     from repro_torch.data.pipeline import make_train_iter
@@ -2875,7 +2927,7 @@ def trajectory_check(seed: int, steps: int = 8) -> dict:
     from repro_torch.train.callbacks import LoggingCallback
     from repro_torch.train.trainer import Trainer
 
-    cfg = moe_train_config(1, smoke=True)
+    cfg = cfg or moe_train_config(1, smoke=True)
     tcfg = TrainConfig(global_batch=2, seq_len=128, lr=3e-4, lr_min=3e-6, warmup_steps=1, total_steps=steps,
                        seed=seed, log_every=1)
     start = init_from_decls(model_decl(cfg), seed, "cuda")
@@ -2895,7 +2947,7 @@ def trajectory_check(seed: int, steps: int = 8) -> dict:
                 float((a[1] - b[1]).norm() / b[1].norm()))
 
     (loss_d, param_d), (loss_s, param_s) = dist(kern, plain), dist(nudged, plain)
-    print(f"  trajectory ({steps} steps, smoke llama3-e8t2, 1 layer, batch 2 x 128): kernels vs plain: max |loss| "
+    print(f"  trajectory ({steps} steps, {label}, batch 2 x 128): kernels vs plain: max |loss| "
           f"diff {loss_d:.4g}, params rel L2 {param_d:.4g}; plain vs plain from a start x (1 + 2^-8): {loss_s:.4g}, "
           f"{param_s:.4g} (gate {TRAJECTORY_FACTOR:g}x); losses kernels {[round(x, 5) for x in kern[0]]}, plain "
           f"{[round(x, 5) for x in plain[0]]}, nudged {[round(x, 5) for x in nudged[0]]}")
@@ -3637,10 +3689,449 @@ def tuner_search(hooked, swept: dict) -> dict:
                 off_rule=off_rule)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the MoE configurations and routers
+# ---------------------------------------------------------------------------
+
+EC_CF = 1.0  # expert choice at CF 1: C = ceil(k T / E) = T / 4 at E 8, top-2, about 2 experts a token
+
+
+def top8_groups(seed: int, T: int, E: int = 128, k: int = 8, live: int = 100):
+    """Group sizes of ``T`` tokens routed top-``k`` over ``E`` experts: each
+    token's k distinct experts drawn from a skewed law over the first
+    ``live`` experts, so the last E - live experts stay empty."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + T)
+    p = 1.0 / np.arange(1, live + 1) ** 0.8
+    p /= p.sum()
+    counts = np.zeros(E, np.int64)
+    for _ in range(T):
+        counts[rng.choice(live, k, replace=False, p=p)] += 1
+    return tuple(int(c) for c in counts)
+
+
+def timed_draw(cfg, seed: int, label: str):
+    """``init_from_decls`` of ``cfg`` on the card, with its seconds, bytes and
+    peak printed; returns the params."""
+    import torch
+    from repro_torch.models.model import model_decl
+    from repro_torch.params import init_from_decls, tree_leaves
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_from_decls(model_decl(cfg), seed, "cuda")
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    total, active = cfg.param_counts()
+    print(f"  [{label}] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, heads {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} (d {cfg.head_dim_}), d_ff {cfg.d_ff}"
+          + (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k} ({cfg.moe.dispatcher}, CF "
+             f"{cfg.moe.capacity_factor}{', dense residual' if cfg.moe.dense_residual else ''})" if cfg.moe else "")
+          + f", vocab {cfg.vocab_size} (padded {cfg.padded_vocab}); {total / 1e9:.3f} B params ({active / 1e9:.3f} B "
+          f"active), {nbytes} bytes ({nbytes / 1e9:.2f} GB) drawn on the card from seed {seed} in "
+          f"{time.perf_counter() - t0:.2f} s; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return params
+
+
+def counted_serve_peak(tag: str, cfg, params, prompts, max_seq: int, needed, checked, **kw):
+    """:func:`counted_serve` with the peak memory of its serves and the
+    card's line printed beside its figures."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    launches, out, stats = counted_serve(tag, cfg, params, prompts, max_seq, needed, checked, profile_cpu=False,
+                                         **kw)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  [{tag}] peak memory allocated {peak} bytes ({peak / 1e9:.2f} GB) of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB; {card_line()}")
+    return launches, out, dict(stats, peak_bytes=peak)
+
+
+def serve_qwen3_full_depth(seed: int) -> tuple:
+    """Phase 12 (a): qwen3-moe-30b-a3b (128 experts, top-8) at all 48
+    layers and full width in bf16, weights drawn on the card from the seed;
+    the 8 requests of phase 3 served (1) ring, sorted, (2) paged (page 16,
+    chunk 32), sorted, (3) ring through the config's own ``allgather`` at
+    CF 1.0 (decode at C 1). Each as ``counted_serve``: every request
+    answered, the path's kernels launched, every kernel call of a short
+    serve (one request, its prefill and two decode steps) held against its
+    plain version, a profiled window."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.config import get_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen3-moe-30b-a3b")
+    params = timed_draw(cfg, seed, "12a")
+    lens, prompts, max_seq = ring_prompts(seed, cfg.vocab_size)
+    sorted_cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, dispatcher="sorted", capacity_factor=None))
+    # the checked serves: the 300-token prompt's prefill and two decode steps, with 48 layers of 128
+    # experts each on the plain versions' per-expert loops
+    deep = ((0,), 3)
+    launches, stats = {}, {}
+    launches["ring"], out_ring, stats["ring"] = counted_serve_peak(
+        "qwen3 ring sorted", sorted_cfg, params, prompts, max_seq,
+        ("grouped_gate_up", "grouped_down", "flash_fwd"), ("grouped_gemm", "flash_fwd"), checked_run=deep)
+    launches["paged"], out_paged, stats["paged"] = counted_serve_peak(
+        "qwen3 paged sorted", sorted_cfg, params, prompts, max_seq,
+        ("grouped_gate_up", "grouped_down", "paged_attention"), ("grouped_gemm", "paged_attention"),
+        checked_run=deep, cache_mode="paged", page_size=16, prefill_chunk=32)
+    launches["padded"], out_pad, stats["padded"] = counted_serve_peak(
+        "qwen3 ring allgather CF 1", cfg, params, prompts, max_seq,
+        ("expert_gate_up", "expert_down", "flash_fwd"), ("expert_gemm", "flash_fwd"), checked_run=deep)
+    if launches["padded"]["grouped_gate_up"] or launches["ring"]["expert_gate_up"]:
+        raise SystemExit(f"[12a] a serve launched the other dispatcher's kernels: {launches}")
+    ntok = sum(len(v) for v in out_ring.values())
+    for name, out in (("paged", out_paged), ("allgather", out_pad)):
+        same = sum(a == b for r in out_ring for a, b in zip(out_ring[r], out[r]))
+        stats[name if name == "paged" else "padded"]["equal_to_ring_sorted"] = f"{same}/{ntok}"
+        print(f"  [12a] greedy tokens, {name} vs ring sorted on the same weights: {same}/{ntok} positions equal "
+              f"(reported, not gated: the paths round apart)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
+def serve_arctic(seed: int, layers: int = 2) -> tuple:
+    """Phase 12 (b): arctic-480b (128 experts, top-2, dense residual) at
+    full width cut to ``layers`` layers, served ring through its own
+    ``allgather`` at CF 2 (decode at C 1, prefill at C = ceil(T / 32)),
+    phase 3's requests, as ``counted_serve``."""
+    import gc
+
+    import torch
+    from repro_torch.config import get_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("arctic-480b").replace(num_layers=layers)
+    print(f"  [12b] cut: num_layers 35 -> {layers}")
+    params = timed_draw(cfg, seed, "12b")
+    lens, prompts, max_seq = ring_prompts(seed, cfg.vocab_size)
+    launches, _, stats = counted_serve_peak(
+        "arctic ring allgather CF 2", cfg, params, prompts, max_seq,
+        ("expert_gate_up", "expert_down", "flash_fwd"), ("expert_gemm", "flash_fwd"))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
+def top8_train_config(layers: int, smoke: bool = False):
+    """qwen3-moe-30b-a3b (or its smoke config with 16 experts and top-8, as
+    ``smoke_config`` caps top-k at 2) cut to ``layers``, trained dropless
+    through the sorted dispatcher."""
+    import dataclasses
+    from repro_torch.config import get_config, smoke_config
+
+    cfg = get_config("qwen3-moe-30b-a3b")
+    moe = dataclasses.replace(cfg.moe, dispatcher="sorted", capacity_factor=None)
+    if smoke:
+        cfg = smoke_config(cfg)
+        moe = dataclasses.replace(moe, num_experts=16, top_k=8)
+    return cfg.replace(num_layers=layers, moe=moe)
+
+
+def snapshot_step(cfg, tcfg, params, gen, batch, label: str) -> dict:
+    """One trainer step twice from the same state: ``params`` (kept on the
+    host between the runs), a fresh AdamW state and ``gen``'s state. Both
+    runs' loss bits and per-leaf CRC32s of the updated params must be
+    equal. Returns the figures."""
+    import torch
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.params import tree_leaves, tree_map
+    from repro_torch.train.state import TrainState
+    from repro_torch.train.trainer import make_state_step
+
+    step = make_state_step(cfg, tcfg, use_kernel=True)
+    host = tree_map(lambda t: t.detach().to("cpu"), params)
+    g0 = gen.get_state()
+    runs = []
+    for i in range(2):
+        if i:
+            for t, h in zip(tree_leaves(params), tree_leaves(host)):
+                t.data.copy_(h)
+            gen.set_state(g0)
+        state = TrainState(0, params, adamw_init(params), gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss = float(metrics["loss"])
+        ms = 1e3 * (time.perf_counter() - t0)
+        runs.append((loss, leaf_crcs(params), gen.get_state().clone(), ms))
+        del state
+    same_loss = runs[0][0] == runs[1][0]
+    same_crc = runs[0][1] == runs[1][1]
+    same_gen = torch.equal(runs[0][2], runs[1][2])
+    print(f"  [{label}] one step twice from the same state: loss {runs[0][0]!r} / {runs[1][0]!r} (bit-equal "
+          f"{same_loss}), {len(runs[0][1])} param CRC32s equal {same_crc}, generator states equal {same_gen}; "
+          f"step {runs[0][3]:.1f} / {runs[1][3]:.1f} ms")
+    if not (same_loss and same_crc and same_gen):
+        raise SystemExit(f"[{label}] the step is not bit-reproducible from one state")
+    return dict(loss=runs[0][0], bit_equal=True, step_ms=[r[3] for r in runs])
+
+
+def train_top8(seed: int, layers: int = 2, steps: int = 6, seq: int = 2048) -> tuple:
+    """Phase 12 (c): qwen3-moe-30b-a3b at full width cut to ``layers``,
+    dropless sorted, kernels and remat on, 1 x ``seq`` tokens: top-8 over 128
+    groups through #3/#4 and #5-#7. ``steps`` Trainer steps (the loss must
+    fall; launches per step), every kernel call of one more step held
+    against its plain version, then one step run twice from the trained
+    params (``snapshot_step``: bit-equal loss and parameter CRCs); then the
+    trajectory gate of phase 10c on the top-8 smoke config."""
+    import gc
+
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.data.pipeline import make_train_iter
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import loss_fn
+    from repro_torch.train.callbacks import LoggingCallback
+    from repro_torch.train.trainer import Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = top8_train_config(layers)
+    print(f"  [12c] cut: num_layers 48 -> {layers}; dropless sorted, remat {cfg.remat}, batch 1 x {seq}")
+    params = timed_draw(cfg, seed, "12c")
+    tcfg = TrainConfig(global_batch=1, seq_len=seq, lr=3e-4, lr_min=3e-6, warmup_steps=1, total_steps=steps + 2,
+                       seed=seed, log_every=1)
+    trainer = Trainer(cfg, tcfg, params=params, use_kernel=True,
+                      data_iter=make_train_iter(cfg.vocab_size, seq, 1, tcfg.blend_ratio, seed))
+    del params
+    log = LoggingCallback(log=lambda m: print("  " + m), log_every=1)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    trainer.run(steps, callbacks=[log])
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.history
+    per_step = {k: v / steps for k, v in launches.items() if v}
+    print(f"  [12c] losses {[round(r['loss'], 4) for r in hist]}; steady {hist[-1]['ms_per_step_steady']:.3f} "
+          f"ms/step, {seq / hist[-1]['ms_per_step_steady'] * 1e3:.1f} tok/s; peak {peak} bytes "
+          f"({peak / 1e9:.2f} GB); launches per step {per_step}; {card_line()}")
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise SystemExit(f"[12c] the loss did not fall over {steps} steps")
+    expect = {"grouped_gate_up": 2 * layers, "grouped_down": 2 * layers, "flash_fwd": 2 * layers,
+              **{k: layers for k in ("grouped_bwd_dh", "grouped_bwd_dx", "grouped_bwd_wgrad",
+                                     "flash_bwd_dq", "flash_bwd_dkv")}}
+    if any(launches.get(k, 0) != n * steps for k, n in expect.items()):
+        raise SystemExit(f"[12c] launches per step {per_step}, expected {expect}")
+    report: list = []
+    named = named_leaves(trainer.params)
+    batch = trainer._to_device(next(trainer.data_iter))
+    with checked_kernels(report):
+        loss, _ = loss_fn(cfg, trainer.params, batch, trainer.state.gen, use_kernel=True)
+        torch.autograd.grad(loss, [t for _, t in named], allow_unused=True)
+    torch.cuda.synchronize()
+    report_checked(report, ("grouped_gemm", "flash_fwd", "grouped_bwd_dh", "grouped_bwd_dx", "grouped_bwd_wgrad",
+                            "flash_bwd_dq", "flash_bwd_dkv"), "12c training")
+    params = trainer.params
+    del trainer, loss, report, named
+    gc.collect()
+    torch.cuda.empty_cache()
+    repro = snapshot_step(cfg, tcfg, params, torch.Generator(device="cuda").manual_seed(seed + 12), batch,
+                          "12c top-8")
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    traj = trajectory_check(seed, cfg=top8_train_config(1, smoke=True), label="top-8 smoke qwen3-moe, 16 experts")
+    return launches, dict(losses=[r["loss"] for r in hist], ms_per_step=hist[-1]["ms_per_step_steady"],
+                          tokens_per_s=seq / hist[-1]["ms_per_step_steady"] * 1e3, peak_bytes=peak,
+                          launches_per_step=per_step, repeat=repro, trajectory=traj)
+
+
+def router_config(layers: int, router: str, smoke: bool = False):
+    """llama3-e8t2 cut to ``layers`` with ``router``: ``expert_choice``
+    (padded allgather at EC_CF) or ``noisy`` (Mixtral router with noisy
+    gating, dropless sorted)."""
+    import dataclasses
+    from repro_torch.config import get_config, smoke_config
+
+    cfg = get_config("llama3-e8t2")
+    cfg = smoke_config(cfg) if smoke else cfg
+    if router == "expert_choice":
+        moe = dataclasses.replace(cfg.moe, router_type="expert_choice", capacity_factor=EC_CF,
+                                  dispatcher="allgather")
+    else:
+        moe = dataclasses.replace(cfg.moe, noisy_gating=True, capacity_factor=None, dispatcher="sorted")
+    return cfg.replace(num_layers=layers, moe=moe)
+
+
+def routers_phase(seed: int) -> tuple:
+    """Phase 12 (d): (1) phase 3's model (llama3-e8t2, 4 layers, full
+    width) with expert-choice routing at CF 1.0 served ring through the
+    padded kernels #1/#2 (``counted_serve``), its tokens beside the same
+    serve through the plain versions (reported: at full width with random
+    weights two bf16 paths part within a few tokens, phase 3); on the
+    one-layer smoke config the first-token logits through the kernels must
+    agree with the plain versions' within LOGIT_TOL x max|logits| (the
+    tokens of a short serve reported); (2) one training step each with expert choice and
+    with noisy gating on phase 6's 2-layer config, run twice from one
+    state (``snapshot_step``); with noisy gating the gradients under
+    ``remat="full"`` and ``"none"`` from one generator state within
+    GRAD_TOL x max|grad| per parameter."""
+    import gc
+
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.data.pipeline import make_train_iter
+    from repro_torch.models.model import loss_fn, model_decl
+    from repro_torch.params import init_from_decls
+    from repro_torch.train.trainer import microbatch_generators
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats = {}
+    cfg = router_config(4, "expert_choice")
+    params = timed_draw(cfg, seed, "12d EC")
+    lens, prompts, max_seq = ring_prompts(seed, cfg.vocab_size)
+    launches, out_k, stats["ec_serve"] = counted_serve_peak(
+        "EC ring CF 1", cfg, params, prompts, max_seq, ("expert_gate_up", "expert_down", "flash_fwd"),
+        ("expert_gemm", "flash_fwd"))
+    with plain_kernels():
+        _, out_p, _ = ring_serve_run(cfg, params, prompts, max_seq)
+    ntok = sum(len(v) for v in out_k.values())
+    same = sum(a == b for r in out_k for a, b in zip(out_k[r], out_p[r]))
+    stats["ec_serve"]["equal_to_plain"] = f"{same}/{ntok}"
+    print(f"  [12d EC] greedy tokens, kernels vs plain versions, full width: {same}/{ntok} positions equal "
+          f"(reported)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = router_config(1, "expert_choice", smoke=True)
+    sparams = init_from_decls(model_decl(small), seed, "cuda")
+    slens, sprompts, sseq = ring_prompts(seed, small.vocab_size)
+    _, sk, _ = ring_serve_run(small, sparams, sprompts, sseq, new=8)
+    with plain_kernels():
+        _, sp, _ = ring_serve_run(small, sparams, sprompts, sseq, new=8)
+    sn = sum(len(v) for v in sk.values())
+    ssame = sum(a == b for r in sk for a, b in zip(sk[r], sp[r]))
+    worst = 0.0
+    with torch.inference_mode():
+        for p in sprompts:
+            lk, lp, _ = prefill_three_ways(small, sparams, p, max(16, 1 << (len(p) - 1).bit_length()), sseq)
+            worst = max(worst, rel_err(lk, lp)[1])
+    print(f"  [12d EC] small input (smoke config, 1 layer, EC at CF {EC_CF}, phase 3's 8 prompts): first-token "
+          f"logits, kernels vs plain versions {worst:.4g} of max|logits| (tol {LOGIT_TOL}); a serve of 8 new "
+          f"tokens each: {ssame}/{sn} tokens equal (reported: a near-tie flips a greedy token)")
+    if not worst <= LOGIT_TOL:
+        raise SystemExit("[12d EC] the expert-choice path's logits disagree with the plain versions'")
+    stats["ec_small"] = dict(logit_rel_err=worst, tokens_equal=f"{ssame}/{sn}")
+    del sparams
+
+    seq = 2048
+    tcfg = TrainConfig(global_batch=1, seq_len=seq, lr=3e-4, lr_min=3e-6, warmup_steps=1, total_steps=4, seed=seed)
+    for router in ("expert_choice", "noisy"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        rcfg = router_config(2, router)
+        params = timed_draw(rcfg, seed, f"12d {router} train")
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in next(make_train_iter(rcfg.vocab_size, seq, 1, tcfg.blend_ratio, seed)).items()}
+        gen = torch.Generator(device="cuda").manual_seed(seed + 120)
+        stats[f"{router}_step"] = snapshot_step(rcfg, tcfg, params, gen, batch, f"12d {router}")
+        if router != "noisy":
+            del params
+            continue
+        named = named_leaves(params)
+        leaves = [t for _, t in named]
+        for t in leaves:
+            t.requires_grad_(True)
+        g0 = gen.get_state()
+        grads = {}
+        for remat in ("full", "none"):
+            gen.set_state(g0)
+            g = microbatch_generators(rcfg, gen, 1)[0]
+            loss, _ = loss_fn(rcfg.replace(remat=remat), params, batch, g, use_kernel=True)
+            grads[remat] = torch.autograd.grad(loss, leaves, allow_unused=True)
+            del loss
+        errs = {n: rel_err(a, b)[1] for (n, _), a, b in zip(named, grads["full"], grads["none"])}
+        worst = max(errs, key=errs.get)
+        bits = sum(torch.equal(a, b) for a, b in zip(grads["full"], grads["none"]))
+        w_noise = max(float(g.abs().max()) for (n, _), g in zip(named, grads["full"]) if "w_noise" in n)
+        print(f"  [12d noisy] gradients under remat full vs none from one generator state: worst {errs[worst]:.4g} "
+              f"of max|grad| ({worst}; tol {GRAD_TOL}); {bits}/{len(named)} parameters bit-equal; w_noise "
+              f"gradient max {w_noise:.4g}")
+        if not errs[worst] <= GRAD_TOL:
+            raise SystemExit("[12d noisy] remat changes the noisy-gating gradients")
+        stats["noisy_remat"] = dict(worst=errs[worst], bit_equal=f"{bits}/{len(named)}")
+        del params, grads, named, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
+def head_shapes_phase(seed: int) -> tuple:
+    """Phase 12 (e): a llava-next-34b prefill cut to 1 layer (the 2880-
+    embedding prefix and a 64-token prompt: S 2944, H 56, KV 8) through
+    #16, every #16 call held against its plain version, the logits finite
+    over the text positions; one ring serve each of qwen2.5-14b (G 5, QKV
+    bias) and stablelm-1.6b (LayerNorm, MHA, d 64) at 1 layer, as
+    ``counted_serve``."""
+    import gc
+
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import prefill_forward
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats, launches = {}, {}
+    cfg = get_config("llava-next-34b").replace(num_layers=1)
+    params = timed_draw(cfg, seed, "12e llava")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 121)
+    P, L = cfg.num_prefix_embeds, 64
+    batch = {"embeds": torch.randn((1, P, cfg.d_model), generator=gen, device="cuda") * 0.02,
+             "tokens": torch.randint(0, cfg.vocab_size, (1, L), generator=gen, device="cuda")}
+    with torch.inference_mode():
+        prefill_forward(cfg, params, batch, use_kernel=True)  # warm-up
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill_forward(cfg, params, batch, use_kernel=True)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = ops.launch_counts()
+        report: list = []
+        with checked_kernels(report):
+            prefill_forward(cfg, params, batch, use_kernel=True)
+        with plain_kernels():
+            logits_p, _ = prefill_forward(cfg, params, batch, use_kernel=True)
+    kv = cache["stack"]["slot0"]["attn"]["k"].shape
+    print(f"  [12e llava] prefill of a {P}-embedding prefix + {L}-token prompt (S {P + L}): {ms:.3f} ms; logits "
+          f"{tuple(logits.shape)} finite {bool(torch.isfinite(logits).all())}; cache k {tuple(kv)}, next position "
+          f"{int(cache['pos'][0])}; launches {launches}; kernels vs plain versions {rel_err(logits, logits_p)[1]:.4g} "
+          f"of max|logits|; {card_line()}")
+    if launches["flash_fwd"] < 1 or not bool(torch.isfinite(logits).all()) or int(cache["pos"][0]) != P + L:
+        raise SystemExit("[12e llava] the vlm prefill did not run through #16 or gave malformed output")
+    report_checked(report, ("flash_fwd",), "12e llava prefill")
+    stats["llava_prefill"] = dict(ms=ms, S=P + L, kernels_vs_plain=rel_err(logits, logits_p)[1])
+    del params, cache, logits, logits_p
+    for arch in ("qwen2.5-14b", "stablelm-1.6b"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(arch).replace(num_layers=1)
+        params = timed_draw(cfg, seed, f"12e {arch}")
+        lens, prompts, max_seq = ring_prompts(seed, cfg.vocab_size)
+        launches[arch], _, stats[arch] = counted_serve_peak(f"{arch} ring, 1 layer", cfg, params, prompts, max_seq,
+                                                            ("flash_fwd",), ("flash_fwd",))
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11", help="comma list of phases to run")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12", help="comma list of phases to run")
     ap.add_argument("--digest", metavar="SRC", help="only print digests() of the port under SRC (a tree's src "
                                                       "directory) and exit: run it on two trees to compare outputs")
     ap.add_argument("--times", metavar="SRC", help="only print kernel_times() of the port under SRC and exit: run "
@@ -3684,7 +4175,7 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"    {name}: {line.strip()}")
 
-    kernels = {}
+    kernels, moe_shapes = {}, []
     if 2 in phases:
         stamp(2)
         gen = torch.Generator(device="cuda")
@@ -3717,12 +4208,26 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         for row in dec + dec_q8 + pad_dec + pad_dec_q8:
             kernels[row["name"]] = row
+        # 128 experts at decode (C 1): qwen3-moe-30b-a3b (D 2048, F 768) and
+        # arctic-480b (D 7168, F 4864), bf16 and int8 weights
+        for D_, F_, tag in ((2048, 768, "qwen3-moe E128"), (7168, 4864, "arctic E128")):
+            moe_shapes += check_expert(gen, 1, tag, E=128, D=D_, F=F_)
+            torch.cuda.empty_cache()
+            moe_shapes += check_expert_q8(gen, 1, tag, E=128, D=D_, F=F_)
+            torch.cuda.empty_cache()
+        # the sorted #3/#4 at top-8 over 128 groups (the last 28 empty):
+        # qwen3-moe's decode, prefill and training routings
+        for T, tag in ((4, "qwen3-moe decode"), (300, "qwen3-moe prefill"), (2048, "qwen3-moe train")):
+            moe_shapes += check_grouped(gen, top8_groups(args.seed, T), tag, D=2048, F=768)
+        torch.cuda.empty_cache()
         check_flash(gen, 16)
         check_flash(gen, 340)
         kernels["flash_fwd"] = check_flash(gen, 512)
         check_flash(gen, 512, window=128)
         check_flash(gen, 2048)  # the training length
         check_flash(gen, 1000, d=64)  # ragged: no tile size divides it
+        # the GQA groups of llama3.2-3b (24/8), qwen2.5-14b (40/8), arctic and llava-next (56/8)
+        moe_shapes += [check_flash(gen, 512, H=H) for H in (24, 40, 56)]
         for q8 in (False, True):
             kernels["paged_attention_q8" if q8 else "paged_attention"] = check_paged(gen, q8)
             check_paged(gen, q8, window=128)
@@ -3829,6 +4334,29 @@ def main(argv=None) -> int:
         print("[11] (c) the tile autotuner: every compiled tile of #1, #2, #4, #9, #11, #13, #15, and its search")
         spec_stats["tuner"], spec_stats["tuner_search"] = tuner_candidates(args.seed)
 
+    moe_launches, moe_stats = {}, {}
+    if 12 in phases:
+        stamp(12)
+        print("[12] (a) qwen3-moe-30b-a3b (128 experts, top-8) at all 48 layers, bf16: ring sorted, paged sorted, "
+              "ring allgather at CF 1.0")
+        moe_launches["qwen3"], moe_stats["qwen3_full_depth"] = serve_qwen3_full_depth(args.seed)
+        stamp("12 (b)")
+        print("[12] (b) arctic-480b (128 experts, top-2, dense residual) at full width, 2 layers, allgather CF 2")
+        moe_launches["arctic"], moe_stats["arctic"] = serve_arctic(args.seed)
+        stamp("12 (c)")
+        print("[12] (c) top-8 training: qwen3-moe-30b-a3b at full width, 2 layers, sorted, kernels on")
+        moe_launches["top8_train"], moe_stats["top8_train"] = train_top8(args.seed)
+        stamp("12 (d)")
+        print("[12] (d) routers: expert choice (serve at CF 1.0, train) and noisy gating (train) on llama3-e8t2")
+        moe_launches["expert_choice"], moe_stats["routers"] = routers_phase(args.seed)
+        stamp("12 (e)")
+        print("[12] (e) head shapes: llava-next-34b prefill (S 2944, G 7), qwen2.5-14b and stablelm-1.6b serves")
+        moe_launches["heads"], moe_stats["heads"] = head_shapes_phase(args.seed)
+        flat12 = [moe_launches["qwen3"][m] for m in ("ring", "paged", "padded")] + [
+            moe_launches["arctic"], moe_launches["top8_train"], moe_launches["expert_choice"]]
+    else:
+        flat12 = []
+
     sources = {
         "grouped_gate_up": ("src/repro_torch/kernels/csrc/grouped_gemm.cu", "src/repro/kernels/expert_gemm.py:335"),
         "grouped_down": ("src/repro_torch/kernels/csrc/grouped_gemm.cu", "src/repro/kernels/expert_gemm.py:355"),
@@ -3866,7 +4394,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": next((d[name] for d in (launches, train_launches, padded_launches, int8_launches,
                                                 fused_launches, int8_fused_launches, int8_padded_launches,
-                                                ckpt_launches, spec_launches)
+                                                ckpt_launches, spec_launches, *flat12)
                               if d.get(name)), 0),
             "max_abs_err": k.get("max_abs_err"),
             "ms": k.get("ms"), "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
@@ -3888,13 +4416,18 @@ def main(argv=None) -> int:
                                                ("fused_int8_full_depth", int8_fused_launches),
                                                ("padded_int8_full_depth", int8_padded_launches),
                                                ("checkpoint_train", ckpt_launches),
-                                               ("speculative_paged", spec_launches))}}}))
+                                               ("speculative_paged", spec_launches),
+                                               *((f"moe_configs_{k}", v) for k, v in zip(
+                                                   ("qwen3_ring", "qwen3_paged", "qwen3_padded", "arctic_padded",
+                                                    "qwen3_top8_train", "expert_choice_ring"), flat12)))}}}))
     print(json.dumps({"serve": stats}))
     print(json.dumps({"train": train_stats}))
     print(json.dumps({"padded": padded_stats}))
     print(json.dumps({"fused": fused_stats}))
     print(json.dumps({"checkpoint": ckpt_stats}))
     print(json.dumps({"speculative_and_tuner": spec_stats}))
+    print(json.dumps({"moe_configs": moe_stats}, default=str))
+    print(json.dumps({"phase2_moe_shapes": moe_shapes}, default=str))
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,11 @@
 defaults, so a test can build both packages' configs from one dict),
 ``smoke_config``, ``with_dispatcher`` and ``get_config``.
 
-Only the families this port runs are accepted: ``dense`` and ``moe`` with
-GQA attention. The others (MLA, SSM, hybrid, encdec, vlm) raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Only the families this port runs are accepted: ``dense``, ``moe`` and
+``vlm`` (a dense decoder that takes a stub patch-embedding prefix) with GQA
+attention. The others (MLA, SSM, hybrid, encdec) raise
+``NotImplementedError`` naming the ROADMAP item that ports them, as does
+``get_config`` for their architectures.
 """
 from __future__ import annotations
 
@@ -16,6 +18,13 @@ from typing import Optional, Tuple
 
 # ROADMAP queue 1 item that ports each family or feature not yet in the port
 _LATER = "ROADMAP queue 1, 'other families'"
+_LATER_FAMILY = {
+    "mla": "ROADMAP queue 1, 'other families': MLA",
+    "ssm": "ROADMAP queue 1, 'other families': SSM and hybrid",
+    "hybrid": "ROADMAP queue 1, 'other families': SSM and hybrid",
+    "encdec": "ROADMAP queue 1, 'other families': encdec",
+}
+FAMILIES = ("dense", "moe", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,7 +32,10 @@ class MoEConfig:
     """Mixture-of-Experts recipe (paper §2, §3); see ``repro.config``.
 
     ``router_type``: ``mixtral`` = softmax over the top-k logits (preserves
-    the dense function at upcycling init), ``st`` = top-k of the softmax.
+    the dense function at upcycling init), ``st`` = top-k of the softmax,
+    ``expert_choice`` = each expert takes its top-C tokens (padded
+    dispatch only; ``sorted`` resolves to ``allgather``). ``noisy_gating``
+    adds the paper's Eq. 3 noise to the logits in training.
     ``capacity_factor=None`` means dropless. On one card ``allgather`` and
     ``sorted`` run; ``alltoall``/``a2a_overlap`` need an expert-parallel
     plan and fall back to ``allgather`` (``core.dispatch.get_dispatcher``)."""
@@ -31,8 +43,8 @@ class MoEConfig:
     num_experts: int = 8
     top_k: int = 2
     capacity_factor: Optional[float] = 4.0
-    router_type: str = "mixtral"  # mixtral | st
-    noisy_gating: bool = False
+    router_type: str = "mixtral"  # mixtral | st | expert_choice
+    noisy_gating: bool = False  # Eq. (3) noisy top-k; off in the paper's main runs
     aux_loss_coef: float = 1e-2
     z_loss_coef: float = 1e-3
     dispatcher: str = "allgather"  # allgather | alltoall | a2a_overlap | sorted
@@ -58,10 +70,10 @@ class MoEConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Architecture description (the fields of ``repro.config.ModelConfig``
-    that the dense/moe GQA families read)."""
+    that the dense/moe/vlm GQA families read)."""
 
     name: str = "model"
-    family: str = "dense"  # dense | moe
+    family: str = "dense"  # dense | moe | vlm
     source: str = ""
 
     num_layers: int = 2
@@ -80,6 +92,9 @@ class ModelConfig:
     sliding_window: Optional[int] = None
     use_mla: bool = False
     moe: Optional[MoEConfig] = None
+    # vlm stub frontend: prefix embedding positions (precomputed patch
+    # embeddings arrive as batch["embeds"] (B, P, d_model))
+    num_prefix_embeds: int = 0
 
     dtype: str = "bfloat16"
     quant_weights: str = "none"  # none | int8 (int8 expert weights with bf16 per-channel scales)
@@ -94,10 +109,11 @@ class ModelConfig:
     QUANT_MODES = ("none", "int8")
 
     def __post_init__(self):
-        if self.family not in ("dense", "moe") or self.use_mla:
+        if self.family not in FAMILIES or self.use_mla:
+            item = _LATER_FAMILY["mla" if self.use_mla else self.family] \
+                if (self.use_mla or self.family in _LATER_FAMILY) else _LATER
             raise NotImplementedError(
-                f"family={self.family!r} use_mla={self.use_mla} is not ported "
-                f"yet ({_LATER})"
+                f"family={self.family!r} use_mla={self.use_mla} is not ported yet ({item})"
             )
         for name in ("quant_weights", "quant_kv"):
             if getattr(self, name) not in self.QUANT_MODES:
@@ -120,7 +136,7 @@ class ModelConfig:
     def param_counts(self) -> Tuple[int, int]:
         """(total, active) parameters excluding vocab padding, as
         ``repro.config.ModelConfig.param_counts`` counts them for the
-        dense and moe families."""
+        dense, moe and vlm families (the vlm stub frontend has none)."""
         D, V, L, hd = self.d_model, self.vocab_size, self.num_layers, self.head_dim_
         total = active = V * D * (1 if self.tie_embeddings else 2) + D  # + final norm
         attn = D * self.num_heads * hd + 2 * D * self.num_kv_heads * hd + self.num_heads * hd * D
@@ -176,16 +192,36 @@ class TrainConfig:
     ckpt_dir: str = "/tmp/repro_ckpt"
 
 
-ARCH_IDS = ("llama3-8b", "llama3-e8t2")
+ARCH_IDS = (
+    "llama3.2-3b",
+    "stablelm-1.6b",
+    "qwen3-moe-30b-a3b",
+    "llava-next-34b",
+    "qwen2.5-14b",
+    "arctic-480b",
+    # paper's own models
+    "llama3-8b",
+    "llama3-e8t2",
+)
+# the JAX package's architectures the port does not run yet, and the ROADMAP
+# item that ports each
+LATER_ARCHS = {
+    "minicpm3-4b": _LATER_FAMILY["mla"],
+    "mamba2-2.7b": _LATER_FAMILY["ssm"],
+    "jamba-1.5-large-398b": _LATER_FAMILY["hybrid"],
+    "seamless-m4t-medium": _LATER_FAMILY["encdec"],
+}
 
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
     """Reduced variant of the same family (as ``repro.config.smoke_config``
-    for the dense/moe families): 2 layers, d_model 256, 4 heads, <=4
-    experts, tiny vocab."""
+    for the dense/moe/vlm families): 2 layers, d_model 256, 4 heads, <=4
+    experts (top-k capped at 2), 16 prefix embeddings for a vlm, tiny
+    vocab."""
     kw: dict = dict(
         d_model=256, vocab_size=1024, vocab_divisor=128, num_layers=2,
         num_heads=4, num_kv_heads=min(cfg.num_kv_heads, 2) or 2, head_dim=64,
+        num_prefix_embeds=16 if cfg.num_prefix_embeds else 0,
     )
     if cfg.d_ff:
         kw.update(d_ff=512)
@@ -211,9 +247,9 @@ def with_dispatcher(cfg: ModelConfig, dispatcher: Optional[str]) -> ModelConfig:
 
 def get_config(arch: str) -> ModelConfig:
     """Load ``repro_torch.configs.<arch>``; architectures not ported yet
-    raise ``NotImplementedError``."""
+    raise ``NotImplementedError`` naming their ROADMAP item."""
     if arch not in ARCH_IDS:
-        raise NotImplementedError(f"--arch {arch!r} is not ported yet ({_LATER})")
+        raise NotImplementedError(f"--arch {arch!r} is not ported yet ({LATER_ARCHS.get(arch, _LATER)})")
     mod = importlib.import_module(
         "repro_torch.configs." + arch.replace("-", "_").replace(".", "_")
     )

@@ -56,13 +56,12 @@ def capacity(moe, tokens_per_group: int) -> int:
     return max(min(int(c), tokens_per_group), 1)
 
 
-def dispatch_tables(idx: torch.Tensor, gates: torch.Tensor, E: int, C: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The padded layout's tables for one group. idx/gates (T, k) -> (sel
-    (E, C) int64 token ids, slot_gate (E, C) fp32 combine weights).
-    Priority is token-major (the paper's / Megatron's drop rule): an
-    assignment at position >= C in its expert's queue is dropped, with gate
-    0. An empty slot holds token id 0 and gate 0, so the buffer's empty
-    rows are token 0's row, not zeros. Differentiable in ``gates``."""
+def padded_tables(idx: torch.Tensor, gates: torch.Tensor, E: int, C: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`dispatch_tables` plus the combine's row table: (sel, slot_gate,
+    table (T, k)), where ``table[t]`` lists the slots ``e * C + c`` that
+    token t fills, ascending, with the sentinel ``E * C`` for a dropped
+    assignment (``core.segment``)."""
     T, k = idx.shape
     flat_e = idx.reshape(T * k).long()
     onehot = torch.nn.functional.one_hot(flat_e, E)  # (Tk, E)
@@ -74,7 +73,29 @@ def dispatch_tables(idx: torch.Tensor, gates: torch.Tensor, E: int, C: int) -> T
     sel = torch.zeros((E, C + 1), dtype=torch.long, device=idx.device).index_put((flat_e, safe_pos), token_id)
     slot_gate = torch.zeros((E, C + 1), dtype=torch.float32, device=idx.device).index_put(
         (flat_e, safe_pos), gate_flat)
-    return sel[:, :C], slot_gate[:, :C]
+    table = torch.sort(torch.where(keep, flat_e * C + pos, E * C).reshape(T, k), dim=1).values
+    return sel[:, :C], slot_gate[:, :C], table
+
+
+def dispatch_tables(idx: torch.Tensor, gates: torch.Tensor, E: int, C: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The padded layout's tables for one group. idx/gates (T, k) -> (sel
+    (E, C) int64 token ids, slot_gate (E, C) fp32 combine weights).
+    Priority is token-major (the paper's / Megatron's drop rule): an
+    assignment at position >= C in its expert's queue is dropped, with gate
+    0. An empty slot holds token id 0 and gate 0, so the buffer's empty
+    rows are token 0's row, not zeros. Differentiable in ``gates``."""
+    return padded_tables(idx, gates, E, C)[:2]
+
+
+def expert_choice_tables(probs_full: torch.Tensor, E: int, C: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-choice routing (Zhou et al.; the alternative to top-k the
+    paper cites): each expert takes its top-C tokens by router
+    probability, ties to the lower token index (a stable descending sort,
+    as ``jax.lax.top_k``). probs_full (T, E) -> (sel (E, C) int64 token
+    ids, slot_gate (E, C) fp32). Every slot is filled; a token may get 0 to
+    E experts."""
+    g, sel = torch.sort(probs_full.t(), dim=-1, descending=True, stable=True)
+    return sel[:, :C], g[:, :C].float()
 
 
 def expert_ffn(experts, xe: torch.Tensor, layout: DispatchLayout, use_kernel: bool = False) -> torch.Tensor:

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.dispatch.base import DispatchLayout, DispatchState, TokenDispatcher, expert_ffn
+from repro_torch.core.segment import row_gather, sorted_row_table, table_sum
 from repro_torch.kernels.ref import aligned_rows
 
 # Row alignment of the expert-sorted buffer on the kernel path; the CUDA
@@ -53,22 +54,25 @@ class SortedDispatcher(TokenDispatcher):
         E = self.moe.num_experts
         N = T * idx.shape[-1]
         token, _, dest, gate_sorted, group_sizes = self._indices(idx, gates, row_block)
+        # each token's k sorted rows, ascending: the combine's and the
+        # gather's backward sum over them in this fixed order
+        table = sorted_row_table(token, T)
         xs = x.new_zeros((aligned_rows(N, E, row_block), D))
-        xs[dest] = x[token]
+        xs[dest] = row_gather(x, token, table, sentinel=False)
         state = DispatchState(
             layout=DispatchLayout("sorted", E, group_sizes=group_sizes, row_block=row_block),
-            residuals={"token": token, "dest": dest, "gate_sorted": gate_sorted},
+            residuals={"token": token, "dest": dest, "gate_sorted": gate_sorted, "table": table},
             static={"tokens": T},
         )
         return xs, state
 
     def combine(self, ye: torch.Tensor, state: DispatchState) -> torch.Tensor:
+        """Gate-weight the valid rows in fp32 and sum each token's k rows
+        in sorted (expert) order, the JAX scatter-add's update order; cast
+        once at the end."""
         r = state.residuals
-        # fp32 accumulation of the k-way scatter-add; cast once at the end
         yv = ye[r["dest"]].float() * r["gate_sorted"][:, None].float()
-        out = torch.zeros((state.static["tokens"], ye.shape[-1]), dtype=torch.float32, device=ye.device)
-        out.index_add_(0, r["token"], yv)
-        return out.to(ye.dtype)
+        return table_sum(yv, r["table"], r["token"], sentinel=False).to(ye.dtype)
 
     def _apply_fused(self, experts, x, gates, idx):
         """Dispatch-in-kernel path: neither the (N_pad, D) buffer nor the

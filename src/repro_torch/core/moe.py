@@ -7,7 +7,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.dispatch import get_dispatcher
-from repro_torch.core.router import route, router_decl
+from repro_torch.core.router import route, route_full, router_decl
 from repro_torch.models.layers import mlp_apply, mlp_decl
 from repro_torch.params import ParamDecl
 
@@ -29,12 +29,19 @@ def moe_decl(cfg, moe) -> Dict[str, Any]:
 
 
 def moe_apply(cfg, moe, params, x: torch.Tensor, use_kernel: bool = False,
-              gen: Optional[torch.Generator] = None, train: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: (B, S, D) -> (B, S, D) and the router's aux losses. ``gen`` and
-    ``train`` go to the router (the JAX ``rng, train``)."""
+              gen: Optional[torch.Generator] = None, train: bool = False,
+              noise: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B, S, D) -> (B, S, D) and the router's aux losses. ``gen``,
+    ``train`` and a pre-drawn gating ``noise`` (B*S, E) go to the router
+    (the JAX ``rng, train``). Expert-choice routing hands the dispatcher
+    the full (B*S, E) probabilities (``route_full``); its dispatcher is the
+    padded one."""
     B, S, D = x.shape
     xf = x.reshape(B * S, D)
-    gates, idx, aux = route(moe, params["router"], xf, gen, train)
+    if moe.router_type == "expert_choice":
+        gates, idx, aux = route_full(moe, params["router"], xf)
+    else:
+        gates, idx, aux = route(moe, params["router"], xf, gen, train, noise)
     out = get_dispatcher(cfg, moe).apply(params["experts"], xf, gates, idx, use_kernel)
     out = out.reshape(B, S, D).to(x.dtype)
     if moe.dense_residual:

@@ -198,3 +198,12 @@ def make_train_iter(
         sample_seed=(sample_seed if sample_seed is not None else seed),
         skip_budget=skip_budget,
     )
+
+
+def stub_inputs(cfg, batch_size: int) -> Optional[Dict[str, Tuple[int, ...]]]:
+    """The ``extra`` stub inputs a config's batches carry: a vlm's
+    precomputed patch embeddings ``embeds`` (B, P, d_model); None for the
+    text-only families."""
+    if cfg.family == "vlm":
+        return {"embeds": (batch_size, cfg.num_prefix_embeds, cfg.d_model)}
+    return None

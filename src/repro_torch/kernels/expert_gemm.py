@@ -77,6 +77,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.segment import sorted_row_table, sum_columns
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (
     aligned_rows,
@@ -1048,7 +1049,8 @@ class FusedMoe(torch.autograd.Function):
         dys = torch.zeros_like(xs)
         dys[dest] = (dyv * gate_sorted.float()[:, None]).to(xs.dtype)
         dxs, dwg, dwu, dwd = grouped_gemm_bwd(xs, dys, w_gate, w_up, w_down, group_sizes, rb)
-        dx = torch.zeros_like(x).index_add_(0, token, dxs[dest])
+        # each token's k rows summed in sorted order (order-fixed, no scatter-add)
+        dx = sum_columns(dxs[dest], sorted_row_table(token, x.shape[0]))
         return dx, dwg, dwu, dwd, None, None, None, None, dgate, None, None
 
 

@@ -15,6 +15,8 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.segment import row_gather, sorted_row_table, table_sum
+
 NEG_INF = -1e30
 
 
@@ -256,16 +258,18 @@ def fused_unfused_ref(x, w_gate, w_up, w_down, group_sizes, token, dest, slot, g
     """The unfused sorted-dispatcher composition the fused path replaces
     (``_fused_unfused_ref``): scatter x into the ``row_block``-aligned
     buffer, the grouped FFN (``grouped``, default the plain
-    :func:`grouped_gemm_ref`), gather, fp32 gate weighting and scatter-add,
-    one cast. Differentiable by autograd; the graph the fused backward
+    :func:`grouped_gemm_ref`), gather, fp32 gate weighting and each
+    token's k-way sum in sorted order (``core.segment``), one cast.
+    Differentiable by autograd; the graph the fused backward
     differentiates."""
     grouped = grouped or grouped_gemm_ref
     T, D = x.shape
     N_pad = aligned_rows(token.shape[0], w_gate.shape[0], row_block)
-    xs = x.new_zeros((N_pad, D)).index_put((dest,), x[token])
+    table = sorted_row_table(token, T)
+    xs = x.new_zeros((N_pad, D)).index_put((dest,), row_gather(x, token, table, sentinel=False))
     ys = grouped(xs, w_gate, w_up, w_down, group_sizes, row_block)
     yv = ys[dest].float() * gate_sorted.float()[:, None]
-    return torch.zeros((T, D), dtype=torch.float32, device=x.device).index_add(0, token, yv).to(x.dtype)
+    return table_sum(yv, table, token, sentinel=False).to(x.dtype)
 
 
 def grouped_bwd_dh_ref(xs, dy, w_gate, w_up, w_down, group_sizes, row_block: int = 1):

@@ -36,6 +36,12 @@ drafter from ``--seed + 1``; otherwise the model drafts for itself.
 ``--autotune`` sets ``REPRO_AUTOTUNE=1`` before any kernel wrapper runs, so
 each expert-GEMM call site picks among its kernels' compiled tiles
 (``kernels/autotune.py``).
+
+Every ``--arch`` of ``repro_torch.config.ARCH_IDS`` serves, e.g.
+``--arch qwen3-moe-30b-a3b --smoke --dispatcher sorted --use-kernel
+--device cpu`` (top-k capped at 2 by ``--smoke``); a vlm (llava-next-34b)
+serves its text path. Expert-choice routing and noisy gating have no flag,
+as in the JAX launcher: they are ``MoEConfig`` fields.
 """
 from __future__ import annotations
 
@@ -135,6 +141,10 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
+    if cfg.family == "vlm":
+        # the serving demo drives the text path (as the JAX launcher does);
+        # an image prefix goes through prefill_forward's batch["embeds"]
+        cfg = cfg.replace(num_prefix_embeds=0, family="dense")
     common = dict(
         max_batch=args.max_batch, max_seq=args.prompt_len + args.max_new + 8,
         dispatcher=args.dispatcher, use_kernel=args.use_kernel,

@@ -49,7 +49,7 @@ import os
 
 from repro_torch.config import MoEConfig, TrainConfig, get_config, smoke_config
 from repro_torch.core.quant import quantize_params
-from repro_torch.data.pipeline import make_train_iter
+from repro_torch.data.pipeline import make_train_iter, stub_inputs
 from repro_torch.train.callbacks import AnomalySupervisor, CheckpointCallback, LoggingCallback
 from repro_torch.train.trainer import Trainer
 
@@ -151,7 +151,8 @@ def main(argv=None):
         provenance = upcycle_provenance(dense_cfg, cfg, args.from_ckpt)
         print(f"upcycled {dense_cfg.name} -> {cfg.name} from {args.from_ckpt}")
 
-    it = make_train_iter(cfg.vocab_size, args.seq, args.batch, tcfg.blend_ratio, args.seed)
+    it = make_train_iter(cfg.vocab_size, args.seq, args.batch, tcfg.blend_ratio, args.seed,
+                         stub_inputs(cfg, args.batch))
     if data_state is not None:
         it.restore(data_state)
     t, a = cfg.param_counts()

@@ -1,5 +1,5 @@
 """Language model entry points (port of ``repro.models.model`` for the
-dense/moe GQA families):
+dense/moe/vlm GQA families):
 
 * ``forward``         — logits over full sequences (``train=True`` for a
   training step: the stack checkpoints each period when ``cfg.remat``).
@@ -10,6 +10,11 @@ dense/moe GQA families):
 * ``paged_forward``   — a prefill chunk or a decode step against the shared
   KV page pool (``paged_stack_decl``); ``decode_step_paged`` is its S == 1
   case.
+
+A ``vlm`` config's ``forward``, ``loss_fn`` and ``prefill_forward`` take
+``batch["embeds"]`` (B, P, D), precomputed patch embeddings (the stub
+frontend), as a prefix before the text tokens, and return logits over the
+text positions only; the prefill's cache holds the prefix too.
 """
 from __future__ import annotations
 
@@ -31,17 +36,27 @@ def model_decl(cfg) -> Dict[str, Any]:
     }
 
 
+def _embed_inputs(cfg, params, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, int]:
+    """(B, P + S, D) model inputs and the prefix length P: the text tokens'
+    embeddings, after a vlm's ``batch["embeds"]`` cast to the model dtype."""
+    x = embed_apply(params["embed"], batch["tokens"], torch_dtype(cfg.dtype))
+    if cfg.family != "vlm":
+        return x, 0
+    emb = batch["embeds"].to(device=x.device, dtype=x.dtype)
+    return torch.cat([emb, x], dim=1), emb.shape[1]
+
+
 def forward(cfg, params, batch: Dict[str, torch.Tensor], use_kernel: bool = False,
             gen: Optional[torch.Generator] = None, train: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Returns (fp32 logits (B, S, padded_vocab), summed aux losses)."""
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = embed_apply(params["embed"], tokens, torch_dtype(cfg.dtype))
-    positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+    """Returns (fp32 logits (B, S, padded_vocab) over the text positions,
+    summed aux losses). batch: tokens (B, S); vlm: + embeds (B, P, D)."""
+    x, prefix = _embed_inputs(cfg, params, batch)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     x, _, aux = stack_apply(cfg, build_slots(cfg), params["stack"], x, positions,
                             use_kernel=use_kernel, gen=gen, train=train)
     x = norm_apply(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
-    return unembed_apply(params["embed"], x), aux
+    return unembed_apply(params["embed"], x[:, prefix:]), aux
 
 
 def loss_fn(cfg, params, batch: Dict[str, torch.Tensor], gen: Optional[torch.Generator] = None,
@@ -104,11 +119,12 @@ def prefill_forward(
     """Full-sequence forward that also returns a decode-ready ring cache.
     With ``valid_len`` (B,), tokens are right-padded to a shared bucket;
     logits are taken at each row's last valid position and pad slots stay
-    invalid in ``slot_pos``. Keep the padded length <= the ring size."""
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    dev = tokens.device
-    x = embed_apply(params["embed"], tokens, torch_dtype(cfg.dtype))
+    invalid in ``slot_pos``. Keep the padded length <= the ring size. A
+    vlm's prefix counts in the cache and its positions: ``valid_len`` counts
+    text tokens, and the next position is P + valid_len."""
+    x, prefix = _embed_inputs(cfg, params, batch)
+    B, S = x.shape[:2]
+    dev = x.device
     positions = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
     x, seq_cache, _ = stack_apply(
         cfg, build_slots(cfg), params["stack"], x, positions,
@@ -119,7 +135,7 @@ def prefill_forward(
         total = torch.full((B,), S, dtype=torch.int32, device=dev)
         xl = x[:, -1:]
     else:
-        total = valid_len.to(torch.int32)
+        total = prefix + valid_len.to(torch.int32)
         xl = x[torch.arange(B, device=dev), total.long() - 1][:, None]
     logits = unembed_apply(params["embed"], xl)[:, 0]
 

@@ -8,6 +8,13 @@ where the JAX package scans. In training with ``cfg.remat != "none"`` each
 period's body runs under ``torch.utils.checkpoint`` (the counterpart of
 ``jax.checkpoint(body)``): only its inputs are kept, and the backward
 recomputes it.
+
+Noisy gating draws its N(0, 1) here, from ``gen``, one (B*S, E) tensor per
+MoE layer in layer order, before the layer's period runs, and hands it to
+the period as an input: ``torch.utils.checkpoint`` restores only the
+default generators' states, so a draw inside the checkpointed body would
+take other numbers in the recompute (other noise, wrong gradients, no
+error). Remat and no remat therefore see the same noise.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.moe import moe_apply, moe_decl
+from repro_torch.core.router import gating_noise
 from repro_torch.models.attention import gqa_apply, gqa_decl
 from repro_torch.models.layers import mlp_apply, mlp_decl, norm_apply, norm_decl
 from repro_torch.params import ParamDecl, tree_map
@@ -68,6 +76,7 @@ def block_apply(
     return_cache: bool = False,
     gen: Optional[torch.Generator] = None,
     train: bool = False,
+    noise: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], Dict[str, torch.Tensor]]:
     h = norm_apply(params["norm1"], x, cfg.norm_type, cfg.norm_eps)
     mix, c = gqa_apply(
@@ -78,7 +87,7 @@ def block_apply(
     h = norm_apply(params["norm2"], x, cfg.norm_type, cfg.norm_eps)
     aux: Dict[str, torch.Tensor] = {}
     if spec.ffn == "moe":
-        y, aux = moe_apply(cfg, cfg.moe, params["ffn"], h, use_kernel, gen, train)
+        y, aux = moe_apply(cfg, cfg.moe, params["ffn"], h, use_kernel, gen, train, noise)
     else:
         y = mlp_apply(params["ffn"], h)
     return x + y, ({"attn": c} if c is not None else None), aux
@@ -115,14 +124,21 @@ def stack_apply(
     remat = (train and cfg.remat != "none" and cache is None and not return_cache
              and torch.is_grad_enabled())
 
-    def body(x, period_params, period_cache):
+    B, S = x.shape[:2]
+
+    def draw_noise():
+        """Each MoE slot's gating noise of one period (None elsewhere)."""
+        return {f"slot{i}": gating_noise(cfg.moe, (B * S, cfg.moe.num_experts), x.device, gen, train)
+                for i, spec in enumerate(slots) if spec.ffn == "moe"}
+
+    def body(x, period_params, period_cache, period_noise):
         period_aux, period_kv = [], {}
         for i, spec in enumerate(slots):
             sk = f"slot{i}"
             x, nc, a = block_apply(
                 cfg, spec, period_params[sk], x, positions,
                 period_cache[sk] if period_cache else None, cache_view,
-                use_kernel, return_cache, gen, train,
+                use_kernel, return_cache, gen, train, period_noise.get(sk),
             )
             period_aux.append(a)
             period_kv[sk] = nc
@@ -132,11 +148,13 @@ def stack_apply(
     for p in range(periods):
         period_params = {sk: tree_map(lambda t: t[p], params[sk]) for sk in params}
         period_cache = {sk: tree_map(lambda t: t[p], cache[sk]) for sk in cache} if cache else None
+        period_noise = draw_noise()
         if remat:
-            out = checkpoint(lambda x, pp: body(x, pp, None)[0], x, period_params, use_reentrant=False)
+            out = checkpoint(lambda x, pp, pn: body(x, pp, None, pn)[0], x, period_params, period_noise,
+                             use_reentrant=False)
             period_kv = {}
         else:
-            out, period_kv = body(x, period_params, period_cache)
+            out, period_kv = body(x, period_params, period_cache, period_noise)
         x = out[0]
         for k, v in zip(AUX_KEYS, out[1:]):
             aux[k] = aux[k] + v

@@ -1,7 +1,7 @@
 """Explicit training state (port of ``repro.train.state``): params, AdamW
 state, step counter and the ``torch.Generator`` the step hands to the model
-(where the JAX package carries a PRNG key; only noisy gating, not ported
-yet, draws from it). The data iterator's state rides in the checkpoint
+(where the JAX package carries a PRNG key; only noisy gating draws from
+it, one draw a step, ``train/trainer.py``). The data iterator's state rides in the checkpoint
 manifest's ``meta``, as in the JAX package.
 
 ``state_to_tree``/``tree_to_state`` define the checkpoint tree, with the

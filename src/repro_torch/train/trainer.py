@@ -11,6 +11,14 @@ unchanged. The ``train.step`` fault site injects NaN gradients, a loss
 spike or a hang through the guard's knobs; checkpointing and the anomaly
 supervisor's rollback are callbacks (``train/callbacks.py``), and
 ``tcfg.ckpt_every`` adds a :class:`CheckpointCallback` to the defaults.
+
+Noisy gating reads the state's generator as the JAX step reads its key:
+each step takes one draw from it (the JAX ``split(state.rng)``), whatever
+the microbatch count and whether the guard skips the update, and each
+microbatch draws its noise from a child generator seeded from that draw.
+So the generator after step n is a function of the state at step 0 and
+n, and a rollback that restores the checkpoint's ``rng_state`` replays
+the same noise. A model without noisy gating never reads the generator.
 """
 from __future__ import annotations
 
@@ -30,6 +38,17 @@ from repro_torch.train.callbacks import Callback, CheckpointCallback, LoggingCal
 from repro_torch.train.state import TrainState, create_train_state
 
 METRIC_KEYS = ("loss", "ce", "load_balance_loss", "z_loss")
+_GOLDEN = 0x9E3779B1  # spreads the child seeds of one step's draw
+
+
+def microbatch_generators(cfg, gen: Optional[torch.Generator], m: int) -> list:
+    """The generators of a step's ``m`` microbatches: with noisy gating, one
+    draw from ``gen`` seeds ``m`` children (below 2**32, the CPU
+    generator's seed width); otherwise ``gen`` itself, unread."""
+    if gen is None or cfg.moe is None or not cfg.moe.noisy_gating:
+        return [gen] * m
+    seed = int(torch.randint(0, 2 ** 31, (1,), generator=gen, device=gen.device))
+    return [torch.Generator(device=gen.device).manual_seed((seed + i * _GOLDEN) % 2 ** 32) for i in range(m)]
 
 
 def make_train_step(cfg, tcfg, use_kernel: bool = False):
@@ -64,11 +83,12 @@ def make_train_step(cfg, tcfg, use_kernel: bool = False):
         m_eff = max(1, min(m, B))
         while B % m_eff:
             m_eff -= 1
+        gens = microbatch_generators(cfg, gen, m_eff)
         if m_eff > 1:
             mb = B // m_eff
             g_acc, met_acc = None, None
             for i in range(m_eff):
-                g, met = grads_of(params, leaves, {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}, gen)
+                g, met = grads_of(params, leaves, {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}, gens[i])
                 if g_acc is None:
                     g_acc, met_acc = [x.float() for x in g], met
                 else:
@@ -79,7 +99,7 @@ def make_train_step(cfg, tcfg, use_kernel: bool = False):
             grads = [a.div_(m_eff) for a in g_acc]
             metrics = {k: v / m_eff for k, v in met_acc.items()}
         else:
-            grads, metrics = grads_of(params, leaves, batch, gen)
+            grads, metrics = grads_of(params, leaves, batch, gens[0])
         if loss_ceiling is not None and grad_scale != 1.0:
             grads = [g * grad_scale for g in grads]
         lr = cosine_schedule(opt_state.step, tcfg.lr, tcfg.lr_min, tcfg.warmup_steps, tcfg.total_steps)
@@ -202,11 +222,12 @@ class Trainer:
         """Held-out CE: the same blend (``data_seed``, default the train
         seed) with a fresh sampling stream (``seed``), through the plain
         path as the JAX package evaluates it."""
-        from repro_torch.data.pipeline import make_train_iter
+        from repro_torch.data.pipeline import make_train_iter, stub_inputs
 
         it = make_train_iter(
             self.cfg.vocab_size, self.tcfg.seq_len, self.tcfg.global_batch, self.tcfg.blend_ratio,
-            data_seed if data_seed is not None else self.tcfg.seed, sample_seed=seed,
+            data_seed if data_seed is not None else self.tcfg.seed,
+            stub_inputs(self.cfg, self.tcfg.global_batch), sample_seed=seed,
         )
         losses = []
         with torch.no_grad():
