@@ -236,13 +236,50 @@ Phases (each failure exits non-zero; nothing is swallowed):
    (qwen3-moe's D 2048 / F 768 and arctic's D 7168 / F 4864), #3/#4 at
    top-8 over 128 groups with the last 28 empty (4, 300 and 2048 tokens),
    #16 at G 3, 5 and 7 (S 512) and #19/#20 at G 3, 5 and 7
-   (``PAGED_EDGE_CASES``).
+   (``PAGED_EDGE_CASES``);
+13. the last model families, at full width, weights drawn on the card from
+   ``--seed``, counts reset just before each main run and read just after:
+   (e) first, on an empty card, the kernels at the new shapes as phase 2
+   holds them: #3/#4 at the upcycled minicpm3's D 2560 / F 6400 (decode,
+   prefill and training routings), #8/#9 at jamba's D 8192 / F 24576 / E 16
+   at CF 2 (decode C 1, prefill C 75), #16 at jamba's attention (H 64, KV
+   8, d 128) and seamless's decoder (H 16, KV 16, d 64), #17/#18 at
+   seamless's; (a) minicpm3-4b (MLA) at all 62 layers served ring (the
+   latent ring and the absorbed decode: no kernel on this path, as MLA's
+   dk 96 != dv 64 keeps #16 off it in JAX too), then upcycled to 8 experts
+   top-2 at all 62 layers (25.6 B parameters) served ring sorted (#3/#4),
+   a short serve's tokens beside the plain versions', its first-token logits
+   within LOGIT_TOL of the plain versions' on the one-layer full-width cut;
+   8 training steps of the upcycled model cut to 2 layers (#3-#7; the
+   upcycled start's CE is the dense parent's) and the gradient gate on its
+   one-layer smoke config; (b) mamba2-2.7b (SSM, no kernel) at all 64
+   layers served ring, the bucketed prefill's repair at full depth (a
+   16-token prompt in a 32 bucket: prefill, SSM state and first-decode
+   logits within LOGIT_TOL of the unpadded prefill's), 8 training steps at
+   4 layers; (c) jamba-1.5-large-398b, one period of 8 layers at full
+   width with int8 experts drawn straight into int8, served ring through
+   ``allgather`` at CF 2 (#8/#9, #16 at d 128), a short serve's tokens
+   beside the plain versions'; 8 training steps of the smoke jamba (one period: #1/#2,
+   #5-#7, #16-#18) and the gradient gate on a two-layer cut of its
+   pattern ("MA": a Mamba slot, an attention slot with the MoE); (d) seamless-m4t-medium
+   at full size (12 + 12 layers): greedy generation of 4 x 32 tokens over
+   300 stub frames through ``prefill_forward`` + ``decode_step`` (#16 on
+   the decoder's prefill; the encoder and cross-attention take the plain
+   path, as in JAX), every #16 call of its prefill held against the plain
+   version, its tokens beside the plain versions', the first-token logits
+   gated on the one-layer cut; 10 steps of the train CLI (#16-#18 on the
+   decoder; the loss held finite: the random init's gradient norm grows
+   with depth, ~1e18 at 12 + 12 layers, so clipped steps barely move it),
+   every kernel call of one more step held against its plain version.
+   Each prints its peak memory, tok/s or ms/step
+   and the device's busy share.
 
 ``--phases 1,2`` stops after the build and the kernel checks; ``--phases
 1,6`` is the quick look at training, ``--phases 1,8`` at full-depth int8
 serving, ``--phases 1,9`` at fused dispatch, ``--phases 1,10`` at
 checkpointing, ``--phases 1,11`` at speculative decoding and the tuner,
-``--phases 1,12`` at the MoE configurations and routers.
+``--phases 1,12`` at the MoE configurations and routers, ``--phases 1,13`` at
+the MLA, SSM, hybrid and encdec families.
 ``--digest SRC`` prints a SHA-256 of every expert GEMM's and the flash forward's outputs on seeded
 inputs for the kernels of the tree whose ``src`` is SRC; ``--times SRC``
 prints the device and host-inclusive times of #16 at phase 2's lengths,
@@ -1987,13 +2024,16 @@ def profile_train_step(trainer) -> float:
     return device_busy(prof, wall, "one training step")
 
 
-def small_grad_check(seed: int, fused: bool = False) -> float:
+def small_grad_check(seed: int, fused: bool = False, cfg=None, label: str = "smoke config, 1 layer",
+                     ungated=()) -> float:
     """End-to-end gradients on a small input: the smoke config of
-    llama3-e8t2 cut to one layer (d_model 256, head_dim 64, 4 experts),
-    batch 2 x 128, with ``fused`` through fused dispatch. Every parameter's
-    gradient through the kernels (forward and backward) must agree with
-    autograd through the plain forward (``plain_kernels``) within GRAD_TOL
-    x max|grad|."""
+    llama3-e8t2 cut to one layer (d_model 256, head_dim 64, 4 experts), or
+    ``cfg`` (``label``), batch 2 x 128, with ``fused`` through fused
+    dispatch. Every parameter's gradient through the kernels (forward and
+    backward) must agree with autograd through the plain forward
+    (``plain_kernels``) within GRAD_TOL x max|grad|; parameters whose name
+    ends in one of ``ungated`` are printed, not gated. Returns the worst
+    gated error."""
     import dataclasses
 
     import torch
@@ -2001,8 +2041,9 @@ def small_grad_check(seed: int, fused: bool = False) -> float:
     from repro_torch.models.model import loss_fn, model_decl
     from repro_torch.params import init_from_decls
 
-    cfg = moe_train_config(1, smoke=True)
-    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, fused_dispatch=fused))
+    if cfg is None:
+        cfg = moe_train_config(1, smoke=True)
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, fused_dispatch=fused))
     params = init_from_decls(model_decl(cfg), seed, "cuda")
     named = named_leaves(params)
     for _, t in named:
@@ -2014,10 +2055,11 @@ def small_grad_check(seed: int, fused: bool = False) -> float:
             loss, _ = loss_fn(cfg, params, batch, use_kernel=True)
             grads[mode] = torch.autograd.grad(loss, [t for _, t in named])
     errs = {n: rel_err(a, b)[1] for (n, _), a, b in zip(named, grads["kernels"], grads["plain"])}
-    worst = max(errs, key=errs.get)
-    print(f"  small input (smoke config, 1 layer, batch 2 x 128{', fused dispatch' if fused else ''}): gradients "
+    worst = max((n for n in errs if not n.endswith(tuple(ungated))), key=errs.get)
+    print(f"  small input ({label}, batch 2 x 128{', fused dispatch' if fused else ''}): gradients "
           f"through the kernels vs autograd "
-          f"through the plain forward, worst {errs[worst]:.4g} of max|grad| ({worst}; tol {GRAD_TOL}); "
+          f"through the plain forward, worst {errs[worst]:.4g} of max|grad| ({worst}; tol {GRAD_TOL}"
+          + (f"; not gated: names ending {list(ungated)}" if ungated else "") + "); "
           + ", ".join(f"{n} {e:.3g}" for n, e in errs.items()))
     if not errs[worst] <= GRAD_TOL:
         raise SystemExit("gradients through the kernels disagree with the plain forward's")
@@ -2116,10 +2158,11 @@ def counted_serve(tag: str, cfg, params, prompts, max_seq: int, needed, checked,
         raise SystemExit(f"[{tag}] a request did not receive all its tokens")
     if not all(launches[n] > 0 for n in needed):
         raise SystemExit(f"[{tag}] a kernel of the path was never launched: {launches}")
-    report: list = []
-    with checked_kernels(report):
-        run(list(checked_run[0]), checked_run[1])
-    report_checked(report, checked, tag)
+    if checked:  # a path with no kernel (phase 13's MLA and SSM serves) has nothing to hold
+        report: list = []
+        with checked_kernels(report):
+            run(list(checked_run[0]), checked_run[1])
+        report_checked(report, checked, tag)
     stages.append(time.perf_counter())
     busy = profile_window(lambda _kernels, which, new: run(which, new), cpu=profile_cpu)
     stages.append(time.perf_counter())
@@ -3711,16 +3754,17 @@ def top8_groups(seed: int, T: int, E: int = 128, k: int = 8, live: int = 100):
     return tuple(int(c) for c in counts)
 
 
-def timed_draw(cfg, seed: int, label: str):
-    """``init_from_decls`` of ``cfg`` on the card, with its seconds, bytes and
-    peak printed; returns the params."""
+def timed_draw(cfg, seed: int, label: str, quant_weights: str = "none"):
+    """``init_from_decls`` of ``cfg`` on the card (``quant_weights="int8"``:
+    the experts drawn straight into int8), with its seconds, bytes and peak
+    printed; returns the params."""
     import torch
     from repro_torch.models.model import model_decl
     from repro_torch.params import init_from_decls, tree_leaves
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = init_from_decls(model_decl(cfg), seed, "cuda")
+    params = init_from_decls(model_decl(cfg), seed, "cuda", quant_weights=quant_weights)
     torch.cuda.synchronize()
     nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     total, active = cfg.param_counts()
@@ -3729,7 +3773,8 @@ def timed_draw(cfg, seed: int, label: str):
           + (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k} ({cfg.moe.dispatcher}, CF "
              f"{cfg.moe.capacity_factor}{', dense residual' if cfg.moe.dense_residual else ''})" if cfg.moe else "")
           + f", vocab {cfg.vocab_size} (padded {cfg.padded_vocab}); {total / 1e9:.3f} B params ({active / 1e9:.3f} B "
-          f"active), {nbytes} bytes ({nbytes / 1e9:.2f} GB) drawn on the card from seed {seed} in "
+          f"active), {nbytes} bytes ({nbytes / 1e9:.2f} GB"
+          + (", int8 experts" if quant_weights == "int8" else "") + f") drawn on the card from seed {seed} in "
           f"{time.perf_counter() - t0:.2f} s; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     return params
 
@@ -4128,10 +4173,486 @@ def head_shapes_phase(seed: int) -> tuple:
     return launches, stats
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the last model families (MLA, SSM, hybrid, encdec)
+# ---------------------------------------------------------------------------
+
+MLA_ARCH, SSM_ARCH, HYBRID_ARCH, ENCDEC_ARCH = ("minicpm3-4b", "mamba2-2.7b", "jamba-1.5-large-398b",
+                                                "seamless-m4t-medium")
+
+
+def free_card() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def upcycled_minicpm3(dense_cfg):
+    """minicpm3-4b upcycled to 8 experts top-2, dropless through the sorted
+    dispatcher (``--upcycle 8 --top-k 2 --cf -1 --dispatcher sorted``)."""
+    from repro_torch.config import MoEConfig
+    from repro_torch.core.upcycle import upcycle_config
+
+    return upcycle_config(dense_cfg, MoEConfig(num_experts=8, top_k=2, capacity_factor=None, dispatcher="sorted"))
+
+
+def first_layer(cfg, params):
+    """The model cut to its first period, one layer where the period is one
+    slot (full width): views of period 0 of every stacked leaf (and of the
+    encoder's first layer), no copy."""
+    from repro_torch.params import tree_map
+
+    cut = {**params, "stack": tree_map(lambda t: t[:1], params["stack"])}
+    kw = dict(num_layers=len(params["stack"]))
+    if "encoder" in params:
+        cut["encoder"] = tree_map(lambda t: t[:1], params["encoder"])
+        kw["num_encoder_layers"] = 1
+    return cfg.replace(**kw), cut
+
+
+def logits_gate(tag: str, cfg, params, prompts, cache_len: int) -> float:
+    """First-token logits of ``prompts`` through the kernels against their
+    plain versions on the same path (``prefill_three_ways``): the worst
+    rel_err must be within LOGIT_TOL. Returns it."""
+    import torch
+
+    worst = 0.0
+    with torch.inference_mode():
+        for p in prompts:
+            lk, lp, _ = prefill_three_ways(cfg, params, p, max(16, 1 << (len(p) - 1).bit_length()), cache_len)
+            worst = max(worst, rel_err(lk, lp)[1])
+    print(f"  [{tag}] first-token logits of {len(prompts)} prompts, kernels vs plain versions: {worst:.4g} of "
+          f"max|logits| (tol {LOGIT_TOL})")
+    if not worst <= LOGIT_TOL:
+        raise SystemExit(f"[{tag}] the kernel path's logits disagree with the plain versions'")
+    return worst
+
+
+def tokens_vs_plain(tag: str, cfg, params, prompts, max_seq: int, which=(0, 5), new: int = 8) -> str:
+    """A short ring serve (requests ``which``, ``new`` tokens each) through
+    the kernels and through their plain versions; the share of greedy
+    tokens equal (reported: with random weights two bf16 paths part within
+    a few tokens at depth, phase 3)."""
+    _, out_k, _ = ring_serve_run(cfg, params, prompts, max_seq, list(which), new)
+    with plain_kernels():
+        _, out_p, wall = ring_serve_run(cfg, params, prompts, max_seq, list(which), new)
+    ntok = sum(len(v) for v in out_k.values())
+    same = sum(a == b for r in out_k for a, b in zip(out_k[r], out_p[r]))
+    print(f"  [{tag}] greedy tokens of requests {list(which)}, {new} new each, kernels vs plain versions: "
+          f"{same}/{ntok} positions equal (reported; plain run {wall:.3f} s)")
+    return f"{same}/{ntok}"
+
+
+def train_family(tag: str, cfg, params, seed: int, expect: dict, checked, steps: int = 8, seq: int = 2048,
+                 batch: int = 1, dense=None) -> tuple:
+    """``steps`` Trainer steps of ``cfg`` from ``params`` (kernels and remat
+    on, batch x seq tokens, the family's stub inputs): the loss must fall,
+    each kernel in ``expect`` launch that many times a step (and no other
+    expert GEMM); a profiled step's busy share; every kernel call of one
+    more step, forward and backward, held against its plain version
+    (``checked``) and every gradient finite. ``dense`` = (dense cfg, dense
+    params): the upcycled start's first CE must be the dense parent's."""
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.data.pipeline import make_train_iter, stub_inputs
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import loss_fn
+    from repro_torch.roofline.analysis import training_mfu
+    from repro_torch.train.callbacks import LoggingCallback
+    from repro_torch.train.trainer import Trainer
+
+    tcfg = TrainConfig(global_batch=batch, seq_len=seq, lr=3e-4, lr_min=3e-6, warmup_steps=1, total_steps=steps + 2,
+                       seed=seed, log_every=1)
+    data = make_train_iter(cfg.vocab_size, seq, batch, tcfg.blend_ratio, seed, stub_inputs(cfg, batch, seq))
+    dense_ce = None
+    if dense is not None:
+        first = {k: torch.from_numpy(v).cuda() for k, v in next(make_train_iter(
+            cfg.vocab_size, seq, batch, tcfg.blend_ratio, seed, stub_inputs(cfg, batch, seq))).items()}
+        with torch.no_grad():
+            dense_ce = float(loss_fn(dense[0], dense[1], first, use_kernel=True)[1]["ce"])
+        del first
+    trainer = Trainer(cfg, tcfg, params=params, use_kernel=True, data_iter=data)
+    log = LoggingCallback(log=lambda m: print("  " + m), log_every=4)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    trainer.run(steps, callbacks=[log])
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.history
+    steady = hist[-1]["ms_per_step_steady"]
+    tok_s = batch * seq / steady * 1e3
+    mfu = training_mfu(cfg, seq, tok_s)
+    per_step = {k: v / steps for k, v in launches.items() if v}
+    print(f"  [{tag}] losses {[round(r['loss'], 4) for r in hist]}; steady {steady:.3f} ms/step, {tok_s:.1f} tok/s, "
+          f"MFU {100 * mfu:.3f}% (flops_per_token, 3x, of {PEAK_BF16_TFLOPS:.0f} TFLOP/s); peak {peak} bytes "
+          f"({peak / 1e9:.2f} GB); launches per step {per_step}; {card_line()}")
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise SystemExit(f"[{tag}] the loss did not fall over {steps} steps")
+    if {k for k, v in launches.items() if v} != set(expect) or any(
+            launches[k] != n * steps for k, n in expect.items()):
+        raise SystemExit(f"[{tag}] launches per step {per_step}, expected {expect}")
+    if dense_ce is not None:
+        print(f"  [{tag}] upcycled start: step-1 CE {hist[0]['ce']:.5f} vs the dense parent's {dense_ce:.5f} "
+              f"(tol {UPCYCLE_CE_TOL})")
+        if not abs(hist[0]["ce"] - dense_ce) <= UPCYCLE_CE_TOL:
+            raise SystemExit(f"[{tag}] the upcycled start's CE is not the dense parent's")
+    busy = profile_train_step(trainer)
+    report: list = []
+    named = named_leaves(trainer.params)
+    batch_t = trainer._to_device(next(trainer.data_iter))
+    with checked_kernels(report):
+        loss, _ = loss_fn(cfg, trainer.params, batch_t, trainer.state.gen, use_kernel=True)
+        grads = torch.autograd.grad(loss, [t for _, t in named], allow_unused=True)
+    torch.cuda.synchronize()
+    report_checked(report, checked, f"{tag} training")
+    bad = [n for (n, _), g in zip(named, grads) if g is None or not bool(torch.isfinite(g).all())]
+    if bad:
+        raise SystemExit(f"[{tag}] parameters without a finite gradient: {bad}")
+    del grads, loss, trainer, report, named
+    free_card()
+    return launches, dict(losses=[r["loss"] for r in hist], ms_per_step=steady, tokens_per_s=tok_s, mfu=mfu,
+                          peak_bytes=peak, device_busy_share=busy, launches_per_step=per_step,
+                          **({"step1_ce": hist[0]["ce"], "dense_ce": dense_ce} if dense_ce is not None else {}))
+
+
+def serve_minicpm3(seed: int) -> tuple:
+    """Phase 13 (a): minicpm3-4b at all 62 layers, full width, bf16, served
+    ring (MLA: the latent ``ckv``/``krope`` ring and the absorbed decode; no
+    kernel on this path: MLA's prefill has dk 96 != dv 64, as in JAX);
+    then upcycled to 8 experts top-2 at all 62 layers (25.6 B parameters)
+    and served ring through the sorted dispatcher (#3/#4), a short serve's
+    tokens beside the plain versions' and its first-token logits gated on the
+    one-layer full-width cut; then 8 training steps of the upcycled model
+    cut to 2 layers (#3-#7) and the gradient gate on its smoke config."""
+    import torch
+    from repro_torch.config import get_config, smoke_config
+    from repro_torch.core.upcycle import upcycle_params
+    from repro_torch.models.model import model_decl
+    from repro_torch.params import init_from_decls
+
+    free_card()
+    launches, stats = {}, {}
+    cfg = get_config(MLA_ARCH)
+    params = timed_draw(cfg, seed, "13a")
+    lens, prompts, max_seq = ring_prompts(seed, cfg.vocab_size)
+    _, _, stats["dense_ring"] = counted_serve_peak("minicpm3 ring, MLA", cfg, params, prompts, max_seq, (), ())
+    moe_cfg = upcycled_minicpm3(cfg)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    moe = upcycle_params(cfg, moe_cfg, params, seed)
+    del params
+    free_card()
+    torch.cuda.synchronize()
+    total, active = moe_cfg.param_counts()
+    print(f"  [13a] upcycled to {moe_cfg.name} in {time.perf_counter() - t0:.2f} s: {total / 1e9:.3f} B params "
+          f"({active / 1e9:.3f} B active), {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    launches["upcycled_ring"], _, stats["upcycled_ring"] = counted_serve_peak(
+        "minicpm3 e8t2 ring sorted", moe_cfg, moe, prompts, max_seq, ("grouped_gate_up", "grouped_down"),
+        ("grouped_gemm",))
+    stats["upcycled_ring"]["equal_to_plain"] = tokens_vs_plain("13a upcycled", moe_cfg, moe, prompts, max_seq)
+    cut_cfg, cut = first_layer(moe_cfg, moe)
+    stats["upcycled_ring"]["one_layer_logit_rel_err"] = logits_gate("13a upcycled, 1 layer", cut_cfg, cut, prompts,
+                                                                    max_seq)
+    del moe, cut
+    free_card()
+    layers = 2
+    dense2 = cfg.replace(num_layers=layers)
+    moe2 = moe_cfg.replace(num_layers=layers)
+    dparams = init_from_decls(model_decl(dense2), seed, "cuda")
+    params2 = upcycle_params(dense2, moe2, dparams, seed)
+    print(f"  [13a train] cut: num_layers 62 -> {layers}; dropless sorted, remat {moe2.remat}, batch 1 x 2048")
+    expect = {"grouped_gate_up": 2 * layers, "grouped_down": 2 * layers,
+              **{k: layers for k in ("grouped_bwd_dh", "grouped_bwd_dx", "grouped_bwd_wgrad")}}
+    launches["upcycled_train"], stats["upcycled_train"] = train_family(
+        "13a train", moe2, params2, seed, expect,
+        ("grouped_gemm", "grouped_bwd_dh", "grouped_bwd_dx", "grouped_bwd_wgrad"), dense=(dense2, dparams))
+    del params2, dparams
+    free_card()
+    small = upcycled_minicpm3(smoke_config(cfg)).replace(num_layers=1)
+    stats["upcycled_train"]["small_grad_rel_err"] = small_grad_check(seed, cfg=small,
+                                                                     label="smoke minicpm3 e8t2, 1 layer")
+    return launches, stats
+
+
+def serve_mamba2(seed: int) -> tuple:
+    """Phase 13 (b): mamba2-2.7b at all 64 layers, full width, bf16, served
+    ring (no kernel on its path: the SSM has no ``pallas_call``); the
+    valid-length repair at full depth: a 16-token prompt in a 32-token
+    bucket gives the unpadded prefill's first-decode logits within
+    LOGIT_TOL; then 8 training steps cut to 4 layers."""
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.models.model import decode_step, prefill_forward
+
+    free_card()
+    stats = {}
+    cfg = get_config(SSM_ARCH)
+    params = timed_draw(cfg, seed, "13b")
+    lens, prompts, max_seq = ring_prompts(seed, cfg.vocab_size)
+    _, _, stats["ring"] = counted_serve_peak("mamba2 ring", cfg, params, prompts, max_seq, (), ())
+    gen = torch.Generator(device="cuda").manual_seed(seed + 130)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 16), generator=gen, device="cuda")
+    nxt = torch.randint(0, cfg.vocab_size, (1,), generator=gen, device="cuda")
+    with torch.inference_mode():
+        pre_u, cache_u = prefill_forward(cfg, params, {"tokens": prompt}, cache_len=64, use_kernel=True)
+        dec_u, _ = decode_step(cfg, params, cache_u, nxt, use_kernel=True)
+        toks = torch.zeros((1, 32), dtype=torch.long, device="cuda")
+        toks[:, :16] = prompt
+        vl = torch.tensor([16], dtype=torch.int32, device="cuda")
+        pre_b, cache_b = prefill_forward(cfg, params, {"tokens": toks}, cache_len=64, use_kernel=True, valid_len=vl)
+        dec_b, _ = decode_step(cfg, params, cache_b, nxt, use_kernel=True)
+        state_err = max(rel_err(a["ssm"]["state"], b["ssm"]["state"])[1]
+                        for a, b in zip(cache_b["stack"].values(), cache_u["stack"].values()))
+    errs = dict(prefill=rel_err(pre_b, pre_u)[1], first_decode=rel_err(dec_b, dec_u)[1], state=state_err)
+    print(f"  [13b repair] 16-token prompt in a 32-token bucket vs unpadded, {cfg.num_layers} layers: prefill logits "
+          f"{errs['prefill']:.4g}, first-decode logits {errs['first_decode']:.4g}, SSM state {errs['state']:.4g} of "
+          f"max|ref| (tol {LOGIT_TOL})")
+    if not max(errs.values()) <= LOGIT_TOL:
+        raise SystemExit("[13b] the bucketed prefill's state is not the unpadded prefill's")
+    stats["repair"] = errs
+    del params, cache_u, cache_b
+    free_card()
+    layers = 4
+    cfg4 = cfg.replace(num_layers=layers)
+    print(f"  [13b train] cut: num_layers 64 -> {layers}; remat {cfg4.remat}, batch 1 x 2048")
+    params4 = timed_draw(cfg4, seed, "13b train")
+    _, stats["train"] = train_family("13b train", cfg4, params4, seed, {}, ())
+    return {}, stats
+
+
+def serve_jamba(seed: int) -> tuple:
+    """Phase 13 (c): jamba-1.5-large-398b, one period of 8 layers
+    ("MMMAMMMM", MoE on the odd slots) at full width with int8 expert
+    weights drawn straight into int8, served ring through its own
+    ``allgather`` at CF 2.0 (#8/#9; #16 at d 128 for the attention layer's
+    prefill); then the smoke-width jamba (one period) trained 8 steps
+    through the padded kernels (#1/#2, #5-#7, #16-#18) and the gradient
+    gate on a two-layer cut of its pattern ("MA")."""
+    from repro_torch.config import get_config, smoke_config
+    from repro_torch.models.transformer import build_slots
+
+    free_card()
+    launches, stats = {}, {}
+    base = get_config(HYBRID_ARCH)
+    cfg = base.replace(num_layers=len(base.hybrid_pattern), quant_weights="int8")
+    print(f"  [13c] cut: num_layers 72 -> {cfg.num_layers} (one period, the smallest legal depth); int8 experts")
+    params = timed_draw(cfg, seed, "13c", quant_weights="int8")
+    lens, prompts, max_seq = ring_prompts(seed, cfg.vocab_size)
+    launches["ring"], _, stats["ring"] = counted_serve_peak(
+        "jamba period ring allgather CF 2 int8", cfg, params, prompts, max_seq,
+        ("expert_gate_up_q8", "expert_down_q8", "flash_fwd"), ("expert_gate_up_q8", "expert_down_q8", "flash_fwd"))
+    stats["ring"]["equal_to_plain"] = tokens_vs_plain("13c", cfg, params, prompts, max_seq)
+    del params
+    free_card()
+    small = smoke_config(base)
+    print(f"  [13c train] smoke jamba: one period, d_model {small.d_model}, {small.moe.num_experts} experts top-"
+          f"{small.moe.top_k} allgather CF {small.moe.capacity_factor}; batch 1 x 2048")
+    sp = timed_draw(small, seed, "13c train")
+    slots = build_slots(small)
+    n_moe, n_attn = sum(s.ffn == "moe" for s in slots), sum(s.mixer == "attn" for s in slots)
+    expect = {"expert_gate_up": 2 * n_moe, "expert_down": 2 * n_moe, "flash_fwd": 2 * n_attn,
+              **{k: n_moe for k in ("grouped_bwd_dh", "grouped_bwd_dx", "grouped_bwd_wgrad")},
+              **{k: n_attn for k in ("flash_bwd_dq", "flash_bwd_dkv")}}
+    launches["train"], stats["train"] = train_family(
+        "13c train", small, sp, seed, expect, ("expert_gemm", "flash_fwd", "grouped_bwd_dh", "grouped_bwd_dx",
+                                               "grouped_bwd_wgrad", "flash_bwd_dq", "flash_bwd_dkv"))
+    # the gradient gate on a two-layer cut of the pattern, "MA": a Mamba slot
+    # with a dense FFN, an attention slot with the MoE (the whole 8-layer
+    # period in bf16 parts kernel and plain gradients by ~2% through rounding
+    # alone: 2.2e-2 of max|grad| on the CPU, where both are plain arithmetic).
+    # The Mamba mixer's per-head scalars are sums over every position with
+    # cancellation: dt_bias parted by 4.8e-2 on the card (D_skip 1.7e-2, every
+    # other parameter under 1.6e-2), so they are printed, not gated
+    ma = small.replace(hybrid_pattern="MA", num_layers=2)
+    stats["train"]["small_grad_rel_err"] = small_grad_check(seed, cfg=ma, label="smoke jamba cut to 'MA', 2 layers",
+                                                            ungated=("dt_bias", "A_log", "D_skip"))
+    return launches, stats
+
+
+def generate_encdec(cfg, params, tokens, frames, new: int):
+    """Greedy generation through ``prefill_forward`` (the encoder over
+    ``frames``, the decoder's cross k/v cached) and ``decode_step``: (new
+    tokens (B, new), prefill ms, mean decode-step ms)."""
+    import torch
+    from repro_torch.models.model import decode_step, prefill_forward
+
+    out = []
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill_forward(cfg, params, {"tokens": tokens, "frames": frames},
+                                        cache_len=tokens.shape[1] + new, use_kernel=True)
+        tok = logits[:, :cfg.vocab_size].argmax(-1)
+        out.append(tok.tolist())
+        t1 = time.perf_counter()
+        for _ in range(new - 1):
+            logits, cache = decode_step(cfg, params, cache, tok.to(torch.int32), use_kernel=True)
+            tok = logits[:, :cfg.vocab_size].argmax(-1)
+            out.append(tok.tolist())
+        t2 = time.perf_counter()
+    return list(zip(*out)), 1e3 * (t1 - t0), 1e3 * (t2 - t1) / max(new - 1, 1)
+
+
+def seamless_phase(seed: int) -> tuple:
+    """Phase 13 (d): seamless-m4t-medium at full size (12 + 12 layers):
+    greedy generation through ``prefill_forward`` + ``decode_step`` with
+    stub frames (#16 at d 64 on the decoder's prefill; the encoder and
+    cross-attention take the plain path, as in JAX) through the kernels
+    and through their plain versions, every #16 call of the prefill held
+    against its plain version, the first-token logits gated on the
+    one-layer cut; then 10 steps of the train CLI (#16-#18 on the decoder;
+    finite losses) and every kernel call of one more step held against its
+    plain version."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.config import get_config
+    from repro_torch.kernels import ops
+    import numpy as np
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models.model import loss_fn, prefill_forward
+
+    free_card()
+    stats, launches = {}, {}
+    cfg = get_config(ENCDEC_ARCH)
+    params = timed_draw(cfg, seed, "13d")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 131)
+    B, L, Se, new = 4, 64, 300, 32
+    tokens = torch.randint(0, cfg.vocab_size, (B, L), generator=gen, device="cuda")
+    frames = torch.randn((B, Se, cfg.d_model), generator=gen, device="cuda") * 0.02
+    generate_encdec(cfg, params, tokens[:1, :16], frames[:1, :16], 2)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out_k, pre_ms, dec_ms = generate_encdec(cfg, params, tokens, frames, new)
+    launches["generate"] = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with plain_kernels():
+        out_p, _, _ = generate_encdec(cfg, params, tokens, frames, new)
+    ntok = B * new
+    same = sum(a == b for r in range(B) for a, b in zip(out_k[r], out_p[r]))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        generate_encdec(cfg, params, tokens[:2], frames[:2], 8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = device_busy(prof, wall, "2 sequences, prefill + 8 tokens, CUDA activity only")
+    tok_s = ntok / (pre_ms + dec_ms * (new - 1)) * 1e3
+    print(f"  [13d] {B} x {L} tokens over {Se} stub frames, {new} new each: prefill {pre_ms:.3f} ms, decode step "
+          f"{dec_ms:.3f} ms, {tok_s:.2f} tok/s; launches { {k: v for k, v in launches['generate'].items() if v} }; "
+          f"peak {peak} bytes ({peak / 1e9:.2f} GB); greedy tokens kernels vs plain versions {same}/{ntok} equal "
+          f"(reported); {card_line()}")
+    if launches["generate"]["flash_fwd"] != cfg.num_layers or any(len(r) != new for r in out_k):
+        raise SystemExit(f"[13d] the generation did not run the decoder's prefill through #16: {launches}")
+    report: list = []
+    with torch.inference_mode(), checked_kernels(report):
+        prefill_forward(cfg, params, {"tokens": tokens, "frames": frames}, use_kernel=True)
+    report_checked(report, ("flash_fwd",), "13d prefill")
+    cut_cfg, cut = first_layer(cfg, params)
+    worst = 0.0
+    with torch.inference_mode():
+        batch = {"tokens": tokens[:1], "frames": frames[:1]}
+        lk, _ = prefill_forward(cut_cfg, cut, batch, use_kernel=True)
+        with plain_kernels():
+            lp, _ = prefill_forward(cut_cfg, cut, batch, use_kernel=True)
+        worst = rel_err(lk, lp)[1]
+        lk_full, _ = prefill_forward(cfg, params, batch, use_kernel=True)
+        with plain_kernels():
+            lp_full, _ = prefill_forward(cfg, params, batch, use_kernel=True)
+    full = rel_err(lk_full, lp_full)[1]
+    print(f"  [13d] first-token logits, kernels vs plain versions: one-layer cut {worst:.4g} of max|logits| (tol "
+          f"{LOGIT_TOL}); all 12 + 12 layers {full:.4g} (reported)")
+    if not worst <= LOGIT_TOL:
+        raise SystemExit("[13d] the kernel path's logits disagree with the plain versions'")
+    stats["generate"] = dict(prefill_ms=pre_ms, decode_step_ms=dec_ms, tokens_per_s=tok_s, peak_bytes=peak,
+                             device_busy_share=busy, equal_to_plain=f"{same}/{ntok}", one_layer_logit_rel_err=worst,
+                             full_logit_rel_err=full)
+    del params, cut
+    free_card()
+    # 10 steps: the CLI's logging records steps 1 and 10 (log_every 10), the
+    # steady figure is steps 2-10
+    steps, batch_n, seq = 10, 2, 1024
+    argv = ["--arch", ENCDEC_ARCH, "--steps", str(steps), "--batch", str(batch_n), "--seq", str(seq),
+            "--use-kernel", "--seed", str(seed)]
+    print(f"  [13d train] python -m repro_torch.launch.train {' '.join(argv)}")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    tr = train_main(argv)
+    launches["train"] = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = tr.history
+    per_step = {k: v / steps for k, v in launches["train"].items() if v}
+    expect = {"flash_fwd": 2 * cfg.num_layers, "flash_bwd_dq": cfg.num_layers, "flash_bwd_dkv": cfg.num_layers}
+    steady = hist[-1]["ms_per_step_steady"]
+    print(f"  [13d train] losses {[round(r['loss'], 4) for r in hist]}, grad norms "
+          f"{[float(r['grad_norm']) for r in hist]}; steady {steady:.3f} ms/step, "
+          f"{batch_n * seq / steady * 1e3:.1f} tok/s; peak {peak} bytes ({peak / 1e9:.2f} GB); launches per step "
+          f"{per_step}")
+    # the loss is held finite, not falling: the random init's gradient norm
+    # grows with depth (the JAX package's own, at 6 + 6 smoke layers: 4.0e7;
+    # at 12 + 12 full-width layers ~1e18), so clipping to norm 1 leaves each
+    # Adam step near zero and 10 steps do not move the loss
+    if not all(np.isfinite(r["loss"]) for r in hist):
+        raise SystemExit("[13d] the train CLI's loss is not finite")
+    if {k for k, v in launches["train"].items() if v} != set(expect) or any(
+            launches["train"][k] != n * steps for k, n in expect.items()):
+        raise SystemExit(f"[13d] train CLI launches per step {per_step}, expected {expect}")
+    busy_t = profile_train_step(tr)
+    report = []
+    named = named_leaves(tr.params)
+    batch_t = tr._to_device(next(tr.data_iter))
+    with checked_kernels(report):
+        loss, _ = loss_fn(tr.cfg, tr.params, batch_t, tr.state.gen, use_kernel=True)
+        grads = torch.autograd.grad(loss, [t for _, t in named], allow_unused=True)
+    torch.cuda.synchronize()
+    report_checked(report, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), "13d training")
+    bad = [n for (n, _), g in zip(named, grads) if g is None or not bool(torch.isfinite(g).all())]
+    if bad:
+        raise SystemExit(f"[13d] parameters without a finite gradient: {bad}")
+    stats["train"] = dict(losses=[r["loss"] for r in hist], grad_norms=[r["grad_norm"] for r in hist],
+                          ms_per_step=steady, tokens_per_s=batch_n * seq / steady * 1e3, peak_bytes=peak,
+                          launches_per_step=per_step, device_busy_share=busy_t)
+    del tr, grads, loss, named, report
+    free_card()
+    return launches, stats
+
+
+def new_shapes_phase(seed: int) -> list:
+    """Phase 13 (e): the kernels at the new families' shapes, phase 2's way
+    (into NaN, twice bit-equal, against the plain version, time beside the
+    library call and the bound): #3/#4 at the upcycled minicpm3's D 2560 /
+    F 6400 (decode, prefill and training routings over 8 experts), #8/#9 at
+    jamba's D 8192 / F 24576 / E 16 at CF 2 (decode C 1, a 300-token
+    prefill C 75), #16 at jamba's attention (H 64, KV 8, d 128) and
+    seamless's decoder (H 16, KV 16, d 64), #17/#18 at seamless's."""
+    import torch
+
+    free_card()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 13)
+    rows = []
+    for groups, tag in (((3, 0, 2, 1, 0, 1, 1, 0), "minicpm3 e8t2 decode"),
+                        ((200, 0, 131, 77, 64, 50, 40, 38), "minicpm3 e8t2 prefill"),
+                        ((1100, 0, 517, 803, 64, 700, 431, 481), "minicpm3 e8t2 train")):
+        rows += check_grouped(gen, groups, tag, D=2560, F=6400)
+    free_card()
+    for C, tag in ((1, "jamba decode CF 2"), (75, "jamba prefill CF 2")):
+        rows += check_expert_q8(gen, C, tag, E=16, D=8192, F=24576)
+        free_card()
+    rows.append(check_flash(gen, 512, H=64, KV=8, d=128))
+    rows.append(check_flash(gen, 512, H=16, KV=16, d=64))
+    rows += check_flash_bwd(gen, 1024, H=16, KV=16, d=64)
+    free_card()
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12", help="comma list of phases to run")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13", help="comma list of phases to run")
     ap.add_argument("--digest", metavar="SRC", help="only print digests() of the port under SRC (a tree's src "
                                                       "directory) and exit: run it on two trees to compare outputs")
     ap.add_argument("--times", metavar="SRC", help="only print kernel_times() of the port under SRC and exit: run "
@@ -4357,6 +4878,32 @@ def main(argv=None) -> int:
     else:
         flat12 = []
 
+    fam_launches, fam_stats, flat13 = {}, {}, []
+    if 13 in phases:
+        stamp("13 (e)")
+        print("[13] (e) the kernels at the new families' shapes: #3/#4 at D 2560 / F 6400, #8/#9 at D 8192 / F 24576 "
+              "/ E 16, #16 at H 64/8 d 128 and H 16/16 d 64, #17/#18 at H 16/16 d 64")
+        moe_shapes += new_shapes_phase(args.seed)
+        stamp("13 (a)")
+        print("[13] (a) minicpm3-4b (MLA) at all 62 layers: ring serve; upcycled to 8 experts top-2 (62 layers, "
+              "sorted, #3/#4); 8 training steps of the upcycled model at 2 layers (#3-#7)")
+        fam_launches["minicpm3"], fam_stats["minicpm3"] = serve_minicpm3(args.seed)
+        stamp("13 (b)")
+        print("[13] (b) mamba2-2.7b (SSM) at all 64 layers: ring serve, the bucketed-prefill repair; 8 training steps "
+              "at 4 layers")
+        fam_launches["mamba2"], fam_stats["mamba2"] = serve_mamba2(args.seed)
+        stamp("13 (c)")
+        print("[13] (c) jamba-1.5-large-398b (hybrid, MoE) one period at full width, int8 experts: ring serve through "
+              "allgather CF 2 (#8/#9, #16); 8 training steps of the smoke jamba (#1/#2, #5-#7, #16-#18)")
+        fam_launches["jamba"], fam_stats["jamba"] = serve_jamba(args.seed)
+        stamp("13 (d)")
+        print("[13] (d) seamless-m4t-medium (encdec) at full size: greedy generation through prefill_forward + "
+              "decode_step (#16); 10 steps of the train CLI (#16-#18)")
+        fam_launches["seamless"], fam_stats["seamless"] = seamless_phase(args.seed)
+        flat13 = [fam_launches["minicpm3"]["upcycled_ring"], fam_launches["minicpm3"]["upcycled_train"],
+                  fam_launches["jamba"]["ring"], fam_launches["jamba"]["train"], fam_launches["seamless"]["generate"],
+                  fam_launches["seamless"]["train"]]
+
     sources = {
         "grouped_gate_up": ("src/repro_torch/kernels/csrc/grouped_gemm.cu", "src/repro/kernels/expert_gemm.py:335"),
         "grouped_down": ("src/repro_torch/kernels/csrc/grouped_gemm.cu", "src/repro/kernels/expert_gemm.py:355"),
@@ -4394,7 +4941,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": next((d[name] for d in (launches, train_launches, padded_launches, int8_launches,
                                                 fused_launches, int8_fused_launches, int8_padded_launches,
-                                                ckpt_launches, spec_launches, *flat12)
+                                                ckpt_launches, spec_launches, *flat12, *flat13)
                               if d.get(name)), 0),
             "max_abs_err": k.get("max_abs_err"),
             "ms": k.get("ms"), "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
@@ -4419,7 +4966,11 @@ def main(argv=None) -> int:
                                                ("speculative_paged", spec_launches),
                                                *((f"moe_configs_{k}", v) for k, v in zip(
                                                    ("qwen3_ring", "qwen3_paged", "qwen3_padded", "arctic_padded",
-                                                    "qwen3_top8_train", "expert_choice_ring"), flat12)))}}}))
+                                                    "qwen3_top8_train", "expert_choice_ring"), flat12)),
+                                               *((f"families_{k}", v) for k, v in zip(
+                                                   ("minicpm3_e8t2_ring", "minicpm3_e8t2_train", "jamba_int8_ring",
+                                                    "jamba_smoke_train", "seamless_generate", "seamless_train_cli"),
+                                                   flat13)))}}}))
     print(json.dumps({"serve": stats}))
     print(json.dumps({"train": train_stats}))
     print(json.dumps({"padded": padded_stats}))
@@ -4427,6 +4978,7 @@ def main(argv=None) -> int:
     print(json.dumps({"checkpoint": ckpt_stats}))
     print(json.dumps({"speculative_and_tuner": spec_stats}))
     print(json.dumps({"moe_configs": moe_stats}, default=str))
+    print(json.dumps({"families": fam_stats}, default=str))
     print(json.dumps({"phase2_moe_shapes": moe_shapes}, default=str))
     print(json.dumps({"kernels": rows}))
     print(card_line())

@@ -3,11 +3,12 @@
 defaults, so a test can build both packages' configs from one dict),
 ``smoke_config``, ``with_dispatcher`` and ``get_config``.
 
-Only the families this port runs are accepted: ``dense``, ``moe`` and
-``vlm`` (a dense decoder that takes a stub patch-embedding prefix) with GQA
-attention. The others (MLA, SSM, hybrid, encdec) raise
-``NotImplementedError`` naming the ROADMAP item that ports them, as does
-``get_config`` for their architectures.
+Every family of the JAX package: ``dense`` and ``moe`` (GQA or MLA
+attention), ``vlm`` (a dense decoder that takes a stub patch-embedding
+prefix), ``ssm`` (Mamba-2), ``hybrid`` (interleaved Mamba and attention
+mixers, MoE optional) and ``encdec`` (an encoder over stub frame
+embeddings and a decoder with cross-attention), with ``MLAConfig`` and
+``SSMConfig``.
 """
 from __future__ import annotations
 
@@ -16,15 +17,7 @@ import importlib
 import math
 from typing import Optional, Tuple
 
-# ROADMAP queue 1 item that ports each family or feature not yet in the port
-_LATER = "ROADMAP queue 1, 'other families'"
-_LATER_FAMILY = {
-    "mla": "ROADMAP queue 1, 'other families': MLA",
-    "ssm": "ROADMAP queue 1, 'other families': SSM and hybrid",
-    "hybrid": "ROADMAP queue 1, 'other families': SSM and hybrid",
-    "encdec": "ROADMAP queue 1, 'other families': encdec",
-}
-FAMILIES = ("dense", "moe", "vlm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,12 +61,48 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (MiniCPM3 / DeepSeek-V2 style)."""
+
+    q_lora_rank: int = 768
+    kv_lora_rank: int = 256
+    qk_nope_head_dim: int = 64
+    qk_rope_head_dim: int = 32
+    v_head_dim: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 SSD (state-space duality) block parameters."""
+
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    headdim: int = 64
+    ngroups: int = 8
+    chunk_size: int = 256
+    dt_min: float = 1e-3
+    dt_max: float = 1e-1
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def nheads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.headdim
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture description (the fields of ``repro.config.ModelConfig``
-    that the dense/moe/vlm GQA families read)."""
+    """Architecture description, the fields of ``repro.config.ModelConfig``.
+    ``family``: ``dense`` / ``moe`` decoders (GQA, or MLA with
+    ``use_mla``), ``ssm`` (attention-free Mamba-2), ``hybrid`` (the mixer
+    pattern ``hybrid_pattern``, 'M' Mamba and 'A' attention, MoE
+    optional), ``encdec`` (``num_encoder_layers`` over stub frames, a
+    decoder with cross-attention), ``vlm`` (a stub patch-embedding
+    prefix)."""
 
     name: str = "model"
-    family: str = "dense"  # dense | moe | vlm
+    family: str = "dense"  # dense | moe | ssm | hybrid | encdec | vlm
     source: str = ""
 
     num_layers: int = 2
@@ -91,7 +120,13 @@ class ModelConfig:
     tie_embeddings: bool = False
     sliding_window: Optional[int] = None
     use_mla: bool = False
+    mla: Optional[MLAConfig] = None
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    # hybrid (jamba): mixer pattern of one period, 'M' Mamba, 'A' attention
+    hybrid_pattern: str = ""
+    # encdec: encoder layers over batch["frames"] (B, Se, d_model)
+    num_encoder_layers: int = 0
     # vlm stub frontend: prefix embedding positions (precomputed patch
     # embeddings arrive as batch["embeds"] (B, P, d_model))
     num_prefix_embeds: int = 0
@@ -103,18 +138,18 @@ class ModelConfig:
     # remat policy of the training stack: 'none' | 'full' | 'dots' (the JAX
     # package's 'full' and 'dots' both checkpoint the whole period body)
     remat: str = "full"
+    # FSDP/ZeRO-3 sharding of the weights over the data axis (jamba,
+    # arctic); read by the JAX package's sharding rules, carried here for
+    # the multi-GPU item (ROADMAP queue 1, 'Multi-GPU')
+    fsdp: bool = False
     # gradient-accumulation microbatches per step (fp32 accumulation)
     train_microbatches: int = 1
 
     QUANT_MODES = ("none", "int8")
 
     def __post_init__(self):
-        if self.family not in FAMILIES or self.use_mla:
-            item = _LATER_FAMILY["mla" if self.use_mla else self.family] \
-                if (self.use_mla or self.family in _LATER_FAMILY) else _LATER
-            raise NotImplementedError(
-                f"family={self.family!r} use_mla={self.use_mla} is not ported yet ({item})"
-            )
+        if self.family not in FAMILIES:
+            raise ValueError(f"unknown family {self.family!r}; expected one of {FAMILIES}")
         for name in ("quant_weights", "quant_kv"):
             if getattr(self, name) not in self.QUANT_MODES:
                 raise ValueError(
@@ -123,29 +158,67 @@ class ModelConfig:
 
     @property
     def head_dim_(self) -> int:
-        return self.head_dim or self.d_model // self.num_heads
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // self.num_heads if self.num_heads else 0
 
     @property
     def padded_vocab(self) -> int:
         d = self.vocab_divisor
         return int(math.ceil(self.vocab_size / d) * d)
 
+    @property
+    def supports_long_context(self) -> bool:
+        """True if long-context decode is in scope (the sub-quadratic rule:
+        an SSM state, a sliding window or MLA's latent cache)."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        if self.family == "encdec":
+            return False
+        return self.sliding_window is not None or self.use_mla
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
     def param_counts(self) -> Tuple[int, int]:
-        """(total, active) parameters excluding vocab padding, as
-        ``repro.config.ModelConfig.param_counts`` counts them for the
-        dense, moe and vlm families (the vlm stub frontend has none)."""
+        """(total, active) parameters excluding vocab padding, counted as
+        ``repro.config.ModelConfig.param_counts`` counts them (stub
+        frontends have none)."""
         D, V, L, hd = self.d_model, self.vocab_size, self.num_layers, self.head_dim_
-        total = active = V * D * (1 if self.tie_embeddings else 2) + D  # + final norm
-        attn = D * self.num_heads * hd + 2 * D * self.num_kv_heads * hd + self.num_heads * hd * D
-        if self.qkv_bias:
-            attn += (self.num_heads + 2 * self.num_kv_heads) * hd
         ffn = lambda dff: 3 * D * dff  # SwiGLU: gate, up, down
+
+        def attn() -> int:
+            if self.use_mla and self.mla is not None:
+                m, H = self.mla, self.num_heads
+                p = D * m.q_lora_rank + m.q_lora_rank * H * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+                p += D * (m.kv_lora_rank + m.qk_rope_head_dim)
+                p += m.kv_lora_rank * H * (m.qk_nope_head_dim + m.v_head_dim)
+                return p + H * m.v_head_dim * D
+            p = D * self.num_heads * hd + 2 * D * self.num_kv_heads * hd + self.num_heads * hd * D
+            if self.qkv_bias:
+                p += (self.num_heads + 2 * self.num_kv_heads) * hd
+            return p
+
+        def ssm() -> int:
+            s = self.ssm or SSMConfig()
+            di, nh, ng, ds = s.d_inner(D), s.nheads(D), s.ngroups, s.d_state
+            # in_proj (z, x, B, C, dt), depthwise conv, A_log and D, out_proj
+            return D * (2 * di + 2 * ng * ds + nh) + (di + 2 * ng * ds) * s.d_conv + 2 * nh + di * D
+
+        total = active = V * D * (1 if self.tie_embeddings else 2) + D  # + final norm
         for i in range(L):
-            total += 2 * D + attn
-            active += 2 * D + attn
+            total += 2 * D
+            active += 2 * D
+            if self.family == "ssm":
+                total += ssm()
+                active += ssm()
+                continue
+            if self.family == "hybrid" and self.hybrid_pattern:
+                mix = ssm() if self.hybrid_pattern[i % len(self.hybrid_pattern)] == "M" else attn()
+            else:
+                mix = attn()
+            total += mix
+            active += mix
             m = self.moe
             if m is not None and i % m.moe_layer_freq == m.moe_layer_freq - 1:
                 dff, router = m.experts_ff(self.d_ff), D * m.num_experts
@@ -157,13 +230,27 @@ class ModelConfig:
             elif self.d_ff:
                 total += ffn(self.d_ff)
                 active += ffn(self.d_ff)
+        if self.family == "encdec":
+            # encoder layers (self-attention + FFN + norms), and each decoder
+            # layer's cross-attention and its norm
+            enc = self.num_encoder_layers * (attn() + ffn(self.d_ff) + 2 * D) + L * (attn() + D)
+            total += enc
+            active += enc
         return total, active
 
     def flops_per_token(self, seq_len: int = 1) -> int:
         """Approximate forward FLOPs per token: 2 x active matmul params +
-        causal attention scores (MFU accounting)."""
+        causal attention scores over the attention layers (MFU
+        accounting)."""
         _, active = self.param_counts()
-        return 2 * active + 4 * self.num_layers * self.num_heads * self.head_dim_ * (seq_len // 2)
+        flops = 2 * active
+        if self.family != "ssm":
+            n_attn = self.num_layers
+            if self.family == "hybrid" and self.hybrid_pattern:
+                per = self.hybrid_pattern
+                n_attn = sum(1 for i in range(self.num_layers) if per[i % len(per)] == "A")
+            flops += 4 * n_attn * self.num_heads * self.head_dim_ * (seq_len // 2)
+        return flops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,8 +280,12 @@ class TrainConfig:
 
 
 ARCH_IDS = (
+    "mamba2-2.7b",
+    "minicpm3-4b",
+    "seamless-m4t-medium",
     "llama3.2-3b",
     "stablelm-1.6b",
+    "jamba-1.5-large-398b",
     "qwen3-moe-30b-a3b",
     "llava-next-34b",
     "qwen2.5-14b",
@@ -203,26 +294,31 @@ ARCH_IDS = (
     "llama3-8b",
     "llama3-e8t2",
 )
-# the JAX package's architectures the port does not run yet, and the ROADMAP
-# item that ports each
-LATER_ARCHS = {
-    "minicpm3-4b": _LATER_FAMILY["mla"],
-    "mamba2-2.7b": _LATER_FAMILY["ssm"],
-    "jamba-1.5-large-398b": _LATER_FAMILY["hybrid"],
-    "seamless-m4t-medium": _LATER_FAMILY["encdec"],
-}
-
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
-    """Reduced variant of the same family (as ``repro.config.smoke_config``
-    for the dense/moe/vlm families): 2 layers, d_model 256, 4 heads, <=4
+    """Reduced variant of the same family (``repro.config.smoke_config``):
+    d_model 256, 2 layers (a hybrid: one period of its pattern; an
+    encdec: 2 encoder layers too), 4 heads of 64, a small SSM and MLA, <=4
     experts (top-k capped at 2), 16 prefix embeddings for a vlm, tiny
     vocab."""
     kw: dict = dict(
-        d_model=256, vocab_size=1024, vocab_divisor=128, num_layers=2,
-        num_heads=4, num_kv_heads=min(cfg.num_kv_heads, 2) or 2, head_dim=64,
-        num_prefix_embeds=16 if cfg.num_prefix_embeds else 0,
+        d_model=256, vocab_size=1024, vocab_divisor=128,
+        num_prefix_embeds=16 if cfg.num_prefix_embeds else 0, fsdp=False,
     )
+    small_ssm = lambda: dataclasses.replace(cfg.ssm, d_state=32, headdim=32, ngroups=4, chunk_size=16)
+    if cfg.family == "ssm":
+        kw.update(num_layers=2, ssm=small_ssm())
+    elif cfg.family == "hybrid":
+        kw.update(num_layers=len(cfg.hybrid_pattern or "M"), ssm=small_ssm())
+    else:
+        kw.update(num_layers=2)
+    if cfg.family == "encdec":
+        kw.update(num_encoder_layers=2)
+    if cfg.num_heads:
+        kw.update(num_heads=4, num_kv_heads=min(cfg.num_kv_heads, 2) or 2, head_dim=64)
+    if cfg.use_mla:
+        kw.update(mla=MLAConfig(q_lora_rank=64, kv_lora_rank=32, qk_nope_head_dim=32, qk_rope_head_dim=16,
+                                v_head_dim=32))
     if cfg.d_ff:
         kw.update(d_ff=512)
     if cfg.moe is not None:
@@ -246,10 +342,10 @@ def with_dispatcher(cfg: ModelConfig, dispatcher: Optional[str]) -> ModelConfig:
 
 
 def get_config(arch: str) -> ModelConfig:
-    """Load ``repro_torch.configs.<arch>``; architectures not ported yet
-    raise ``NotImplementedError`` naming their ROADMAP item."""
+    """Load ``repro_torch.configs.<arch>`` (dashes and dots become
+    underscores)."""
     if arch not in ARCH_IDS:
-        raise NotImplementedError(f"--arch {arch!r} is not ported yet ({LATER_ARCHS.get(arch, _LATER)})")
+        raise ValueError(f"unknown --arch {arch!r}; expected one of {ARCH_IDS}")
     mod = importlib.import_module(
         "repro_torch.configs." + arch.replace("-", "_").replace(".", "_")
     )

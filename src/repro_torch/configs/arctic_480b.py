@@ -1,7 +1,7 @@
 """arctic-480b — 128-expert top-2 MoE with a dense residual FFN in parallel
 with every MoE layer [hf:Snowflake/snowflake-arctic-base]; already MoE, so
-the paper's recipe (CF training, router order) applies. The JAX config's
-``fsdp=True`` shards weights over a mesh; the port runs one card, where a
+the paper's recipe (CF training, router order) applies. ``fsdp=True``
+shards weights over a mesh (ROADMAP queue 1, 'Multi-GPU'); on one card a
 cut of it fits (``chip_smoke.py`` phase 12b serves 2 layers)."""
 from repro_torch.config import ModelConfig, MoEConfig
 
@@ -21,5 +21,6 @@ def get_config() -> ModelConfig:
         rope_theta=10000.0,
         moe=MoEConfig(num_experts=128, top_k=2, capacity_factor=2.0,
                       dense_residual=True, dispatcher="allgather"),
+        fsdp=True,
         train_microbatches=8,
     )

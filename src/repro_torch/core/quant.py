@@ -13,6 +13,13 @@ stacked leaf is quantised on its own: the JAX version casts the whole leaf
 to fp32, which at llama3-e8t2's full depth is 60 GB for one ``w_gate``;
 the per-channel scale lies inside one matrix, so the result is the same.
 
+Only the experts are quantised: the ``experts`` dict of an MoE layer. A
+dense FFN (jamba's dense slots, arctic's dense residual) has the same three
+keys but stays bf16, since ``mlp_apply`` has no scales to apply. The JAX
+``quantize_params`` quantises every dict with the three keys, and its
+``mlp_apply`` then multiplies by the raw int8 values (``ROADMAP.md``, notes
+on the reference).
+
 KV pages: per-vector (token x KV head) symmetric scales, the granularity an
 incremental page write can commit without touching the rest of the page.
 
@@ -97,12 +104,11 @@ def _is_expert_dict(node) -> bool:
 
 
 def quantize_params(params):
-    """A new tree with every expert-FFN dict quantised; other leaves
-    (attention, embeddings, router) pass through untouched."""
-    if _is_expert_dict(params):
-        return quantize_experts(params)
+    """A new tree with every ``experts`` dict quantised; other leaves
+    (attention, embeddings, router, dense FFNs) pass through untouched."""
     if isinstance(params, dict):
-        return {k: quantize_params(v) for k, v in params.items()}
+        return {k: quantize_experts(v) if k == "experts" and _is_expert_dict(v) else quantize_params(v)
+                for k, v in params.items()}
     return params
 
 
@@ -112,16 +118,18 @@ def quantize_decls(decls):
     drop the contraction dim (the leading ``(layers, expert)`` axes stay)."""
     from repro_torch.params import ParamDecl
 
-    if _is_expert_dict(decls) and all(isinstance(decls[k], ParamDecl) for k in EXPERT_KEYS):
-        out = dict(decls)
+    def q(node):
+        out = dict(node)
         for k in EXPERT_KEYS:
-            d = decls[k]
+            d = node[k]
             out[k] = dataclasses.replace(d, dtype=torch.int8, init="zeros")
             out[k + "_scale"] = ParamDecl(d.shape[:-2] + d.shape[-1:], d.axes[:-2] + d.axes[-1:],
                                           "ones", torch.bfloat16)
         return out
+
     if isinstance(decls, dict):
-        return {k: quantize_decls(v) for k, v in decls.items()}
+        return {k: q(v) if k == "experts" and _is_expert_dict(v) and not is_quantized(v) else quantize_decls(v)
+                for k, v in decls.items()}
     return decls
 
 

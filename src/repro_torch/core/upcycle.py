@@ -16,12 +16,15 @@ from repro_torch.params import init_from_decls, tree_map
 
 
 def upcycle_config(dense, moe, name: Optional[str] = None):
-    """Dense config -> N-Expert Top-k MoE config (family 'moe')."""
+    """Dense config -> N-Expert Top-k MoE config. A ``dense`` family
+    becomes ``moe``; every other family keeps its own (a ``vlm`` keeps its
+    ``embeds`` prefix, an ``encdec`` its encoder, a ``hybrid`` its
+    pattern), as ``repro.core.upcycle.upcycle_config`` keeps it."""
     assert dense.d_ff > 0, "cannot upcycle an FFN-free architecture"
     assert dense.num_layers % moe.moe_layer_freq == 0
     return dense.replace(
         name=name or f"{dense.name}-e{moe.num_experts}t{moe.top_k}",
-        family="moe",
+        family="moe" if dense.family == "dense" else dense.family,
         moe=moe,
     )
 

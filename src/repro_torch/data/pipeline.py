@@ -200,10 +200,13 @@ def make_train_iter(
     )
 
 
-def stub_inputs(cfg, batch_size: int) -> Optional[Dict[str, Tuple[int, ...]]]:
-    """The ``extra`` stub inputs a config's batches carry: a vlm's
-    precomputed patch embeddings ``embeds`` (B, P, d_model); None for the
-    text-only families."""
+def stub_inputs(cfg, batch_size: int, seq_len: int = 0) -> Optional[Dict[str, Tuple[int, ...]]]:
+    """The ``extra`` stub inputs a config's batches carry, as the JAX train
+    launcher sets them: a vlm's precomputed patch embeddings ``embeds`` (B,
+    P, d_model); an encdec's frame embeddings ``frames`` (B, seq_len,
+    d_model); None for the text-only families."""
     if cfg.family == "vlm":
         return {"embeds": (batch_size, cfg.num_prefix_embeds, cfg.d_model)}
+    if cfg.family == "encdec":
+        return {"frames": (batch_size, seq_len, cfg.d_model)}
     return None

@@ -37,11 +37,15 @@ drafter from ``--seed + 1``; otherwise the model drafts for itself.
 each expert-GEMM call site picks among its kernels' compiled tiles
 (``kernels/autotune.py``).
 
-Every ``--arch`` of ``repro_torch.config.ARCH_IDS`` serves, e.g.
+Every decoder ``--arch`` of ``repro_torch.config.ARCH_IDS`` serves, e.g.
 ``--arch qwen3-moe-30b-a3b --smoke --dispatcher sorted --use-kernel
 --device cpu`` (top-k capped at 2 by ``--smoke``); a vlm (llava-next-34b)
-serves its text path. Expert-choice routing and noisy gating have no flag,
-as in the JAX launcher: they are ``MoEConfig`` fields.
+serves its text path; minicpm3-4b (MLA), mamba2-2.7b (SSM) and jamba
+(hybrid, MoE) serve on the ring cache (``--cache-mode paged`` raises for
+them, as in the JAX package). seamless-m4t-medium (encdec) raises
+``ValueError``: the JAX engine cannot serve it either. Expert-choice
+routing and noisy gating have no flag, as in the JAX launcher: they are
+``MoEConfig`` fields.
 """
 from __future__ import annotations
 

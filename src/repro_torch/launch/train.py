@@ -17,7 +17,13 @@
 
 ``--smoke`` selects the reduced config; ``--upcycle N`` converts the dense
 config to an N-expert MoE, from the dense params checkpoint
-``--from-ckpt`` (online upcycling) or initialised fresh from ``--seed``.
+``--from-ckpt`` (online upcycling) or initialised fresh from ``--seed``;
+the family is kept as the JAX launcher keeps it (a dense config becomes
+``moe``; a vlm keeps its ``embeds`` stub, an encdec its encoder and
+``frames``), and an FFN-free config (mamba2-2.7b) refuses. Every
+``--arch`` trains, e.g. ``--arch jamba-1.5-large-398b --smoke`` or
+``--arch seamless-m4t-medium --smoke`` (its batches carry ``frames``
+(B, seq, d_model), as the JAX launcher's do).
 At the default ``--cf 4.0`` it trains through the padded ``allgather``
 dispatcher (capacity-factor token dropping, the paper's recipe); ``--cf
 -1`` is dropless through ``sorted``.
@@ -152,7 +158,7 @@ def main(argv=None):
         print(f"upcycled {dense_cfg.name} -> {cfg.name} from {args.from_ckpt}")
 
     it = make_train_iter(cfg.vocab_size, args.seq, args.batch, tcfg.blend_ratio, args.seed,
-                         stub_inputs(cfg, args.batch))
+                         stub_inputs(cfg, args.batch, args.seq))
     if data_state is not None:
         it.restore(data_state)
     t, a = cfg.param_counts()

@@ -1,6 +1,10 @@
-"""GQA attention: training/prefill without a cache, single-token decode
-against the ring-buffer KV cache, and decode / chunked prefill against the
-shared KV page pool (port of the GQA part of ``repro.models.attention``).
+"""Attention (port of ``repro.models.attention``): GQA for training and
+prefill without a cache, single-token decode against the ring-buffer KV
+cache, decode / chunked prefill against the shared KV page pool, and
+cross-attention over precomputed encoder keys; MLA (Multi-head Latent
+Attention, minicpm3), which expands its latent to per-head K/V in training
+and prefill and decodes absorbed, in the latent space, over its ``ckv`` /
+``krope`` ring.
 
 ``attention_core`` has the JAX package's three routes:
 
@@ -11,7 +15,9 @@ shared KV page pool (port of the GQA part of ``repro.models.attention``).
 * blockwise — online softmax over ``_KV_BLOCK`` key blocks (forward only
   here) for long sequences.
 
-Not ported yet: MLA and cross-attention.
+MLA's prefill (dk = nope + rope != dv) and cross-attention take the plain
+routes, as in the JAX package: the flash kernel needs dk == dv, and the
+JAX cross-attention passes no ``use_kernel``.
 """
 from __future__ import annotations
 
@@ -20,7 +26,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.quant import dequantize_kv, quantize_kv
-from repro_torch.models.layers import rope_apply
+from repro_torch.models.layers import norm_apply, norm_decl, rope_apply
 from repro_torch.params import ParamDecl
 
 NEG_INF = -1e30
@@ -130,6 +136,7 @@ def gqa_apply(
     causal: bool = True,
     return_kv: bool = False,
     use_kernel: bool = False,
+    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """x: (B,S,D). Without ``cache``: full-sequence attention (``return_kv``
     hands back this layer's k/v for the prefill cache). With ``cache`` and
@@ -137,9 +144,17 @@ def gqa_apply(
     paged ``cache_view`` (``page_table``...): decode or a prefill chunk
     against the layer's slice of the page pool. Cache writes update the
     cache tensors in place (JAX returns new arrays; the port saves the
-    copy). Returns (out, cache layer or None)."""
+    copy). ``cross_kv`` = (k, v, k_pos), the encoder's keys and values:
+    cross-attention, non-causal, no RoPE, the plain route. Returns (out,
+    cache layer or None)."""
     B, S, D = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    if cross_kv is not None:
+        if "bq" in params:
+            q = q + params["bq"]
+        k, v, k_pos = cross_kv
+        out = attention_core(q, k, v, positions, k_pos, None, causal=False)
+        return torch.einsum("bshk,hkd->bsd", out, params["wo"]), None
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
     if "bq" in params:
@@ -222,3 +237,98 @@ def _paged_attention(cfg, cache, cache_view, q, k, v, positions, use_kernel: boo
         kg, vg = cache["k"][bt], cache["v"][bt]
     return attention_core(q, kg.reshape(B, -1, KVh, hd), vg.reshape(B, -1, KVh, hd), positions,
                           cache_view["k_pos"], cfg.sliding_window)
+
+
+# ---------------------------------------------------------------------------
+# MLA (Multi-head Latent Attention), MiniCPM3 / DeepSeek-V2 style
+# ---------------------------------------------------------------------------
+
+
+def mla_decl(cfg) -> Dict[str, Any]:
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.num_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    dt = torch.bfloat16
+    return {
+        "wq_a": ParamDecl((D, m.q_lora_rank), ("embed", "lora"), "fan_in", dt),
+        "q_norm": norm_decl(m.q_lora_rank),
+        "wq_b": ParamDecl((m.q_lora_rank, H, qk), ("lora", "heads", "head_dim"), "fan_in", dt),
+        "wkv_a": ParamDecl((D, m.kv_lora_rank + m.qk_rope_head_dim), ("embed", "lora"), "fan_in", dt),
+        "kv_norm": norm_decl(m.kv_lora_rank),
+        "wkv_b": ParamDecl((m.kv_lora_rank, H, m.qk_nope_head_dim + m.v_head_dim),
+                           ("lora", "heads", "head_dim"), "fan_in", dt),
+        "wo": ParamDecl((H, m.v_head_dim, D), ("heads", "head_dim", "embed"), "fan_in", dt),
+    }
+
+
+def mla_apply(
+    cfg,
+    params,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+    cache_view: Optional[Dict[str, torch.Tensor]] = None,
+    return_kv: bool = False,
+    use_kernel: bool = False,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """x: (B,S,D). Without ``cache`` (training, prefill): the latent
+    ``ckv`` (B,S,kv_lora) is expanded to per-head K/V and attended through
+    ``attention_core`` (dk = nope + rope, dv = v_head_dim: the plain
+    routes); ``return_kv`` hands back {``ckv``, ``krope``} for the prefill
+    cache. With ``cache`` and a ring ``cache_view`` (S == 1): the absorbed
+    decode, which writes this token's latent and RoPE key into the ring in
+    place and attends in the latent space, queries absorbed through
+    ``wkv_b``'s K half and the output through its V half."""
+    m = cfg.mla
+    B, S, D = x.shape
+    nope, rope_d = m.qk_nope_head_dim, m.qk_rope_head_dim
+    scale = (nope + rope_d) ** -0.5
+
+    q_lat = norm_apply(params["q_norm"], torch.einsum("bsd,dr->bsr", x, params["wq_a"]))
+    q = torch.einsum("bsr,rhk->bshk", q_lat, params["wq_b"])
+    q_nope, q_rope = q[..., :nope], rope_apply(q[..., nope:], positions, cfg.rope_theta)
+    ckv_full = torch.einsum("bsd,dr->bsr", x, params["wkv_a"])
+    ckv = norm_apply(params["kv_norm"], ckv_full[..., :m.kv_lora_rank])
+    k_rope = rope_apply(ckv_full[..., m.kv_lora_rank:][:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+
+    if cache is None:
+        kv = torch.einsum("bsr,rhk->bshk", ckv, params["wkv_b"])
+        k_nope, v = kv[..., :nope], kv[..., nope:]
+        H = q.shape[2]
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rope_d)], -1)
+        qf = torch.cat([q_nope, q_rope], -1)
+        out = attention_core(qf, k, v, positions, positions, cfg.sliding_window, scale, use_kernel=use_kernel)
+        out = torch.einsum("bshv,hvd->bsd", out, params["wo"])
+        return out, ({"ckv": ckv, "krope": k_rope} if return_kv else None)
+
+    if cache_view is None or "slot" not in cache_view or S != 1:
+        raise ValueError("MLA decodes against the ring cache only: cache_view slot/slot_pos and S == 1")
+    rows = torch.arange(B, device=x.device)
+    slot = cache_view["slot"]
+    cache["ckv"][rows, slot] = ckv[:, 0].to(cache["ckv"].dtype)
+    cache["krope"][rows, slot] = k_rope[:, 0].to(cache["krope"].dtype)
+    ckv_c, kr_c = cache["ckv"], cache["krope"]
+    w_uk, w_uv = params["wkv_b"][..., :nope], params["wkv_b"][..., nope:]
+    q_abs = torch.einsum("bqhn,rhn->bqhr", q_nope, w_uk)
+    # fp32 scores from operands upcast exactly (the JAX einsums' fp32 output)
+    scores = (torch.einsum("bqhr,bsr->bhqs", q_abs.float(), ckv_c.float())
+              + torch.einsum("bqhp,bsp->bhqs", q_rope.float(), kr_c.float())) * scale
+    mask = _mask(positions, cache_view["slot_pos"], cfg.sliding_window)[:, None]
+    probs = torch.softmax(torch.where(mask, scores, NEG_INF), -1).to(ckv_c.dtype)
+    o_lat = torch.einsum("bhqs,bsr->bqhr", probs, ckv_c)
+    o = torch.einsum("bqhr,rhv->bqhv", o_lat, w_uv)
+    return torch.einsum("bshv,hvd->bsd", o, params["wo"]), cache
+
+
+def attention_decl(cfg) -> Dict[str, Any]:
+    return mla_decl(cfg) if cfg.use_mla else gqa_decl(cfg)
+
+
+def attention_apply(cfg, params, x, positions, cache=None, cache_view=None, causal: bool = True,
+                    return_kv: bool = False, use_kernel: bool = False):
+    """The config's self-attention mixer: MLA with ``cfg.use_mla`` (which
+    is always causal), else GQA."""
+    if cfg.use_mla:
+        return mla_apply(cfg, params, x, positions, cache, cache_view, return_kv, use_kernel)
+    return gqa_apply(cfg, params, x, positions, cache, cache_view, causal=causal, return_kv=return_kv,
+                     use_kernel=use_kernel)

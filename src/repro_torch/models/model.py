@@ -1,12 +1,15 @@
-"""Language model entry points (port of ``repro.models.model`` for the
-dense/moe/vlm GQA families):
+"""Language model entry points (port of ``repro.models.model``, every
+family):
 
 * ``forward``         — logits over full sequences (``train=True`` for a
   training step: the stack checkpoints each period when ``cfg.remat``).
 * ``loss_fn``         — CE over the padded logits + the MoE aux losses.
 * ``prefill_forward`` — one full-sequence forward that also emits a
   decode-ready ring cache (length-bucketed via ``valid_len``).
-* ``decode_step``     — one new token against the ring KV cache.
+* ``decode_step``     — one new token against the ring cache (k/v, MLA's
+  latent, the SSM's conv tail and state, the encoder's cross k/v).
+* ``prefill_reference`` — the oracle of ``prefill_forward``: the ring
+  cache filled by ``decode_step`` over the prompt, one token at a time.
 * ``paged_forward``   — a prefill chunk or a decode step against the shared
   KV page pool (``paged_stack_decl``); ``decode_step_paged`` is its S == 1
   case.
@@ -14,7 +17,13 @@ dense/moe/vlm GQA families):
 A ``vlm`` config's ``forward``, ``loss_fn`` and ``prefill_forward`` take
 ``batch["embeds"]`` (B, P, D), precomputed patch embeddings (the stub
 frontend), as a prefix before the text tokens, and return logits over the
-text positions only; the prefill's cache holds the prefix too.
+text positions only; the prefill's cache holds the prefix too. An
+``encdec`` config's take ``batch["frames"]`` (B, Se, D), precomputed frame
+embeddings (the stub audio frontend), which the non-causal encoder stack
+encodes for the decoder's cross-attention; its ring cache holds each
+decoder layer's cross k/v over the Se encoder positions. The paged pool
+holds GQA attention stacks only: MLA, SSM and cross-attention configs keep
+the ring cache, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -23,16 +32,54 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.models.layers import cross_entropy, embed_apply, embed_decl, norm_apply, norm_decl, unembed_apply
-from repro_torch.models.transformer import build_slots, periods_for, stack_apply, stack_cache_decl, stack_decl
-from repro_torch.params import ParamDecl, torch_dtype, tree_leaves, tree_map
+from repro_torch.models.transformer import (
+    BlockSpec,
+    build_slots,
+    periods_for,
+    stack_apply,
+    stack_cache_decl,
+    stack_decl,
+)
+from repro_torch.params import ParamDecl, init_from_decls, torch_dtype, tree_leaves, tree_map
+
+ENCODER_SLOTS = [BlockSpec("attn", "dense", causal=False)]
 
 
 def model_decl(cfg) -> Dict[str, Any]:
     slots = build_slots(cfg)
-    return {
+    decls = {
         "embed": embed_decl(cfg.padded_vocab, cfg.d_model, cfg.tie_embeddings),
         "stack": stack_decl(cfg, slots, periods_for(cfg, slots)),
         "final_norm": norm_decl(cfg.d_model, cfg.norm_type),
+    }
+    if cfg.family == "encdec":
+        assert cfg.num_encoder_layers > 0
+        decls["encoder"] = stack_decl(cfg, ENCODER_SLOTS, cfg.num_encoder_layers)
+        decls["encoder_norm"] = norm_decl(cfg.d_model, cfg.norm_type)
+    return decls
+
+
+def _encode(cfg, params, frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The non-causal encoder over stub frame embeddings (B, Se, D): (encoder
+    output, its positions). Never through the flash kernel and never
+    checkpointed, as the JAX ``_encode`` (no ``use_kernel``, no ``train``)."""
+    B, Se = frames.shape[:2]
+    dev = params["final_norm"]["scale"].device
+    pos = torch.arange(Se, dtype=torch.int32, device=dev).expand(B, Se)
+    x = frames.to(device=dev, dtype=torch_dtype(cfg.dtype))
+    x, _, _ = stack_apply(cfg, ENCODER_SLOTS, params["encoder"], x, pos)
+    return norm_apply(params["encoder_norm"], x, cfg.norm_type, cfg.norm_eps), pos
+
+
+def _cross_cache(cfg, params, enc_out: torch.Tensor) -> Dict[str, Any]:
+    """Each decoder slot's cross k/v over the encoder output, stacked
+    (periods, B, Se, KV, hd)."""
+    return {
+        sk: {"cross": {
+            "k": torch.einsum("bsd,pdhk->pbshk", enc_out, params["stack"][sk]["cross"]["wk"]),
+            "v": torch.einsum("bsd,pdhk->pbshk", enc_out, params["stack"][sk]["cross"]["wv"]),
+        }}
+        for sk in params["stack"]
     }
 
 
@@ -49,12 +96,14 @@ def _embed_inputs(cfg, params, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Te
 def forward(cfg, params, batch: Dict[str, torch.Tensor], use_kernel: bool = False,
             gen: Optional[torch.Generator] = None, train: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (fp32 logits (B, S, padded_vocab) over the text positions,
-    summed aux losses). batch: tokens (B, S); vlm: + embeds (B, P, D)."""
+    summed aux losses). batch: tokens (B, S); vlm: + embeds (B, P, D);
+    encdec: + frames (B, Se, D)."""
     x, prefix = _embed_inputs(cfg, params, batch)
+    cross_ctx = _encode(cfg, params, batch["frames"]) if cfg.family == "encdec" else None
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     x, _, aux = stack_apply(cfg, build_slots(cfg), params["stack"], x, positions,
-                            use_kernel=use_kernel, gen=gen, train=train)
+                            use_kernel=use_kernel, gen=gen, train=train, cross_ctx=cross_ctx)
     x = norm_apply(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
     return unembed_apply(params["embed"], x[:, prefix:]), aux
 
@@ -69,23 +118,26 @@ def loss_fn(cfg, params, batch: Dict[str, torch.Tensor], gen: Optional[torch.Gen
     return loss, {"loss": loss, "ce": ce, **aux}
 
 
-def cache_decl(cfg, batch: int, cache_len: int) -> Dict[str, Any]:
-    """Ring-cache structure for decode; cache_len = min(seq_len, window)."""
+def cache_decl(cfg, batch: int, cache_len: int, enc_len: int = 0) -> Dict[str, Any]:
+    """Ring-cache structure for decode; cache_len = min(seq_len, window);
+    ``enc_len`` encoder positions for an encdec config's cross k/v."""
     if cfg.sliding_window is not None:
         cache_len = min(cache_len, cfg.sliding_window)
     slots = build_slots(cfg)
     return {
         "pos": ParamDecl((batch,), ("batch",), "zeros", torch.int32),
         "slot_pos": ParamDecl((batch, cache_len), ("batch", "cache_seq"), "zeros", torch.int32),
-        "stack": stack_cache_decl(cfg, slots, periods_for(cfg, slots), batch, cache_len),
+        "stack": stack_cache_decl(cfg, slots, periods_for(cfg, slots), batch, cache_len, enc_len),
     }
 
 
 def decode_step(cfg, params, cache: Dict[str, Any], tokens: torch.Tensor, use_kernel: bool = False) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step: writes each row's token at its ring slot and
     returns fp32 logits (B, padded_vocab) for the next token and the cache.
-    The k/v leaves of ``cache["stack"]`` are updated in place; ``pos`` and
-    ``slot_pos`` are new tensors."""
+    The leaves of ``cache["stack"]`` (k/v, ckv/krope, the SSM's conv and
+    state) are updated in place; ``pos`` and ``slot_pos`` are new tensors.
+    An encdec decoder attends to the cached cross k/v over all of its
+    encoder positions."""
     B = tokens.shape[0]
     pos = cache["pos"]
     W = cache["slot_pos"].shape[1]
@@ -97,6 +149,9 @@ def decode_step(cfg, params, cache: Dict[str, Any], tokens: torch.Tensor, use_ke
     cols = torch.arange(W, device=tokens.device)
     slot_pos = torch.where((pos[:, None] == 0) & (cols[None, :] != slot[:, None]), -1, slot_pos)
     cache_view = {"slot": slot, "slot_pos": slot_pos}
+    if cfg.family == "encdec":
+        enc_len = tree_leaves(cache["stack"]["slot0"]["cross"])[0].shape[2]
+        cache_view["enc_pos"] = torch.arange(enc_len, dtype=torch.int32, device=tokens.device).expand(B, enc_len)
 
     x = embed_apply(params["embed"], tokens[:, None], torch_dtype(cfg.dtype))
     x, new_stack, _ = stack_apply(
@@ -121,22 +176,30 @@ def prefill_forward(
     logits are taken at each row's last valid position and pad slots stay
     invalid in ``slot_pos``. Keep the padded length <= the ring size. A
     vlm's prefix counts in the cache and its positions: ``valid_len`` counts
-    text tokens, and the next position is P + valid_len."""
+    text tokens, and the next position is P + valid_len.
+
+    The SSM caches (conv tail and state, no sequence dim) are kept as they
+    are, and with ``valid_len`` hold only each row's real positions: its
+    pad positions enter neither (``models/ssm.py``), so a bucketed prefill
+    equals the unpadded one, which the JAX version does not give. An
+    encdec cache gets each decoder layer's cross k/v over the encoder
+    output of ``batch["frames"]``."""
     x, prefix = _embed_inputs(cfg, params, batch)
+    cross_ctx = _encode(cfg, params, batch["frames"]) if cfg.family == "encdec" else None
     B, S = x.shape[:2]
     dev = x.device
     positions = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
-    x, seq_cache, _ = stack_apply(
-        cfg, build_slots(cfg), params["stack"], x, positions,
-        use_kernel=use_kernel, return_cache=True,
-    )
-    x = norm_apply(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
     if valid_len is None:
         total = torch.full((B,), S, dtype=torch.int32, device=dev)
-        xl = x[:, -1:]
     else:
-        total = prefix + valid_len.to(torch.int32)
-        xl = x[torch.arange(B, device=dev), total.long() - 1][:, None]
+        total = prefix + valid_len.to(device=dev, dtype=torch.int32)
+    x, seq_cache, _ = stack_apply(
+        cfg, build_slots(cfg), params["stack"], x, positions,
+        use_kernel=use_kernel, return_cache=True, cross_ctx=cross_ctx,
+        valid=None if valid_len is None else total,
+    )
+    x = norm_apply(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
+    xl = x[:, -1:] if valid_len is None else x[torch.arange(B, device=dev), total.long() - 1][:, None]
     logits = unembed_apply(params["embed"], xl)[:, 0]
 
     # ---- pack the per-layer seq caches into the ring-buffer layout ------
@@ -151,12 +214,38 @@ def prefill_forward(
         buf[:, :, ring_slots] = full[:, :, S - Wc:]
         return buf
 
-    stack_cache = tree_map(pack, seq_cache)
+    stack_cache = {sk: {k: (tree_map(pack, v) if k == "attn" else v) for k, v in c.items()}
+                   for sk, c in (seq_cache or {}).items()}
+    if cross_ctx is not None:
+        for sk, c in _cross_cache(cfg, params, cross_ctx[0]).items():
+            stack_cache[sk].update(c)
     slot_pos = torch.full((B, W), -1, dtype=torch.int32, device=dev)
     slot_pos[:, ring_slots] = torch.arange(S - Wc, S, dtype=torch.int32, device=dev)
     if valid_len is not None:
         slot_pos = torch.where(slot_pos >= total[:, None], -1, slot_pos)
     return logits, {"pos": total, "slot_pos": slot_pos, "stack": stack_cache}
+
+
+def prefill_reference(cfg, params, batch: Dict[str, torch.Tensor], cache_len: Optional[int] = None,
+                      ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """The oracle of :func:`prefill_forward`: a zero ring cache (an encdec
+    one holding the encoder's cross k/v) filled by ``decode_step`` over the
+    prompt's tokens one at a time, through the plain paths. Returns the
+    last step's logits and the cache."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    dev = params["final_norm"]["scale"].device
+    enc_len = batch["frames"].shape[1] if cfg.family == "encdec" else 0
+    cache = init_from_decls(cache_decl(cfg, B, cache_len or S, enc_len), 0, dev)
+    cache["slot_pos"].fill_(-1)
+    if cfg.family == "encdec":
+        enc_out, _ = _encode(cfg, params, batch["frames"])
+        for sk, c in _cross_cache(cfg, params, enc_out).items():
+            cache["stack"][sk].update(c)
+    logits = None
+    for t in range(S):
+        logits, cache = decode_step(cfg, params, cache, tokens[:, t].to(dev))
+    return logits, cache
 
 
 # ---------------------------------------------------------------------------
@@ -174,9 +263,17 @@ def paged_stack_decl(cfg, num_pages: int, page_size: int) -> Dict[str, Any]:
     ``cfg.quant_kv == "int8"`` makes the k/v payload int8 and adds fp32
     per-token, per-KV-head scale sidecars ``k_scale``/``v_scale`` shaped
     ``(P, num_pages, page_size, KV, 1)`` to the same subtree, so every pool
-    operation (copy-on-write, defrag) moves the scales with their pages."""
+    operation (copy-on-write, defrag) moves the scales with their pages.
+
+    GQA attention stacks only, as in the JAX package: an MLA, SSM, hybrid
+    or cross-attention config raises ``ValueError`` (they keep the ring
+    cache)."""
     slots = build_slots(cfg)
     periods = periods_for(cfg, slots)
+    if cfg.use_mla or any(s.mixer != "attn" or s.cross_attn for s in slots):
+        raise ValueError(
+            f"the paged KV cache holds GQA attention stacks only; {cfg.name} (family {cfg.family!r}, "
+            f"use_mla={cfg.use_mla}) keeps the ring cache (cache_mode='ring')")
     kv, hd = cfg.num_kv_heads, cfg.head_dim_
     quant = cfg.quant_kv == "int8"
     dt = torch.int8 if quant else torch_dtype(cfg.dtype)

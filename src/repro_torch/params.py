@@ -44,7 +44,7 @@ class ParamDecl:
 
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
-    init: str = "fan_in"  # fan_in | normal:<std> | zeros | ones
+    init: str = "fan_in"  # fan_in | normal:<std> | uniform:<lo>:<hi> | zeros | ones
     dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self):
@@ -70,21 +70,30 @@ def tree_leaves(tree) -> list:
 
 def _random_slices(d: ParamDecl, gen: torch.Generator, device: torch.device):
     """Yield each leading slice (the last two dims) of a random leaf, drawn
-    in fp32 and scaled by the init's std, in the generator's order: one
-    slice at a time, since the stacked expert leaf of llama3-e8t2 is
-    periods x 8 x 4096 x 14336 values and an fp32 copy of it would not fit."""
+    in fp32 (normal, scaled by the init's std, or uniform on [lo, hi)), in
+    the generator's order: one slice at a time, since the stacked expert
+    leaf of llama3-e8t2 is periods x 8 x 4096 x 14336 values and an fp32
+    copy of it would not fit."""
+    lo = hi = std = None
     if d.init.startswith("normal"):
         std = float(d.init.split(":")[1]) if ":" in d.init else 0.02
     elif d.init == "fan_in":
         fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
         std = 1.0 / math.sqrt(max(fan_in, 1))
+    elif d.init.startswith("uniform:"):
+        _, lo, hi = d.init.split(":")
+        lo, hi = float(lo), float(hi)
     else:
         raise ValueError(f"unknown init {d.init!r}")
     n = math.prod(d.shape[:-2]) if len(d.shape) > 2 else 1
+    shape = d.shape[-2:] if len(d.shape) >= 2 else d.shape
     for _ in range(n):
-        r = torch.randn(d.shape[-2:] if len(d.shape) >= 2 else d.shape, generator=gen, device=device,
-                        dtype=torch.float32)
-        yield r.mul_(std)
+        if std is None:
+            r = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
+            yield r.mul_(hi - lo).add_(lo)
+        else:
+            r = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+            yield r.mul_(std)
 
 
 def _init_leaf(d: ParamDecl, gen: torch.Generator, device: torch.device) -> torch.Tensor:
@@ -117,10 +126,10 @@ def init_from_decls(decls: Tree, seed: int, device: Union[str, torch.device] = "
                     quant_weights: str = "none") -> Tree:
     """Materialise a tree of :class:`ParamDecl` on ``device``, leaf by leaf,
     from one generator seeded with ``seed``. With ``quant_weights="int8"``
-    every expert-FFN dict comes out quantised (int8 weights and bf16
+    every ``experts`` dict comes out quantised (int8 weights and bf16
     ``*_scale`` leaves) straight from the draw: the same generator stream,
     and bit for bit ``quantize_params`` of the bf16 tree, which is never
-    built."""
+    built. Dense FFNs stay bf16, as ``quantize_params`` leaves them."""
     from repro_torch.core.quant import EXPERT_KEYS, QUANT_MODES
 
     if quant_weights not in QUANT_MODES:
@@ -129,10 +138,11 @@ def init_from_decls(decls: Tree, seed: int, device: Union[str, torch.device] = "
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
 
-    def init(node):
+    def init(node, key=None):
         if not isinstance(node, dict):
             return _init_leaf(node, gen, dev)
-        if quant_weights == "int8" and all(isinstance(node.get(k), ParamDecl) for k in EXPERT_KEYS):
+        if quant_weights == "int8" and key == "experts" and all(isinstance(node.get(k), ParamDecl)
+                                                                for k in EXPERT_KEYS):
             out, scales = {}, {}
             for k, d in node.items():
                 if k in EXPERT_KEYS:
@@ -140,7 +150,7 @@ def init_from_decls(decls: Tree, seed: int, device: Union[str, torch.device] = "
                 else:
                     out[k] = init(d)
             return {**out, **scales}
-        return {k: init(v) for k, v in node.items()}
+        return {k: init(v, k) for k, v in node.items()}
 
     return init(decls)
 
@@ -151,7 +161,12 @@ def params_from_numpy(tree, device: Union[str, torch.device] = "cuda") -> Tree:
     ``bfloat16`` (from ``ml_dtypes``), which ``torch.from_numpy`` refuses:
     it is recognised by name and carried bit for bit as int16, then viewed
     as ``torch.bfloat16``. Other dtypes keep their type: int8 expert
-    weights arrive as int8, their ``*_scale`` leaves as bf16."""
+    weights arrive as int8, their ``*_scale`` leaves as bf16, the SSM's
+    fp32 ``conv_w``/``conv_b``/``dt_bias``/``A_log``/``D_skip`` as fp32.
+    The tree's keys are the declarations' (MLA's ``wq_a``/``wq_b``/
+    ``wkv_a``/``wkv_b``/``q_norm``/``kv_norm``, the ``encoder`` stack and
+    ``encoder_norm``, a decoder slot's ``norm_cross``/``cross``), so every
+    family's JAX tree carries across as it is."""
     dev = resolve_device(device)
 
     def conv(a):

@@ -9,6 +9,11 @@ candidates against in place of the TPU profiles' VMEM budget. The
 interconnect rate of the JAX profiles waits for the roofline report that
 reads it. The default is ``"h100"``; ``REPRO_HW_PROFILE``
 selects another per call.
+
+:func:`training_mfu` is the model FLOPs utilisation of a training run for
+every family (dense, MoE, MLA, SSM, hybrid, encdec), from
+``ModelConfig.flops_per_token`` alone: the trainer's logging counts the
+same FLOPs (``train/callbacks.py``).
 """
 from __future__ import annotations
 
@@ -43,3 +48,10 @@ def hw_profile(name: Optional[str] = None) -> Dict[str, float]:
         return HW_PROFILES[name]
     except KeyError:
         raise ValueError(f"unknown hardware profile {name!r}; expected one of {sorted(HW_PROFILES)}") from None
+
+
+def training_mfu(cfg, seq_len: int, tokens_per_s: float, name: Optional[str] = None) -> float:
+    """Model FLOPs utilisation of training at ``tokens_per_s``: 3x the
+    forward's FLOPs per token (forward + backward, the paper's convention;
+    remat's recompute is not counted) over the profile's ``peak_flops``."""
+    return 3 * cfg.flops_per_token(seq_len) * tokens_per_s / hw_profile(name)["peak_flops"]

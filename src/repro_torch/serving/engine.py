@@ -24,6 +24,16 @@ argmax, also with ``greedy=False``. ``step`` carries the ``serving.step``
 fault site (a hang) and the step watchdog: with ``step_timeout_s`` a step
 over its wall budget raises :class:`HangError`. Not ported yet, and
 raising ``NotImplementedError``: the EP x DP mesh mode.
+
+Families: the ring backend serves every decoder family (GQA or MLA
+attention, SSM, hybrid, MoE or not) through the length-bucketed prefill;
+an SSM's bucket pad tokens stay out of its state (``models/ssm.py``). The
+paged backend holds GQA attention stacks only and raises ``ValueError``
+for MLA, SSM, hybrid and cross-attention configs, as the JAX engine's
+pool declaration refuses them. An ``encdec`` config raises ``ValueError``:
+the JAX engine cannot serve it either (its prefill reads
+``batch["frames"]``, which the engine never passes); seamless generates
+through ``prefill_forward`` and ``decode_step``.
 """
 from __future__ import annotations
 
@@ -95,6 +105,11 @@ class ServingEngine:
             raise NotImplementedError("mesh (ROADMAP queue 1, 'Multi-GPU') not ported yet")
         if cache_mode not in ("ring", "paged"):
             raise ValueError(f"unknown cache_mode {cache_mode!r}")
+        if cfg.family == "encdec":
+            raise ValueError(
+                f"{cfg.name}: the serving engine does not serve the encdec family (the JAX engine's prefill "
+                "reads batch['frames'], which it never passes); generate through prefill_forward and "
+                "decode_step with the frames instead")
         if prefix_cache and cache_mode != "paged":
             raise ValueError("prefix_cache requires cache_mode='paged'")
         if prefix_cache and cfg.sliding_window is not None:

@@ -11,6 +11,11 @@ verifier's argmax and then emits the verifier's own next token, so every
 verify step emits between 1 and ``k + 1`` tokens and the output is token
 for token that of plain greedy decode.
 
+Both pools are page pools, so the verifier and the drafter are GQA
+attention stacks: an MLA, SSM, hybrid or encdec config raises
+``ValueError`` from the page pool's declaration or the engine, as the JAX
+pool refuses it.
+
 On the paged KV subsystem:
 
 * ONE host page pool, scheduler and set of block tables drive TWO device

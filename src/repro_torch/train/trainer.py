@@ -227,7 +227,7 @@ class Trainer:
         it = make_train_iter(
             self.cfg.vocab_size, self.tcfg.seq_len, self.tcfg.global_batch, self.tcfg.blend_ratio,
             data_seed if data_seed is not None else self.tcfg.seed,
-            stub_inputs(self.cfg, self.tcfg.global_batch), sample_seed=seed,
+            stub_inputs(self.cfg, self.tcfg.global_batch, self.tcfg.seq_len), sample_seed=seed,
         )
         losses = []
         with torch.no_grad():

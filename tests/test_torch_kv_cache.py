@@ -175,3 +175,17 @@ def test_prefix_refcount_invariant_second_case_pinned():
         j_simulate(127, **PINNED_2)
     steps, compared, diverged_at = simulate_side_by_side(127, **PINNED_2)
     assert diverged_at is not None and compared == diverged_at < steps
+
+
+PINNED_3 = dict(num_pages=14, ps=1, max_batch=2, chunk=1, window=None, n_req=6, prefix=True)
+
+
+def test_prefix_refcount_invariant_third_case_pinned():
+    """A third stream on which the JAX prefix cache breaks the same
+    invariant, with one-token pages. The port keeps every invariant through
+    it, and its plans equal the JAX package's up to the step at which its
+    insert declines to graft under an unreferenced page."""
+    with pytest.raises(AssertionError, match="refcount not monotone"):
+        j_simulate(2683, **PINNED_3)
+    steps, compared, diverged_at = simulate_side_by_side(2683, **PINNED_3)
+    assert diverged_at is not None and compared == diverged_at < steps

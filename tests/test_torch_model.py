@@ -136,10 +136,3 @@ def test_configs_match_jax(arch):
     for f in ("num_layers", "d_model", "num_heads", "num_kv_heads", "head_dim", "d_ff", "vocab_size"):
         assert getattr(js, f) == getattr(ts, f), f
     assert t.padded_vocab == j.padded_vocab
-
-
-def test_unported_arch_and_family_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TC.get_config("mamba2-2.7b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TC.ModelConfig(family="ssm")

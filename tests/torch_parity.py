@@ -9,6 +9,8 @@ Tolerances used across the files, with their reasons:
 * ``BF16_REL = 2e-2`` of max |ref| — bf16 inputs: the two frameworks round
   intermediates to bf16 at different points (a bf16 ulp is 2^-8 ~ 4e-3).
 """
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -127,3 +129,82 @@ class Float64(torch.overrides.TorchFunctionMode):
                 r = torch.rand(out.shape, generator=self.gen, dtype=torch.float64) * 2 - 1
                 out = out * (1 + 2.0 ** -24 * r)
         return out
+
+
+def named(tree, prefix=""):
+    """{path: leaf} of a nested dict, in either package's tree."""
+    if isinstance(tree, dict):
+        return {k: v for key in sorted(tree) for k, v in named(tree[key], f"{prefix}{key}/").items()}
+    return {prefix[:-1]: tree}
+
+
+def check_grads(t, tp, tb, jm, jg, rel: float):
+    """The port's ``loss_fn`` metrics on ``tb`` (kernel path) equal the JAX
+    ones ``jm`` (1e-5 relative), and every parameter's gradient is within
+    ``rel`` x max|g| of JAX's ``jg``, path by path."""
+    from repro_torch.models.model import loss_fn
+
+    leaves = named(tp)
+    for x in leaves.values():
+        x.requires_grad_(True)
+    try:
+        tloss, tm = loss_fn(t, tp, tb, use_kernel=True)
+        tg = dict(zip(leaves, torch.autograd.grad(tloss, list(leaves.values()), allow_unused=True)))
+    finally:
+        for x in leaves.values():
+            x.requires_grad_(False)
+    for k in ("loss", "ce", "load_balance_loss", "z_loss"):
+        np.testing.assert_allclose(float(tm[k].detach()), float(jm[k]), rtol=1e-5, atol=1e-8, err_msg=k)
+    ref_g = named(jg)
+    assert sorted(ref_g) == sorted(tg)
+    for name, ref in ref_g.items():
+        ref, g = f32(ref), tg[name]
+        scale = float(np.abs(ref).max())
+        if not scale:
+            assert g is None or not float(g.abs().max()), name
+            continue
+        err = float(np.abs(f32(g) - ref).max())
+        assert err <= rel * scale, (name, err / scale, rel)
+
+
+def check_grads_fp64(t, tp, tb, jm, jg, draws: int = 3):
+    """As :func:`check_grads`, for graphs whose fp32 gradients rounding
+    alone moves by percent: each leaf's gradients, the port's (kernel path)
+    and JAX's ``jg``, are held against the port's graph evaluated in fp64
+    (``Float64``, plain path, remat off), with e = max|g32 - g64| /
+    max|g64| and ``noise`` the largest such e of ``draws`` fp64 evaluations
+    perturbed at fp32's rounding size: e_port <= 1.5 (e_jax + noise) +
+    1e-6, e_jax <= 10 noise + 1e-6 (``test_torch_train.py``'s rule). The
+    loss metrics are held by the same rule."""
+    from repro_torch.models.model import loss_fn
+    from repro_torch.params import tree_map
+
+    def grads(params, cfg, use_kernel, mode=None):
+        leaves = named(params)
+        for x in leaves.values():
+            x.requires_grad_(True)
+        try:
+            with mode or contextlib.nullcontext():
+                loss, met = loss_fn(cfg, params, tb, use_kernel=use_kernel)
+            return met, dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)))
+        finally:
+            for x in leaves.values():
+                x.requires_grad_(False)
+
+    tm, g32 = grads(tp, t, True)
+    plain = t.replace(remat="none")
+    m64, g64 = grads(tree_map(lambda x: x.double(), tp), plain, False, Float64())
+    noisy = [grads(tree_map(lambda x: x.double(), tp), plain, False, Float64(noise=i)) for i in range(draws)]
+    ref_g = named(jg)
+    assert sorted(ref_g) == sorted(g32)
+    pairs = [(k, float(tm[k].detach()), float(jm[k]), float(m64[k].detach()), [float(m[k].detach()) for m, _ in noisy])
+             for k in ("loss", "ce", "load_balance_loss", "z_loss")]
+    pairs += [(k, f32(g32[k]), f32(ref_g[k]), c.numpy(), [g[k].numpy() for _, g in noisy]) for k, c in g64.items()]
+    for name, port, ref, c, draws_ in pairs:
+        scale = np.abs(c).max()
+        if not scale:
+            continue
+        n = max(np.abs(d - c).max() for d in draws_) / scale
+        e_port, e_jax = np.abs(port - c).max() / scale, np.abs(ref - c).max() / scale
+        assert e_port <= 1.5 * (e_jax + n) + 1e-6, (name, e_port, e_jax, n)
+        assert e_jax <= 10 * n + 1e-6, (name, e_jax, n)
